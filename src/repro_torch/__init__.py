@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the DistGNN-MB reproduction.
+
+A second package beside the JAX reference ``repro``: it mirrors that
+package's module paths, imports ``torch`` and numpy only (never ``jax``
+and nothing of ``repro``), and runs every TPU kernel on its path as a
+CUDA C++ kernel written for Hopper (``csrc/``).  Entry points run on the
+card unless the caller passes ``device="cpu"``; see :mod:`.device`.
+
+Ported so far: single-rank GraphSAGE serving with the HEC-backed
+embedding cache (``serve/gnn``), through the fused serve-layer kernel
+(``kernels/serve_fused``) and the fused HEC probe + load kernel
+(``kernels/hec_search``).
+"""
+from repro_torch.device import resolve_device  # noqa: F401

@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version (``ref.py``).  Sources are in ``repro_torch/csrc``; ``_build``
+compiles them on first launch.
+
+  serve_fused.serve_fused_layer   <- repro/kernels/serve_fused.py:fused_serve_layer
+  hec_search.hec_lookup           <- repro/kernels/hec_search.py:hec_search_kernel
+                                     + the HECLoad gather of repro/cache/hec.py
+"""

@@ -1,0 +1,201 @@
+"""GNN inference serving run on the card (counterpart of
+``repro/launch/gnn_serve.py``):
+
+  python -m repro_torch.launch.gnn_serve [--preset graphsage-papers100m]
+      [--vertices 20000] [--slots 32] [--queries 1024] [--overlap 0.5]
+      [--cache-size 65536] [--no-prewarm] [--device cuda] [--profile]
+
+Flow: synthetic power-law graph -> single-partition serving graph ->
+``GNNServeScheduler`` (fixed-slot microbatches, HEC-backed cache) serves a
+query workload cold; the layer-wise offline engine then computes exact
+full-graph embeddings, pre-warms the cache, and the same workload is
+served again — the second pass answers from the output cache without
+sampling or compute.
+
+Presets: ``small`` is the reference launcher's CPU-sized model (feat 32,
+hidden 64, 2 layers, 16 classes, fanouts 5,10); ``graphsage-papers100m``
+is the paper's full width (feat 128, hidden 256, 3 layers, 172 classes,
+fanouts 5,10,15).  Weights are He-normal from numpy seed 0.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+PRESETS = ("small", "graphsage-papers100m")
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", default="small", choices=PRESETS)
+    ap.add_argument("--vertices", type=int, default=20_000)
+    ap.add_argument("--slots", type=int, default=32)
+    ap.add_argument("--queries", type=int, default=1024)
+    ap.add_argument("--overlap", type=float, default=0.5,
+                    help="fraction of queries that repeat earlier ones")
+    ap.add_argument("--cache-size", type=int, default=65_536)
+    ap.add_argument("--no-prewarm", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (plain PyTorch versions of "
+                         "the kernels)")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the cold pass with torch.profiler: print "
+                         "the device's busy share and its top kernels")
+    return ap.parse_args(argv)
+
+
+def model_config(preset: str):
+    from repro_torch.configs.gnn import GRAPHSAGE_PAPERS100M, small_gnn_config
+    if preset == "graphsage-papers100m":
+        return GRAPHSAGE_PAPERS100M
+    return small_gnn_config("graphsage", batch_size=64, feat_dim=32,
+                            num_classes=16, fanouts=(5, 10), hidden_size=64)
+
+
+def workload(num_vertices: int, queries: int, overlap: float) -> np.ndarray:
+    """The reference launcher's query stream: a pool of unique vids plus
+    repeats drawn from it, shuffled (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    n_unique = max(1, int(round(queries * (1 - overlap))))
+    pool = rng.choice(num_vertices, size=n_unique, replace=False)
+    vids = np.concatenate(
+        [pool, rng.choice(pool, size=queries - n_unique, replace=True)])
+    rng.shuffle(vids)
+    return vids
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def device_profile(prof, wall_s: float, top: int = 8) -> dict:
+    """Device busy share of a profiled window and its top device events
+    (kernels and copies; one stream, so their times do not overlap)."""
+    from torch.autograd import DeviceType
+    ops = [(e.key, e.self_device_time_total, e.count)
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops.sort(key=lambda x: -x[1])
+    busy_us = sum(t for _, t, _ in ops)
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall_s,
+            "top": [{"op": k, "device_ms": t / 1e3, "calls": n}
+                    for k, t, n in ops[:top]]}
+
+
+def run(args: argparse.Namespace) -> dict:
+    """The launcher's flow; prints its report and returns the server, the
+    workload, both passes' requests, the offline embeddings and rates."""
+    from repro_torch import obs
+    from repro_torch.device import resolve_device
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.models.gnn.graphsage import GraphSAGE
+    from repro_torch.serve.gnn import (GNNServeConfig, GNNServeScheduler,
+                                       ServeCacheConfig, layerwise_embeddings,
+                                       warm_cache)
+
+    device = resolve_device(args.device)
+    cfg = model_config(args.preset)
+    g = synthetic_graph(num_vertices=args.vertices, avg_degree=8,
+                        num_classes=cfg.num_classes, feat_dim=cfg.feat_dim,
+                        seed=0)
+    part = partition_graph(g, 1, seed=0).parts[0]
+    print(f"serving graph: {part.num_solid} vertices, "
+          f"{len(part.indices)} edges; model {cfg.name} "
+          f"({cfg.feat_dim}->{cfg.hidden_size}x{cfg.num_layers - 1}->"
+          f"{cfg.num_classes}, fanouts {tuple(cfg.fanouts)}) on {device}")
+    model = GraphSAGE.from_config(cfg, seed=0, device=device)
+    srv = GNNServeScheduler(
+        cfg, model, part,
+        GNNServeConfig(num_slots=args.slots,
+                       cache=ServeCacheConfig(cache_size=args.cache_size,
+                                              ways=8)),
+        device=device)
+    vids = workload(part.num_solid, args.queries, args.overlap)
+
+    # warm-up outside any reported timing (first launches build and load
+    # the kernels), then reset cache AND counters
+    srv.serve(vids[:2 * args.slots])
+    srv.update_params(model)
+    srv.cache.reset_counters()
+    srv.reset_frontend()
+
+    reg = obs.configure().registry
+    prof = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        prof = profile(activities=acts)
+        prof.__enter__()
+    t0 = time.perf_counter()
+    cold = [srv.submit(v) for v in vids]
+    srv.pump()
+    _sync(device)
+    t_cold = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    m = srv.metrics()
+    steps = max(m["steps_run"], 1)
+    breakdown = {ph: reg.value("phase_seconds", phase=ph) * 1e3 / steps
+                 for ph in ("serve_round", "serve_sample", "serve_step",
+                            "serve_sync_host")}
+    out = {"srv": srv, "cfg": cfg, "part": part, "vids": vids,
+           "cold": cold, "cold_qps": args.queries / t_cold,
+           "cold_metrics": m, "cold_ms_per_microbatch": breakdown}
+    print(f"cold:       {args.queries} queries in {t_cold:.3f}s "
+          f"({args.queries / t_cold:.0f} q/s), {m['steps_run']} "
+          f"microbatches; hit rates "
+          + " ".join(f"l{k}={m[f'hit_rate_l{k}']:.2f}"
+                     for k in range(1, cfg.num_layers + 1))
+          + f"; occupancy l1={m['occupancy_l1']:.2f}; latency "
+          f"p50={m['latency_p50_ms']:.2f}ms p99={m['latency_p99_ms']:.2f}ms")
+    print("cold round: " + ", ".join(
+        f"{ph.removeprefix('serve_')} {ms:.2f}" for ph, ms in
+        breakdown.items()) + " ms per microbatch (host clock)")
+    if prof is not None:
+        dp = out["cold_profile"] = device_profile(prof, t_cold)
+        print(f"profile:    cold pass {dp['wall_ms']:.1f} ms wall (traced), "
+              f"device busy {dp['device_busy_ms']:.2f} ms = "
+              f"{100 * dp['device_busy_share']:.1f}% of it")
+        for row in dp["top"]:
+            print(f"profile:      {row['device_ms']:8.3f} ms  "
+                  f"{row['calls']:5d} calls  {row['op'][:70]}")
+
+    if not args.no_prewarm:
+        srv.update_params(model)
+        t0 = time.perf_counter()
+        embs = layerwise_embeddings(cfg, srv.model, part)
+        n = warm_cache(srv.cache, embs, np.unique(vids))
+        _sync(device)
+        t_warm_build = time.perf_counter() - t0
+        print(f"pre-warm:   offline layer-wise inference + store of {n} "
+              f"vertices in {t_warm_build:.3f}s")
+        fp0 = srv.metrics()["fast_path_hits"]
+        srv.reset_frontend()
+        t0 = time.perf_counter()
+        warm = [srv.submit(v) for v in vids]
+        srv.pump()
+        _sync(device)
+        t_warm = time.perf_counter() - t0
+        m = srv.metrics()
+        out.update(embs=embs, warm=warm, warm_qps=args.queries / t_warm,
+                   warm_metrics=m)
+        print(f"pre-warmed: {args.queries} queries in {t_warm:.3f}s "
+              f"({args.queries / t_warm:.0f} q/s), "
+              f"{m['fast_path_hits'] - fp0} fast-path answers, "
+              f"{m['steps_run']} microbatches -> "
+              f"{t_cold / t_warm:.1f}x cold throughput")
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,165 @@
+"""Vectorized CSR neighbor sampler (own numpy copy of
+``repro/pipeline/vectorized_sampler.py``: ``_draw_neighbors`` and
+``sample_blocks_vectorized``).
+
+Produces the fixed-shape ``MinibatchBlocks`` contract with no per-row
+Python loops:
+
+  * fanout draw: one uniform key matrix ``[n_dst, max_deg]`` per layer;
+    the ``f`` smallest keys of a row are a uniform sample without
+    replacement from that row's neighbors (rows with ``deg <= f`` keep all
+    neighbors in CSR order).
+  * relabeling: ``np.unique``/``np.setdiff1d`` for the new-leaf set and a
+    direct lookup table instead of a Python dict.
+
+The RNG consumption is the reference's, call for call, so the same
+``np.random.default_rng([seed, mb])`` gives identical blocks in both
+packages (``tests/test_torch_graph.py``).  The on-device draw
+(``DeviceSampler``) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.graph.partition import Partition
+from repro_torch.graph.sampling import MinibatchBlocks, layer_capacities
+
+
+def _draw_neighbors(indptr: np.ndarray, indices: np.ndarray, cur: np.ndarray,
+                    num_solid: int, f: int,
+                    rng: np.random.Generator,
+                    allow: Optional[np.ndarray] = None) -> np.ndarray:
+    """Sampled neighbor VIDs ``[len(cur), f]`` (-1 pad), no Python loops.
+
+    ``allow`` (bool ``[len(cur)]``) suppresses expansion of individual rows:
+    a row with ``allow=False`` keeps an all ``-1`` neighbor list, exactly as
+    a halo does.  The serving path uses this to turn cache-resident vertices
+    into leaves — their embedding is substituted from the HEC, so their
+    neighborhood never needs to be materialized.
+    """
+    n_dst = len(cur)
+    out = np.full((n_dst, f), -1, np.int64)
+    valid = (cur >= 0) & (cur < num_solid)        # halos are never expanded
+    if allow is not None:
+        valid &= allow
+    vc = np.where(valid, cur, 0)
+    deg = np.where(valid, indptr[vc + 1] - indptr[vc], 0)
+    # compact to rows that actually sample: wide layers are mostly padding
+    act = np.flatnonzero(deg > 0)
+    if f <= 0 or len(act) == 0:
+        return out
+    deg = deg[act]
+    starts = indptr[vc[act]]
+
+    # deg <= f rows keep every neighbor (CSR order, left-packed) — no RNG
+    small = deg <= f
+    if small.any():
+        ds, ss = deg[small], starts[small]
+        w = int(ds.max())
+        col = np.arange(w)
+        in_row = col[None, :] < ds[:, None]
+        gi = np.minimum(ss[:, None] + col[None, :], len(indices) - 1)
+        out[act[small], :w] = np.where(in_row, indices[gi], -1)
+
+    # deg > f rows: f smallest of iid uniform keys == uniform sample w/o
+    # replacement; all f picks are in-row so no masking/packing needed.
+    # Rows are processed in degree-sorted chunks so a few hub vertices don't
+    # widen the key matrix (and the argpartition) for every row.
+    big = ~small
+    if big.any():
+        rows, db, sb = act[big], deg[big], starts[big]
+        order = np.argsort(db, kind="stable")
+        for ch in np.array_split(order, min(8, len(order))):
+            if not len(ch):
+                continue
+            d_ch = db[ch]
+            w = int(d_ch.max())
+            keys = rng.random((len(ch), w), dtype=np.float32)
+            keys[np.arange(w)[None, :] >= d_ch[:, None]] = np.inf
+            sel = np.argpartition(keys, f - 1, axis=1)[:, :f]
+            out[rows[ch]] = indices[sb[ch][:, None] + sel]
+    return out
+
+
+def sample_blocks_vectorized(part: Partition, seeds_p: np.ndarray,
+                             fanouts: Sequence[int],
+                             rng: np.random.Generator,
+                             batch_size: int,
+                             expandable: Optional[Sequence[np.ndarray]]
+                             = None) -> MinibatchBlocks:
+    """Fixed-shape blocks for ``seeds_p`` (uniform without replacement per
+    row; the full row when ``deg <= fanout``).
+
+    ``expandable`` (optional, length ``L+1``; entry ``k`` a bool array over
+    VID_p — covering the solids, or solids + halos for sharded serving —
+    or ``None``) gates neighborhood expansion per layer: a node at
+    layer ``k`` with ``expandable[k][vid] == False`` is kept as a leaf —
+    its layer-``k`` embedding is expected from a cache (serving) or the HEC
+    (training halos), so its subtree is never sampled.  Entry 0 is unused
+    (layer 0 is never expanded).
+    """
+    fanouts = list(fanouts)
+    L = len(fanouts)
+    caps = layer_capacities(batch_size, fanouts)
+    S = part.num_solid
+
+    seeds = np.full(batch_size, -1, np.int64)
+    seeds[:len(seeds_p)] = seeds_p
+    seed_mask = seeds >= 0
+    labels = np.zeros(batch_size, np.int64)
+    labels[seed_mask] = part.labels[seeds[seed_mask]]
+
+    layer_nodes: List[np.ndarray] = [None] * (L + 1)
+    node_mask: List[np.ndarray] = [None] * (L + 1)
+    nbr_idx: List[np.ndarray] = [None] * L
+    layer_nodes[L] = seeds
+    node_mask[L] = seed_mask
+
+    cur = seeds
+    for k in range(L - 1, -1, -1):              # seeds toward inputs
+        f = fanouts[k]
+        n_dst = len(cur)
+        allow = None
+        if expandable is not None and expandable[k + 1] is not None:
+            # masks may cover solids only (single-partition serving) or
+            # solids + halos (sharded serving); rows outside the mask are
+            # halos or padding, which never expand regardless of `allow`
+            m = expandable[k + 1]
+            allow = m[np.where((cur >= 0) & (cur < len(m)), cur, 0)]
+        nbrs = _draw_neighbors(part.indptr, part.indices, cur, S, f, rng,
+                               allow=allow)
+
+        # finer node list: dst prefix + sorted unique new neighbors
+        flat = nbrs.ravel()
+        nz = flat >= 0
+        uniq = np.unique(flat[nz])
+        cur_valid = cur[cur >= 0]
+        extra = np.setdiff1d(uniq, cur_valid, assume_unique=True)
+        cap = caps[k]
+        n_fine = n_dst + len(extra)
+        assert n_fine <= cap, (n_fine, cap)
+        fine = np.full(cap, -1, np.int64)
+        fine[:n_dst] = cur
+        fine[n_dst:n_fine] = extra
+
+        # VID_p -> position in `fine` via a direct lookup table (uninit'd is
+        # fine: only positions of present VIDs are ever read back)
+        vmask = fine >= 0
+        fpos = np.flatnonzero(vmask)
+        pos_of = np.empty(S + part.num_halo, np.int64)
+        pos_of[fine[vmask]] = fpos
+        positions = np.full(flat.shape, -1, np.int64)
+        if nz.any():
+            positions[nz] = pos_of[flat[nz]]
+
+        nbr_idx[k] = positions.reshape(n_dst, f)
+        layer_nodes[k] = fine
+        node_mask[k] = vmask
+        cur = fine
+
+    return MinibatchBlocks(layer_nodes=layer_nodes, node_mask=node_mask,
+                           nbr_idx=nbr_idx, seeds=seeds, seed_mask=seed_mask,
+                           labels=labels)
+
