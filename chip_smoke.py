@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together, into ``build/kernels/``), then runs three
+source, all started together, into ``build/kernels/``), then runs four
 phases on one card at the paper's full GraphSAGE width (128 -> 256 -> 256
 -> 172, fanouts 5/10/15):
 
@@ -23,19 +23,38 @@ phases on one card at the paper's full GraphSAGE width (128 -> 256 -> 256
      pre-warm, warm pass), with every launch count set to 0 just before
      and read just after; every offline embedding the pre-warm computed
      is then held against the plain version, chunk by chunk on the same
-     inputs.
+     inputs;
+  4. training, the second main path: (b) ``repro_torch.launch.train gnn``
+     in ``aep`` mode, 4 ranks on the card, batch 1000, HEC 1M entries x 8
+     ways per layer, nc 2000, one epoch on a 400,000-vertex synthetic
+     graph (10 steps per rank) and ``evaluate``, with every launch count
+     set to 0 just before and read just after; (a) the UPDATE and AGG
+     kernels, forward and backward (C-F), against their plain versions at
+     the layer shapes of that run's minibatches and at a ragged shape, and
+     the HEC probe at the training lookup shapes on the run's own caches,
+     timed with their bounds; (c) the first two steps of (b), from the
+     same state, minibatches and selection uniforms, once more on the card
+     and on the CPU through the plain versions: loss, gradients (Adam's
+     first moment), pushed tags and HEC tags held against each other.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
-over the main path's launches: the three online layer shapes stand for
+over the serving path's launches: the three online layer shapes stand for
 the microbatch launches, the three offline chunk shapes for the pre-warm's
-chunks.  The HEC probe's ``ms`` is the mean over its four probe shapes,
-each once.  Cold and warm q/s are printed as indicative only: each pass
-lasts well under a second on the host clock.
+chunks.  The HEC probe's ``ms`` is launch-weighted over both paths: its
+four serving probe shapes share the serving launches, its three training
+lookup shapes the training launches; its ``launches`` is the sum, split
+in ``launches_by_path``.  C-F's are means over their layer shapes, each
+layer standing for an equal share of the training path's launches.  Cold
+and warm q/s, per-step spans and s/epoch are printed as indicative only:
+each window lasts seconds or less on the host clock.
 
-Tolerances: the serve layer sums in another float32 order than the plain
-version, so it is held to |kernel - plain| <= 1e-4 * max(1, |plain|); the
-HEC probe + load moves bits and is held bit for bit.  TF32 is off for the
-plain versions.
+Tolerances: the serve layer, UPDATE and AGG sum in another float32 order
+than their plain versions (and AGG's gradient adds with atomics), so they
+are held to |kernel - plain| <= 1e-4 * max(1, |plain|); the dropout's
+dropped positions, UPDATE's dZ, AGG's counts and the HEC probe + load are
+held bit for bit.  The card-vs-CPU training step is held to 1e-4 relative
+(loss, gradient norm, each tensor of Adam's first moment in norm): its
+sums run in other orders over up to 176,000 rows.  TF32 is off.
 
 Prints free-form lines, then the card's name and power limit as
 nvidia-smi gives them, a JSON ``kernels`` line, and as the last line
@@ -68,7 +87,28 @@ KERNEL_ROWS = {
     "hec_lookup": dict(
         route="cuda", source="src/repro_torch/csrc/hec_search.cu",
         replaces="src/repro/kernels/hec_search.py:105"),
+    "update_fused_fwd": dict(
+        route="cuda", source="src/repro_torch/csrc/update_fused.cu",
+        replaces="src/repro/kernels/update_fused.py:59"),
+    "update_fused_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/update_fused.cu",
+        replaces="src/repro/kernels/update_fused.py:59 (its gradient)"),
+    "sage_agg_fwd": dict(
+        route="cuda", source="src/repro_torch/csrc/sage_agg.cu",
+        replaces="src/repro/kernels/sage_agg.py:43"),
+    "sage_agg_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/sage_agg.cu",
+        replaces="src/repro/kernels/sage_agg.py:43 (its gradient)"),
 }
+KERNELS = ("serve_fused", "hec_search", "update_fused", "sage_agg")
+TRAIN_VERTICES = 400_000
+TRAIN_ARGS = ["gnn", "--ranks", "4", "--degree", "10", "--classes", "172",
+              "--feat-dim", "128", "--hidden", "256", "--layers", "3",
+              "--fanouts", "5", "10", "15", "--batch", "1000", "--epochs",
+              "1", "--hec-size", "1000000", "--hec-nc", "2000", "--device",
+              "cuda"]
+EVAL_BATCHES = 8            # DistTrainer.evaluate's default
+CHECK_STEPS = 2             # steps of the card-vs-CPU check, phase 4 (c)
 
 
 class SmokeFailure(RuntimeError):
@@ -466,9 +506,398 @@ def phase3(torch, np, args):
     return launches, launches_offline, offline_err
 
 
+# ---------------------------------------------------------------------------
+# phase 4: training, through the launcher
+# ---------------------------------------------------------------------------
+def wrappers():
+    """Every kernel wrapper, by the name of its row."""
+    from repro_torch.kernels import hec_search as hs
+    from repro_torch.kernels import sage_agg as sa
+    from repro_torch.kernels import serve_fused as sf
+    from repro_torch.kernels import update_fused as uf
+    return {"serve_fused_layer": sf.serve_fused_layer,
+            "hec_lookup": hs.hec_lookup,
+            "update_fused_fwd": uf.update_fused_fwd,
+            "update_fused_bwd": uf.update_fused_bwd,
+            "sage_agg_fwd": sa.sage_agg_fwd,
+            "sage_agg_bwd": sa.sage_agg_bwd}
+
+
+def phase4_main_path(torch, np, vertices):
+    """(b): the launcher's training run; returns its result and the
+    launches it made."""
+    from repro_torch import obs
+    from repro_torch.launch import train
+    obs.configure()
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    res = train.run_gnn(train.parse_args(
+        TRAIN_ARGS + ["--vertices", str(vertices)]))
+    launches = {n: w.launches for n, w in ws.items()}
+    print(f"phase 4: launches on the training path: {launches}")
+    tr, cfg = res["trainer"], res["cfg"]
+    R, L, log = tr.num_ranks, cfg.num_layers, tr.step_log
+    steps = len(log)
+    print(f"phase 4: {steps} steps per rank in the epoch, {R} ranks, "
+          f"batch {cfg.batch_size}; {EVAL_BATCHES} eval batches")
+    per_step = {"hec_lookup": L * R, "update_fused_fwd": L * R,
+                "update_fused_bwd": L * R, "sage_agg_fwd": L * R,
+                "sage_agg_bwd": (L - 1) * R, "serve_fused_layer": 0}
+    per_eval = {"hec_lookup": L * R, "update_fused_fwd": L * R,
+                "sage_agg_fwd": L * R}
+    for n, k in per_step.items():
+        want = steps * k + EVAL_BATCHES * per_eval.get(n, 0)
+        check(launches[n] == want, f"phase 4: {n} launched {launches[n]} "
+              f"times, expected {want}")
+    for i, m in enumerate(log):
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"phase 4: step {i}: loss {m['loss']} grad norm "
+              f"{m['grad_norm']}")
+    check(all(m["aep_push_rows"] > 0 for m in log),
+          "phase 4: a step pushed no rows")
+    hits = [sum(m[f"hec_hits_l{l}"] for m in log) for l in range(L)]
+    check(any(h > 0 for h in hits), "phase 4: no HEC hit by the last step")
+    check(0.0 <= res["test_acc"] <= 1.0, "phase 4: evaluate failed")
+    h = res["history"][0]
+    print(f"phase 4: losses {[round(m['loss'], 4) for m in log]}; seeds "
+          f"per step {[int(m['examples']) for m in log]}; HEC hits per "
+          f"layer {hits} of halos "
+          f"{[sum(m[f'hec_halos_l{l}'] for m in log) for l in range(L)]}; "
+          f"pushed rows per step "
+          f"{[int(m['aep_push_rows']) for m in log]}; test_acc "
+          f"{res['test_acc']:.4f}")
+    print(f"phase 4: indicative host clock: {res['train_seconds']:.2f} "
+          f"s/epoch; per step ms: " + ", ".join(
+              f"{p} {1e3 * h[f't_{p}'] / steps:.1f}"
+              for p in ("sample", "host_prep", "stage", "step"))
+          + " (sample and host_prep run on the prefetch worker)")
+    return res, launches
+
+
+def close_to(got, want):
+    err = (got - want).abs()
+    return bool((err <= TOL * want.abs().clamp_min(1.0)).all()), \
+        float(err.max()) if err.numel() else 0.0
+
+
+def agg_case(torch, sa, ref, name, h, nbr, valid, timed=True):
+    mean, cnt = sa.sage_agg_fwd(h, nbr, valid)
+    torch.cuda.synchronize()
+    want, want_cnt = ref.sage_agg_ref(h, nbr, valid)
+    ok, err = close_to(mean, want)
+    check(bool(torch.isfinite(mean).all()) and ok,
+          f"{name}: AGG max |kernel - plain| {err:.3e} over tolerance")
+    check(torch.equal(cnt, want_cnt), f"{name}: AGG counts differ")
+    N, D = h.shape
+    M, f = nbr.shape
+    row = {"shape": f"h {N}x{D}, nbr {M}x{f}", "max_abs_err": err}
+    if timed:
+        # each included row of h read once, the valid flag of each slot,
+        # nbr, the mean and count written; one add per included element
+        idx = nbr.long()
+        used = (idx >= 0) & valid[idx.clamp_min(0)]
+        rows = idx[used].unique().numel()
+        nbytes = (rows * D * 4 + int((idx >= 0).sum()) + M * f * 4
+                  + M * D * 4 + M * 4)
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, int(used.sum()) * D + M * D)
+        row["ms"], row["call_ms"] = time_ms(
+            torch, lambda: sa.sage_agg_fwd(h, nbr, valid))
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: ref.sage_agg_ref(h, nbr, valid))
+        bag, w = idx.clamp_min(0), used.float()
+        lib = torch.nn.functional.embedding_bag(bag, h, mode="sum",
+                                                per_sample_weights=w)
+        ok, _ = close_to(lib / cnt.clamp_min(1.0)[:, None], want)
+        check(ok, f"{name}: embedding_bag's masked sum is not AGG's")
+        row["library_ms"], _ = time_ms(
+            torch, lambda: torch.nn.functional.embedding_bag(
+                bag, h, mode="sum", per_sample_weights=w))
+    return mean, cnt, row
+
+
+def agg_bwd_case(torch, sa, ref, name, g, nbr, valid, cnt, num_src,
+                 timed=True):
+    dh = sa.sage_agg_bwd(g, nbr, valid, cnt, num_src)
+    torch.cuda.synchronize()
+    ok, err = close_to(dh, ref.sage_agg_bwd_ref(g, nbr, valid, cnt, num_src))
+    check(bool(torch.isfinite(dh).all()) and ok,
+          f"{name}: AGG gradient max |kernel - plain| {err:.3e} over "
+          f"tolerance")
+    M, f = nbr.shape
+    D = g.shape[1]
+    row = {"shape": f"g {M}x{D}, nbr {M}x{f}, dh {num_src}x{D}",
+           "max_abs_err": err, "library_ms": None}
+    if timed:
+        # g, nbr, the slots' valid flags and cnt read once, dh written
+        # whole; one divide per g element and one add per included one
+        idx = nbr.long()
+        used = (idx >= 0) & valid[idx.clamp_min(0)]
+        nbytes = (M * D * 4 + M * f * 4 + int((idx >= 0).sum()) + M * 4
+                  + num_src * D * 4)
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, int(used.sum()) * D + M * D)
+        row["ms"], row["call_ms"] = time_ms(
+            torch, lambda: sa.sage_agg_bwd(g, nbr, valid, cnt, num_src))
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: ref.sage_agg_bwd_ref(g, nbr, valid, cnt, num_src))
+    return row
+
+
+def update_case(torch, uf, ref, name, args, relu, dropout, seed, timed=True):
+    from repro_torch.models.gnn.common import hash_uniform
+    kw = dict(relu=relu, dropout=dropout, seed=seed)
+    out = uf.update_fused_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = ref.fused_update_ref(*args, **kw)
+    ok, err = close_to(out, want)
+    check(bool(torch.isfinite(out).all()) and ok,
+          f"{name}: UPDATE max |kernel - plain| {err:.3e} over tolerance")
+    N, C = args[0].shape
+    K = args[2].shape[1]
+    if dropout:
+        dropped = hash_uniform(seed, torch.arange(N, device=out.device),
+                               torch.arange(K, device=out.device)) < dropout
+        differ = (out == 0) != (want == 0)
+        check(bool((out[dropped] == 0).all()) and not bool(
+            (differ & (dropped | (want.abs() > 1e-4))).any()),
+            f"{name}: the dropout's zero pattern differs")
+    row = {"shape": f"N {N}, C {C}, K {K}, relu {relu}, dropout {dropout}",
+           "max_abs_err": err, "library_ms": None}
+    if timed:
+        # agg, self, Wn, Ws, b read once, out written; two products
+        nbytes = (2 * N * C + 2 * C * K + K + N * K) * 4
+        row["bound_ms"], row["bound_by"] = bound(nbytes,
+                                                 4.0 * N * C * K + 3 * N * K)
+        row["ms"], row["call_ms"] = time_ms(
+            torch, lambda: uf.update_fused_fwd(*args, **kw))
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: ref.fused_update_ref(*args, **kw))
+    return out, row
+
+
+def update_bwd_case(torch, uf, ref, name, g, out, relu, dropout, seed,
+                    timed=True):
+    kw = dict(relu=relu, dropout=dropout, seed=seed)
+    dz, db = uf.update_fused_bwd(g, out, **kw)
+    torch.cuda.synchronize()
+    dz_p, db_p = ref.fused_update_bwd_ref(g, out, **kw)
+    ok, err = close_to(db, db_p)
+    check(torch.equal(dz, dz_p), f"{name}: UPDATE dZ is not bit-exact")
+    check(bool(torch.isfinite(db).all()) and ok,
+          f"{name}: UPDATE db max |kernel - plain| {err:.3e} over tolerance")
+    N, K = g.shape
+    row = {"shape": f"N {N}, K {K}, relu {relu}, dropout {dropout}",
+           "max_abs_err": err, "library_ms": None}
+    if timed:
+        # g (and out, with ReLU) read once, dZ and db written
+        nbytes = (N * K * (3 if relu else 2) + K) * 4
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * N * K)
+        row["ms"], row["call_ms"] = time_ms(
+            torch, lambda: uf.update_fused_bwd(g, out, **kw))
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: ref.fused_update_bwd_ref(g, out, **kw))
+    return row
+
+
+def print_row(kernel, row):
+    lib = row.get("library_ms")
+    print(f"phase 4: {kernel} {row['shape']}: max|d|={row['max_abs_err']:.3e}"
+          f"; device ms kernel {row['ms']:.4f}, plain {row['plain_ms']:.4f}"
+          + (f", library {lib:.4f}" if lib is not None else "")
+          + f", bound {row['bound_ms']:.4f} ({row['bound_by']}); per call "
+          f"kernel {row['call_ms']:.4f}")
+
+
+def phase4_kernels(torch, np, res):
+    """(a): C-F against their plain versions at the layer shapes of the
+    main path's first minibatch (rank 0), and B at its lookups on the
+    run's caches; then ragged shapes."""
+    from repro_torch.kernels import hec_search as hs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sage_agg as sa
+    from repro_torch.kernels import update_fused as uf
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.train.gnn_trainer import minibatch_to_device
+    ps, cfg, data, state = res["ps"], res["cfg"], res["data"], res["state"]
+    dev = torch.device("cuda")
+    plan = SamplingPlan(ps, cfg, 0)
+    mb = minibatch_to_device(plan.sample_host(0, 0, plan.epoch_schedule(0)[0]),
+                             dev)
+    r, L = 0, cfg.num_layers
+    rows = {n: [] for n in ("update_fused_fwd", "update_fused_bwd",
+                            "sage_agg_fwd", "sage_agg_bwd", "hec_lookup")}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    num_solid = data["num_solid"][r]
+    feats = data["features"][r]
+    nodes = [n[r] for n in mb["layer_nodes"]]
+    own = [m[r] & (n < num_solid) for n, m in zip(nodes, mb["node_mask"])]
+    h = feats[nodes[0].clamp(0, feats.shape[0] - 1).long()] \
+        * own[0][:, None].float()
+    model = state["model"]
+    for k, layer in enumerate(model.layers):
+        nbr = mb["nbr_idx"][k][r]
+        M = nbr.shape[0]
+        last = k == L - 1
+        mean, cnt, row = agg_case(torch, sa, ref, f"layer {k}", h, nbr,
+                                  own[k])
+        rows["sage_agg_fwd"].append(row)
+        print_row("sage_agg_fwd (E)", row)
+        g = torch.randn(mean.shape, generator=gen, device=dev)
+        if k > 0:                      # layer 0's input needs no gradient
+            row = agg_bwd_case(torch, sa, ref, f"layer {k}", g, nbr, own[k],
+                               cnt, h.shape[0])
+            rows["sage_agg_bwd"].append(row)
+            print_row("sage_agg_bwd (F)", row)
+        w = [layer.wn.detach(), layer.ws.detach(), layer.b.detach()]
+        drop = 0.0 if last else cfg.dropout
+        out, row = update_case(torch, uf, ref, f"layer {k}",
+                               [mean, h[:M], *w], not last, drop, k + 1)
+        rows["update_fused_fwd"].append(row)
+        print_row("update_fused_fwd (C)", row)
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        row = update_bwd_case(torch, uf, ref, f"layer {k}", g, out,
+                              not last, drop, k + 1)
+        rows["update_fused_bwd"].append(row)
+        print_row("update_fused_bwd (D)", row)
+        # the HEC lookup of this layer's nodes on rank 0's trained cache
+        vid_o = data["vid_o"][r]
+        vids = torch.where(nodes[k] >= 0,
+                           vid_o[nodes[k].clamp(0, vid_o.shape[0] - 1)
+                                 .long()], -1)
+        row = hec_case(torch, hs, f"train lookup l{k}", state["hec"][k][r],
+                       vids.to(torch.int32).contiguous())
+        rows["hec_lookup"].append(row)
+        print(f"phase 4: hec_lookup {row['shape']} ({row['hits']} hits): "
+              f"bit-exact; device ms kernel {row['ms']:.4f}, plain "
+              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']})")
+        h = out
+    # ragged shapes: N, C, K, D off every tile, a D without float4 rows,
+    # -1 pads, invalid sources, an all-masked row
+    for (N, M, f, D) in ((300, 37, 7, 6), (1000, 257, 13, 100)):
+        hr = torch.randn(N, D, generator=gen, device=dev)
+        nbr = torch.randint(-1, N, (M, f), generator=gen, device=dev,
+                            dtype=torch.int32)
+        nbr[0] = -1
+        vr = torch.rand(N, generator=gen, device=dev) > 0.2
+        _, cnt, _ = agg_case(torch, sa, ref, "ragged", hr, nbr, vr,
+                             timed=False)
+        agg_bwd_case(torch, sa, ref, "ragged", torch.randn(
+            M, D, generator=gen, device=dev), nbr, vr, cnt, N, timed=False)
+    for (N, C, K) in ((257, 24, 47), (1000, 100, 130)):
+        args = [torch.randn(N, C, generator=gen, device=dev),
+                torch.randn(N, C, generator=gen, device=dev),
+                torch.randn(C, K, generator=gen, device=dev) / 10,
+                torch.randn(C, K, generator=gen, device=dev) / 10,
+                torch.randn(K, generator=gen, device=dev)]
+        for relu, drop in ((True, 0.5), (False, 0.3), (False, 0.0)):
+            out, _ = update_case(torch, uf, ref, "ragged", args, relu, drop,
+                                 2 ** 32 - 1, timed=False)
+            update_bwd_case(torch, uf, ref, "ragged", torch.randn(
+                N, K, generator=gen, device=dev), out, relu, drop,
+                2 ** 32 - 1, timed=False)
+    print("phase 4: ragged shapes (AGG 37x7 D=6, 257x13 D=100; UPDATE "
+          "257x24->47, 1000x100->130) within tolerance")
+    return rows
+
+
+def rel_norm(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase4_cpu_check(torch, np, res, steps=CHECK_STEPS, batch=None):
+    """(c): the main path's first ``steps`` steps from the same state,
+    minibatches and uniforms, on the card and on the CPU (``batch``: a
+    smaller batch for the check, should the CPU be too slow at full
+    width)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.gnn_serve import device_profile
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
+                                               minibatch_to_device)
+    ps, cfg = res["ps"], res["cfg"]
+    if batch is not None:
+        cfg = dataclasses.replace(cfg, batch_size=batch)
+    R = res["trainer"].num_ranks
+    plan = SamplingPlan(ps, cfg, 0)
+    sched = plan.epoch_schedule(0)
+    hosts = [plan.sample_host(0, i, sched[i]) for i in range(steps)]
+    card = DistTrainer(cfg, R, device="cuda")
+    draw = card.push_uniforms
+    cpu = DistTrainer(cfg, R, device="cpu",
+                      push_uniforms=lambda s, r, sh: draw(s, r, sh).cpu())
+    runs = {}
+    for name, tr in (("card", card), ("cpu", cpu)):
+        st = tr.init_state(seed=0)             # the launcher's --seed 0
+        data = build_dist_data(ps, cfg, tr.device)
+        logs, secs = [], []
+        for i, host in enumerate(hosts):
+            mb = minibatch_to_device(host, tr.device)
+            traced = name == "card" and i == steps - 1
+            if traced:                 # the device's share of one step
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            logs.append(tr.train_step(st, data, mb, i))
+            secs.append(time.perf_counter() - t0)
+            if traced:
+                prof.__exit__(None, None, None)
+                traced_profile = device_profile(prof, secs[-1])
+            if i == 0:                 # copies: the state moves on in place
+                mu = [m.cpu().clone() for m in st["opt"].mu]
+                pushed = [q["tags"][-1].cpu().clone()
+                          for q in st["inflight"]]
+        runs[name] = dict(logs=logs, secs=secs, mu=mu, pushed=pushed,
+                          tags=[[s.tags.cpu() for s in layer]
+                                for layer in st["hec"]])
+        del st, data
+        torch.cuda.empty_cache()
+    c, p = runs["card"], runs["cpu"]
+    if batch is None:
+        check(c["logs"][0]["loss"] == res["trainer"].step_log[0]["loss"],
+              "phase 4 (c): the card's first step is not the main path's")
+    for i in range(steps):
+        for key in ("loss", "grad_norm"):
+            a, b = c["logs"][i][key], p["logs"][i][key]
+            check(abs(a - b) <= 1e-4 * abs(b), f"phase 4 (c): step {i} "
+                  f"{key}: card {a} vs CPU {b}")
+    worst = max(rel_norm(a, b) for a, b in zip(c["mu"], p["mu"]))
+    check(worst <= 1e-4, f"phase 4 (c): gradient (Adam mu) differs by "
+          f"{worst:.3e} relative")
+    check(all(torch.equal(a, b) for a, b in zip(c["pushed"], p["pushed"])),
+          "phase 4 (c): the pushed tags differ")
+    check(all(torch.equal(a, b) for la, lb in zip(c["tags"], p["tags"])
+              for a, b in zip(la, lb)), "phase 4 (c): the HEC tags differ")
+    filled = sum(int((t >= 0).sum()) for layer in c["tags"] for t in layer)
+    check(steps < 2 or filled > 0, "phase 4 (c): no HEC line was filled")
+    print(f"phase 4 (c): {steps} steps at batch {cfg.batch_size}, card vs "
+          f"CPU: losses {[m['loss'] for m in c['logs']]} vs "
+          f"{[m['loss'] for m in p['logs']]}; gradient rel. diff "
+          f"{worst:.2e}; pushed tags and {filled} HEC tags equal; CPU "
+          f"s/step {[round(s, 1) for s in p['secs']]}")
+    dp = traced_profile
+    h = res["history"][0]
+    steps_b = len(res["trainer"].step_log)
+    print(f"phase 4 (c): traced card step {steps - 1}: {dp['wall_ms']:.1f} "
+          f"ms wall, device busy {dp['device_busy_ms']:.2f} ms "
+          f"({100 * dp['device_busy_share']:.1f}%); against the main "
+          f"path's {1e3 * h['t_wall'] / steps_b:.1f} ms of epoch wall per "
+          f"step, a busy share of "
+          f"{100 * dp['device_busy_ms'] * steps_b / (1e3 * h['t_wall']):.1f}%"
+          f" (indicative)")
+    for row in dp["top"]:
+        print(f"phase 4 (c):   {row['device_ms']:8.3f} ms  {row['calls']:5d}"
+              f"x  {row['op'][:90]}")
+    return dp
+
+
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
     """One contract row: per-launch means over the timed shapes, shape i
-    standing for ``weights[i]`` launches of the main path."""
+    standing for ``weights[i]`` launches of the main paths."""
     w = sum(weights)
     for r, n in zip(rows, weights):
         r["launches_represented"] = n
@@ -476,6 +905,7 @@ def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
     def mean(key):
         return sum(r[key] * n for r, n in zip(rows, weights)) / w
     worst = max(zip(rows, weights), key=lambda rn: rn[0]["bound_ms"] * rn[1])
+    lib = [r.get("library_ms") for r in rows]
     return {"name": name, **KERNEL_ROWS[name],
             "launches": launches[name],
             "max_abs_err": max([max_abs_err] + [r["max_abs_err"]
@@ -483,7 +913,7 @@ def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
             "bound_by": worst[0]["bound_by"],
-            "library_ms": None,
+            "library_ms": None if None in lib else mean("library_ms"),
             "ms_over": ms_over,
             "shapes": rows}
 
@@ -516,30 +946,44 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0]
 
     t0 = time.perf_counter()
-    _build.build(["serve_fused", "hec_search"])
-    print(f"build: both kernels in {time.perf_counter() - t0:.1f}s")
+    _build.build(KERNELS)
+    print(f"build: {len(KERNELS)} sources in {time.perf_counter() - t0:.1f}s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}")
 
-    cfg = model_config("graphsage-papers100m")
-    g = synthetic_graph(num_vertices=args.vertices, avg_degree=8,
-                        num_classes=cfg.num_classes, feat_dim=cfg.feat_dim,
-                        seed=0)
-    part = partition_graph(g, 1, seed=0).parts[0]
-    setup = {"device": device, "cfg": cfg, "part": part,
-             "model": GraphSAGE.from_config(cfg, seed=0, device=device),
-             "cache_size": 65536}
+    # phases 1-3 serve: no gradient is taken
+    with torch.no_grad():
+        cfg = model_config("graphsage-papers100m")
+        g = synthetic_graph(num_vertices=args.vertices, avg_degree=8,
+                            num_classes=cfg.num_classes,
+                            feat_dim=cfg.feat_dim, seed=0)
+        part = partition_graph(g, 1, seed=0).parts[0]
+        setup = {"device": device, "cfg": cfg, "part": part,
+                 "model": GraphSAGE.from_config(cfg, seed=0, device=device),
+                 "cache_size": 65536}
+        t0 = time.perf_counter()
+        rows_a, rows_b = phase1(torch, np, setup)
+        print(f"phase 1: done in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase2(torch, np, device)
+        print(f"phase 2: done in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        launches, launches_offline, offline_err = phase3(torch, np, args)
+        print(f"phase 3: done in {time.perf_counter() - t0:.1f}s")
+        del setup, g, part
+
     t0 = time.perf_counter()
-    rows_a, rows_b = phase1(torch, np, setup)
-    print(f"phase 1: done in {time.perf_counter() - t0:.1f}s")
+    res, launches4 = phase4_main_path(torch, np, TRAIN_VERTICES)
+    print(f"phase 4 (b): done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    phase2(torch, np, device)
-    print(f"phase 2: done in {time.perf_counter() - t0:.1f}s")
+    with torch.no_grad():
+        rows4 = phase4_kernels(torch, np, res)
+    print(f"phase 4 (a): done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    launches, launches_offline, offline_err = phase3(torch, np, args)
-    print(f"phase 3: done in {time.perf_counter() - t0:.1f}s")
+    phase4_cpu_check(torch, np, res)
+    print(f"phase 4 (c): done in {time.perf_counter() - t0:.1f}s")
 
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]
@@ -547,22 +991,36 @@ def main(argv=None) -> int:
     check(launches_online > 0 and launches_online % len(online) == 0,
           f"phase 3: {launches_online} online serve-layer launches is not "
           f"a whole number of microbatches")
+    b_serve, b_train = launches["hec_lookup"], launches4["hec_lookup"]
+    layer_mean = ("mean over the training path's layer shapes (rank 0's "
+                  "first minibatch), each layer standing for an equal "
+                  "share of the launches")
     rows = [
         summarize("serve_fused_layer", online + offline, launches,
                   [launches_online // len(online)] * len(online)
                   + [launches_offline // len(offline)] * len(offline),
-                  "launch-weighted mean over the main path: each online "
+                  "launch-weighted mean over the serving path: each online "
                   "layer shape stands for its microbatch launches, each "
                   "offline shape (first chunk) for its layer's pre-warm "
                   "chunks", max_abs_err=offline_err),
-        summarize("hec_lookup", rows_b, launches, [1] * len(rows_b),
-                  "mean over the four probe shapes of a microbatch and its "
-                  "fast-path wave, each once")]
+        summarize("hec_lookup", rows_b + rows4["hec_lookup"],
+                  {"hec_lookup": b_serve + b_train},
+                  [b_serve / len(rows_b)] * len(rows_b)
+                  + [b_train / len(rows4["hec_lookup"])]
+                  * len(rows4["hec_lookup"]),
+                  "launch-weighted mean over both paths: the four serving "
+                  "probe shapes share the serving launches, the three "
+                  "training lookup shapes the training launches")]
+    rows[1]["launches_by_path"] = {"serve": b_serve, "train": b_train}
+    for name in ("update_fused_fwd", "update_fused_bwd", "sage_agg_fwd",
+                 "sage_agg_bwd"):
+        rows.append(summarize(name, rows4[name], launches4,
+                              [1] * len(rows4[name]), layer_mean))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms per launch (device, "
               f"{r['ms_over']}), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['launches']} "
-              f"launches on the main path")
+              f"launches on the main paths")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
 from repro_torch.cache.hec import (EmbeddingCache, HECState,  # noqa: F401
-                                   ServeCacheConfig, hec_init, hec_lookup,
+                                   ServeCacheConfig, hec_clone,
+                                   hec_init, hec_lookup,
                                    hec_occupancy, hec_search, hec_store,
                                    hec_tick)

@@ -18,9 +18,13 @@ reference's results without copying the value tensors.  ``hec_lookup``
 on CUDA tensors is one launch of the fused probe + load kernel
 (``kernels/hec_search.py``).
 
-:class:`EmbeddingCache` is the single-rank cache object (per-layer states,
-host residency mirror, model-version invalidation, counters); the
-rank-stacked variant of the reference waits for the sharded-serving slice.
+:class:`EmbeddingCache` is the single-rank serving cache (per-layer
+states, host residency mirror, model-version invalidation, counters).
+Training keeps one :class:`HECState` per (layer, rank) from
+:func:`hec_init` (``train/gnn_trainer.py``) and copies them with
+:func:`hec_clone` where the reference would compute on a throwaway
+state; the rank-stacked serving variant waits for the sharded-serving
+slice.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import hec_search as hec_kernel
 from repro_torch.kernels.ref import set_index
 
@@ -138,6 +143,12 @@ def hec_lookup(state: HECState, vids: torch.Tensor):
     return hit, emb
 
 
+def hec_clone(state: HECState) -> HECState:
+    """A copy that in-place updates of ``state`` do not reach."""
+    return HECState(tags=state.tags.clone(), age=state.age.clone(),
+                    values=state.values.clone())
+
+
 def hec_occupancy(state: HECState) -> float:
     return float((state.tags >= 0).float().mean())
 
@@ -168,11 +179,11 @@ class EmbeddingCache:
 
     def __init__(self, dims: Sequence[int], num_vertices: int,
                  cfg: Optional[ServeCacheConfig] = None,
-                 device: torch.device = torch.device("cpu")):
+                 device: DeviceLike = None):
         self.cfg = cfg or ServeCacheConfig()
         self.dims = list(dims)                 # dims of h^1 .. h^L
         self.num_vertices = num_vertices
-        self.device = device
+        self.device = resolve_device(device)
         self.model_version = 0
         self._reset_states()
         self.hits = np.zeros(len(dims), np.int64)

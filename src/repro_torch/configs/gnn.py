@@ -1,14 +1,52 @@
-"""GNN model configs (own copy of ``repro/configs/gnn.py``'s model part).
+"""GNN configs (own copy of ``repro/configs/gnn.py``): the paper's models
+and its HEC/AEP hyperparameters (Table 2 and §4.4: cs=1M entries per
+layer, nc=2000, ls=2, d=1, minibatch 1000, fan-out 5,10,15).
 
-Serving reads the model shape only: layer count, widths, fanouts.  The
-training hyperparameters ``lr`` and ``dropout`` are kept as inert fields
-so the presets read the same as the reference; the HEC/AEP and pipeline
-knobs wait for the training slice.
+Serving reads the model shape; training reads ``lr``, ``dropout``, the
+HEC/AEP knobs (``hec``) and the minibatch prefetch (``pipeline``).  The
+reference's hot tier (``hot_size``/``hot_budget``), the device-side
+sampler and the double-buffered staging wait for their slices.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class HECConfig:
+    """Historical Embedding Cache and push parameters (paper §3.2/§4.4)."""
+    cache_size: int = 1_000_000     # cs: entries per layer
+    ways: int = 8                   # set-associativity
+    life_span: int = 2              # ls: purge lines older than this
+    push_limit: int = 2000          # nc: max solid embeddings pushed per rank pair
+    delay: int = 1                  # d: iterations between push and consume
+
+    def __post_init__(self):
+        if self.cache_size % self.ways:
+            raise ValueError("cache_size must be a multiple of ways")
+
+    @property
+    def num_sets(self) -> int:
+        return self.cache_size // self.ways
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Background minibatch preparation: ``num_workers`` sampling threads
+    (0 = inline), ``prefetch_depth`` minibatches ahead of the step.  Every
+    step owns its RNG stream, so the minibatches are the same for any
+    worker count."""
+    num_workers: int = 1
+    prefetch_depth: int = 1
+
+    def __post_init__(self):
+        if self.num_workers < 0:
+            raise ValueError(f"num_workers must be >= 0 "
+                             f"(0 = synchronous), got {self.num_workers}")
+        if self.prefetch_depth < 1:
+            raise ValueError(
+                f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,11 +58,14 @@ class GNNConfig:
     num_hidden_layers: int = 2       # => 3 GNN layers total (paper: 3-layer models)
     num_heads: int = 4               # GAT only
     batch_size: int = 1000
-    lr: float = 0.003                # training only (inert here)
+    lr: float = 0.003
     dropout: float = 0.5             # training only (serving runs without)
     aggregator: str = "mean"         # graphsage: mean; gat: gcn
     feat_dim: int = 128
     num_classes: int = 172
+    hec: HECConfig = dataclasses.field(default_factory=HECConfig)
+    pipeline: PipelineConfig = dataclasses.field(
+        default_factory=PipelineConfig)
 
     @property
     def num_layers(self) -> int:
@@ -42,7 +83,10 @@ def small_gnn_config(model: str = "graphsage", **over) -> GNNConfig:
     defaults = dict(
         name=f"{model}-small", model=model, fanouts=(5, 5), hidden_size=64,
         num_hidden_layers=1, batch_size=64, feat_dim=32, num_classes=8,
-        lr=0.01, dropout=0.1)
+        lr=0.01, dropout=0.1,
+        hec=HECConfig(cache_size=4096, ways=4, life_span=2, push_limit=256,
+                      delay=1),
+    )
     if model == "gat":
         defaults["aggregator"] = "gcn"
     defaults.update(over)

@@ -44,6 +44,9 @@ class Partition:
     def num_halo(self) -> int:
         return len(self.halo_vids)
 
+    def vid_p_to_o(self) -> np.ndarray:
+        return np.concatenate([self.solid_vids, self.halo_vids])
+
 
 @dataclasses.dataclass
 class PartitionSet:
@@ -55,6 +58,11 @@ class PartitionSet:
     @property
     def num_parts(self) -> int:
         return len(self.parts)
+
+    def db_halo(self, i: int, j: int) -> np.ndarray:
+        """VID_o owned by rank i that rank j holds as halos (sorted)."""
+        pj = self.parts[j]
+        return np.sort(pj.halo_vids[pj.halo_owner == i])
 
 
 def _assign_parts(g: Graph, nparts: int, seed: int) -> np.ndarray:

@@ -1,5 +1,6 @@
-"""Minibatch block layout (own copy of ``repro/graph/sampling.py``'s
-``MinibatchBlocks`` and ``layer_capacities``).
+"""Minibatch block layout and the epoch's seed schedule (own copy of
+``repro/graph/sampling.py``'s ``MinibatchBlocks``, ``layer_capacities``,
+``epoch_minibatches`` and ``pad_schedule``).
 
 Block layout for an L-layer GNN (seeds at layer L-1):
   layer_nodes[k]  [N_k]           VID_p per node (-1 pad); k=0 is input side
@@ -18,6 +19,8 @@ import dataclasses
 from typing import List, Sequence
 
 import numpy as np
+
+from repro_torch.graph.partition import Partition
 
 
 @dataclasses.dataclass
@@ -40,3 +43,23 @@ def layer_capacities(batch_size: int, fanouts: Sequence[int]) -> List[int]:
     for f in reversed(list(fanouts)):      # seeds sample fanouts[-1] first
         caps.append(caps[-1] * (1 + f))
     return caps[::-1]
+
+
+def epoch_minibatches(part: Partition, batch_size: int,
+                      rng: np.random.Generator) -> List[np.ndarray]:
+    """Shuffled training seed batches (VID_p), one list per epoch."""
+    train = np.flatnonzero(part.train_mask)
+    rng.shuffle(train)
+    return [train[i:i + batch_size]
+            for i in range(0, len(train), batch_size)]
+
+
+def pad_schedule(per_rank: List[List[np.ndarray]]) -> List[List[np.ndarray]]:
+    """``schedule[step][rank]`` from per-rank batch lists, padded with empty
+    seed arrays: every rank takes the same number of synchronized steps and
+    no seed is ever trained twice (short ranks contribute fully masked
+    batches instead of wrapping around)."""
+    steps = max((len(b) for b in per_rank), default=0)
+    empty = np.empty(0, np.int64)
+    return [[b[k] if k < len(b) else empty for b in per_rank]
+            for k in range(steps)]

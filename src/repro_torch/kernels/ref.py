@@ -12,10 +12,76 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.gnn.common import gather_neighbors, masked_mean
+from repro_torch.models.gnn.common import (f32, gather_neighbors,
+                                           hash_dropout, hash_uniform,
+                                           masked_mean)
 
 _MIX = 0x9E3779B1          # Fibonacci hashing multiplier of the HEC layout
 _U32 = 0xFFFFFFFF
+
+
+def fused_update_ref(agg: torch.Tensor, self_h: torch.Tensor,
+                     wn: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, *,
+                     relu: bool = True, dropout: float = 0.0,
+                     seed: int = 0) -> torch.Tensor:
+    """UPDATE: ``dropout(relu(agg@Wn + self@Ws + b))`` with the position-
+    hash dropout; ``repro.kernels.ref.fused_update_ref`` op for op.
+
+    agg, self_h [N, C]; wn, ws [C, K]; b [K] -> [N, K]."""
+    out = agg @ wn + self_h @ ws + b
+    if relu:
+        out = torch.relu(out)
+    return hash_dropout(out, dropout, seed)
+
+
+def fused_update_bwd_ref(g: torch.Tensor, out: torch.Tensor, *,
+                         relu: bool = True, dropout: float = 0.0,
+                         seed: int = 0):
+    """Gradient of UPDATE w.r.t. its pre-activation ``Z = agg@Wn + self@Ws
+    + b``: ``(dZ [N, K], db [K])`` from the output gradient ``g`` and the
+    forward output ``out``.
+
+    With ReLU, ``out > 0`` holds exactly where the position was kept and
+    Z > 0 (relu's gradient is 0 at 0), so ``dZ = out > 0 ? g/(1-p) : 0``;
+    without it the keep mask is drawn again from the hash.  No mask is
+    stored.  ``db`` is the column sum of dZ."""
+    if dropout > 0.0:
+        if relu:
+            keep = out > 0
+        else:
+            keep = hash_uniform(seed, torch.arange(g.shape[0], device=g.device),
+                                torch.arange(g.shape[1], device=g.device)
+                                ) >= f32(dropout, g)
+        dz = torch.where(keep, g / f32(1.0 - dropout, g), f32(0.0, g))
+    elif relu:
+        dz = torch.where(out > 0, g, f32(0.0, g))
+    else:
+        dz = g
+    return dz, dz.sum(dim=0)
+
+
+def sage_agg_ref(h_src: torch.Tensor, nbr_idx: torch.Tensor,
+                 src_valid: torch.Tensor):
+    """AGG: the masked mean of ``h_src`` rows at ``nbr_idx`` (a -1 pad or
+    an invalid source is excluded; a row with none gives 0) and the count
+    of included neighbors: ``(mean [M, D], cnt [M] float32)``."""
+    feats, mask = gather_neighbors(h_src, nbr_idx, src_valid)
+    cnt = mask.sum(dim=1).to(torch.float32)
+    return masked_mean(feats, mask), cnt
+
+
+def sage_agg_bwd_ref(g: torch.Tensor, nbr_idx: torch.Tensor,
+                     src_valid: torch.Tensor, cnt: torch.Tensor,
+                     num_src: int) -> torch.Tensor:
+    """Gradient of AGG w.r.t. ``h_src``: ``dh[nbr[i, j]] += g[i] /
+    max(cnt[i], 1)`` over the included entries -> [num_src, D]."""
+    idx = nbr_idx.clamp_min(0).long()
+    mask = (nbr_idx >= 0) & src_valid[idx]
+    # excluded entries add zeros: no boolean indexing, so no host sync
+    rows = (g / cnt.clamp_min(1.0)[:, None])[:, None, :] \
+        * mask[..., None].to(g.dtype)
+    dh = torch.zeros((num_src, g.shape[1]), dtype=g.dtype, device=g.device)
+    return dh.index_add_(0, idx.reshape(-1), rows.reshape(-1, g.shape[1]))
 
 
 def serve_layer_ref(h_src: torch.Tensor, nbr_idx: torch.Tensor,

@@ -1,15 +1,25 @@
 """GraphSAGE (paper eq. 1) as an ``nn.Module`` — counterpart of
-``repro/models/gnn/graphsage.py`` for inference:
+``repro/models/gnn/graphsage.py``:
 
     h^l_N(v) = mean({ f_u^{l-1} | u in N(v) })
-    h^l_v    = ReLU(W_n h^l_N(v) + W_s h^l_v + b)      (no ReLU on the last)
+    h^l_v    = Dropout(ReLU(W_n h^l_N(v) + W_s h^l_v + b))
+               (no ReLU and no dropout on the last layer)
 
-Each layer is one call of the fused serve-layer kernel
-(``kernels/serve_fused.py``), which runs its plain PyTorch version for
-CPU tensors.  Weights keep the reference's layout ``[D_in, D_out]``, so
+Two forwards, as the reference keeps its serving kernel apart from
+``graphsage.forward``:
+
+* :meth:`GraphSAGE.forward` serves (no gradient, no dropout): one call of
+  the fused serve-layer kernel per layer (``kernels/serve_fused.py``).
+* :meth:`GraphSAGE.train_forward` trains: per layer the AGG kernel
+  (``kernels/sage_agg.py``) and then the UPDATE kernel with the hash
+  dropout (``kernels/update_fused.py``), both differentiable, layer ``k``
+  drawing its mask from the u32 seed ``seed + k + 1``.
+
+Every kernel wrapper runs its plain PyTorch version for CPU tensors.
+Weights keep the reference's layout ``[D_in, D_out]``, so
 ``params_from_jax`` loads the reference's ``{"layers": [{"wn", "ws",
-"b"}]}`` tree as it is.  The module is inference-only: dropout and the
-backward kernels come with the training slice.
+"b"}]}`` tree as it is; ``parameter_list`` orders them as that tree's
+leaves (per layer ``b``, ``wn``, ``ws``).
 """
 from __future__ import annotations
 
@@ -19,7 +29,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.sage_agg import sage_agg
 from repro_torch.kernels.serve_fused import serve_fused_layer
+from repro_torch.kernels.update_fused import fused_update
 
 HaloHook = Callable[[int, torch.Tensor, torch.Tensor],
                     "tuple[torch.Tensor, torch.Tensor]"]
@@ -50,9 +63,9 @@ def init_params_np(seed: int, dims: Sequence[int]) -> dict:
 class SAGELayer(nn.Module):
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
-        self.wn = nn.Parameter(torch.zeros(d_in, d_out), requires_grad=False)
-        self.ws = nn.Parameter(torch.zeros(d_in, d_out), requires_grad=False)
-        self.b = nn.Parameter(torch.zeros(d_out), requires_grad=False)
+        self.wn = nn.Parameter(torch.zeros(d_in, d_out))
+        self.ws = nn.Parameter(torch.zeros(d_in, d_out))
+        self.b = nn.Parameter(torch.zeros(d_out))
 
 
 class GraphSAGE(nn.Module):
@@ -64,8 +77,10 @@ class GraphSAGE(nn.Module):
 
     @classmethod
     def from_config(cls, cfg, seed: int = 0,
-                    device: torch.device = torch.device("cpu")) -> "GraphSAGE":
-        """Random He-normal model of ``cfg``'s widths from a numpy seed."""
+                    device: DeviceLike = None) -> "GraphSAGE":
+        """Random He-normal model of ``cfg``'s widths from a numpy seed, on
+        ``device`` (``None``: the card; raises without one)."""
+        device = resolve_device(device)
         dims = layer_dims(cfg.feat_dim, cfg.hidden_size, cfg.num_classes,
                           cfg.num_layers)
         model = cls(dims)
@@ -75,6 +90,11 @@ class GraphSAGE(nn.Module):
     @property
     def num_layers(self) -> int:
         return len(self.layers)
+
+    def parameter_list(self) -> List[nn.Parameter]:
+        """The parameters in the reference tree's leaf order."""
+        return [getattr(layer, n) for layer in self.layers
+                for n in ("b", "wn", "ws")]
 
     @torch.no_grad()
     def params_from_jax(self, params_np: dict) -> "GraphSAGE":
@@ -112,6 +132,33 @@ class GraphSAGE(nn.Module):
             h_new = serve_fused_layer(h, nbr, valid, layer.wn, layer.ws,
                                       layer.b, relu=not last)
             valid = valid[:nbr.shape[0]]
+            if halo_hook is not None and not last:
+                h_new, valid = halo_hook(k + 1, h_new, valid)
+            h = h_new
+        return h, valid
+
+    def train_forward(self, h0: torch.Tensor, valid0: torch.Tensor,
+                      blocks: dict, *, dropout: float, seed: int,
+                      halo_hook: Optional[HaloHook] = None):
+        """The training forward, differentiable in the parameters: per
+        layer AGG then UPDATE (ReLU and ``dropout`` except on the last
+        layer), with the halo hook after every layer but the last (k=0
+        sees the input features).  ``seed`` is the step's u32 seed.
+        Returns (h_final, valid), as :meth:`forward`."""
+        h, valid = h0, valid0
+        if halo_hook is not None:
+            h, valid = halo_hook(0, h, valid)
+        L = self.num_layers
+        for k, layer in enumerate(self.layers):
+            nbr = blocks["nbr_idx"][k]
+            n_dst = nbr.shape[0]
+            last = k == L - 1
+            agg = sage_agg(h, nbr, valid)
+            h_new = fused_update(agg, h[:n_dst], layer.wn, layer.ws, layer.b,
+                                 relu=not last,
+                                 dropout=0.0 if last else dropout,
+                                 seed=(int(seed) + k + 1) & 0xFFFFFFFF)
+            valid = valid[:n_dst]
             if halo_hook is not None and not last:
                 h_new, valid = halo_hook(k + 1, h_new, valid)
             h = h_new

@@ -1,0 +1,127 @@
+"""Background minibatch preparation: deterministic plan + bounded prefetch
+(own copy of ``repro/pipeline/prefetcher.py``, with the eval schedule of
+``repro/pipeline/staging.py``).
+
+Determinism contract: every minibatch is a pure function of
+``(base_seed, epoch, step)`` — each step owns a private
+``np.random.Generator`` seeded from that triple, and the per-epoch shuffle
+of each rank's training seeds likewise owns a per-``(epoch, rank)``
+stream, with the reference's domain tags.  So the port draws exactly the
+reference's minibatches, for any number of worker threads.
+
+Rank imbalance: an epoch takes ``max_r ceil(train_r / batch)`` steps on
+every rank; ranks that run out of seeds contribute empty (fully masked)
+seed batches.
+
+The host-to-device copy is the trainer's, plain for now; the reference's
+double-buffered staging waits for a later slice.
+"""
+from __future__ import annotations
+
+import collections
+import concurrent.futures
+import dataclasses
+from typing import Callable, Iterator, List, Sequence
+
+import numpy as np
+
+from repro_torch import obs
+from repro_torch.configs.gnn import GNNConfig
+from repro_torch.graph.partition import PartitionSet
+from repro_torch.graph.sampling import epoch_minibatches, pad_schedule
+from repro_torch.pipeline.vectorized_sampler import (sample_blocks_vectorized,
+                                                     stack_ranks)
+
+# domain-separation tags so shuffle and sampling streams never collide
+_SHUFFLE_TAG = 0x5F
+_SAMPLE_TAG = 0xA7
+EVAL_EPOCH_TAG = 1 << 20   # eval streams live far away from training epochs
+
+
+@dataclasses.dataclass
+class SamplingPlan:
+    """Deterministic schedule of per-rank seed batches + per-step RNG streams."""
+    ps: PartitionSet
+    cfg: GNNConfig
+    base_seed: int = 0
+
+    def epoch_schedule(self, epoch: int) -> List[List[np.ndarray]]:
+        """``schedule[step][rank]`` -> seed VID_p array (empty when padded)."""
+        bs = self.cfg.batch_size
+        per_rank = []
+        for r, part in enumerate(self.ps.parts):
+            rng = np.random.default_rng(
+                [self.base_seed, epoch, r, _SHUFFLE_TAG])
+            per_rank.append(epoch_minibatches(part, bs, rng))
+        return pad_schedule(per_rank)
+
+    def eval_schedule(self, num_batches: int,
+                      seed: int) -> List[List[np.ndarray]]:
+        """Test-set seed batches, one RNG stream per rank (the reference's
+        ``MinibatchPipeline.eval_batches``); sample them at epoch
+        ``EVAL_EPOCH_TAG + seed``."""
+        bs = self.cfg.batch_size
+        per_rank = []
+        for r, part in enumerate(self.ps.parts):
+            rng = np.random.default_rng([self.base_seed, seed, r])
+            per_rank.append((np.flatnonzero(part.test_mask), rng))
+        return [[test[rng.permutation(len(test))[:bs]]
+                 for test, rng in per_rank] for _ in range(num_batches)]
+
+    def step_rng(self, epoch: int, step: int) -> np.random.Generator:
+        return np.random.default_rng(
+            [self.base_seed, epoch, step, _SAMPLE_TAG])
+
+    def sample_host(self, epoch: int, step: int,
+                    seed_lists: Sequence[np.ndarray]) -> dict:
+        """One synchronized [R, ...] host minibatch for ``(epoch, step)``."""
+        cfg = self.cfg
+        rng = self.step_rng(epoch, step)
+        with obs.span("sample"):
+            mbs = [sample_blocks_vectorized(self.ps.parts[r], seed_lists[r],
+                                            cfg.fanouts, rng, cfg.batch_size)
+                   for r in range(self.ps.num_parts)]
+        with obs.span("host_prep"):
+            return stack_ranks(mbs)
+
+    def batches(self, schedule: List[Sequence[np.ndarray]],
+                epoch: int) -> Iterator[dict]:
+        """Host minibatches of ``schedule`` in step order, prefetched."""
+        pcfg = self.cfg.pipeline
+        return prefetch(lambda step: self.sample_host(epoch, step,
+                                                      schedule[step]),
+                        len(schedule), pcfg.num_workers, pcfg.prefetch_depth)
+
+
+def prefetch(make_fn: Callable[[int], dict], num_steps: int,
+             num_workers: int, depth: int) -> Iterator[dict]:
+    """Yield ``make_fn(0..num_steps-1)`` in order, up to ``depth`` in flight.
+
+    ``num_workers <= 0`` runs the calls inline.  Results are consumed
+    strictly in step order; because each step owns its RNG stream the
+    output is the same for any worker count.  A worker's exception is
+    raised here, when its step is consumed.
+    """
+    if num_workers <= 0:
+        for step in range(num_steps):
+            yield make_fn(step)
+        return
+    depth = max(depth, 1)
+    pool = concurrent.futures.ThreadPoolExecutor(
+        max_workers=num_workers, thread_name_prefix="minibatch-prefetch")
+    try:
+        inflight = collections.deque()
+        nxt = 0
+        while nxt < num_steps and len(inflight) < depth:
+            inflight.append(pool.submit(make_fn, nxt))
+            nxt += 1
+        while inflight:
+            batch = inflight.popleft().result()
+            if nxt < num_steps:
+                inflight.append(pool.submit(make_fn, nxt))
+                nxt += 1
+            yield batch
+    finally:
+        # the consumer may abandon the generator mid-epoch: drop queued
+        # work instead of sampling batches nobody wants
+        pool.shutdown(wait=True, cancel_futures=True)

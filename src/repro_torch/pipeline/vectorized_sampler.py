@@ -1,6 +1,6 @@
 """Vectorized CSR neighbor sampler (own numpy copy of
-``repro/pipeline/vectorized_sampler.py``: ``_draw_neighbors`` and
-``sample_blocks_vectorized``).
+``repro/pipeline/vectorized_sampler.py``: ``_draw_neighbors``,
+``sample_blocks_vectorized`` and ``stack_ranks``).
 
 Produces the fixed-shape ``MinibatchBlocks`` contract with no per-row
 Python loops:
@@ -19,7 +19,7 @@ packages (``tests/test_torch_graph.py``).  The on-device draw
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -163,3 +163,19 @@ def sample_blocks_vectorized(part: Partition, seeds_p: np.ndarray,
                            nbr_idx=nbr_idx, seeds=seeds, seed_mask=seed_mask,
                            labels=labels)
 
+
+def stack_ranks(mbs: Sequence[MinibatchBlocks]) -> Dict:
+    """Stack per-rank blocks into the host-side [R, ...] minibatch layout
+    (numpy, so prefetch workers never touch the device)."""
+    L = mbs[0].num_layers
+    return {
+        "seeds": np.stack([m.seeds for m in mbs]).astype(np.int32),
+        "seed_mask": np.stack([m.seed_mask for m in mbs]),
+        "labels": np.stack([m.labels for m in mbs]).astype(np.int32),
+        "nbr_idx": [np.stack([m.nbr_idx[k] for m in mbs]).astype(np.int32)
+                    for k in range(L)],
+        "layer_nodes": [np.stack([m.layer_nodes[k] for m in mbs])
+                        .astype(np.int32) for k in range(L + 1)],
+        "node_mask": [np.stack([m.node_mask[k] for m in mbs])
+                      for k in range(L + 1)],
+    }

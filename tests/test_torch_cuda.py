@@ -7,16 +7,19 @@ a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerance: the serve layer sums float32 in another order than its plain
-version, so |kernel - plain| <= 1e-4 * max(1, |plain|); the HEC probe +
-load is held bit for bit.
+Tolerance: the serve layer, UPDATE (forward and backward) and AGG sum
+float32 in another order than their plain versions, and the AGG gradient
+adds with atomics in a run-dependent order, so |kernel - plain| <= 1e-4 *
+max(1, |plain|); the dropout's zero pattern and the HEC probe + load are
+held bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.cache import hec
-from repro_torch.kernels import hec_search, ref, serve_fused
+from repro_torch.kernels import (hec_search, ref, sage_agg, serve_fused,
+                                 update_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -147,7 +150,7 @@ def test_scheduler_on_card_matches_cpu(dev):
     outs, servers = [], []
     for device in (dev, torch.device("cpu")):
         srv = GNNServeScheduler(
-            cfg, GraphSAGE.from_config(cfg, seed=7), part,
+            cfg, GraphSAGE.from_config(cfg, seed=7, device=device), part,
             GNNServeConfig(num_slots=8,
                            cache=ServeCacheConfig(cache_size=256, ways=4)),
             device=device)
@@ -160,3 +163,150 @@ def test_scheduler_on_card_matches_cpu(dev):
         assert m_gpu[k] == m_cpu[k], k
     for a, b in zip(*(s.cache.states for s in servers)):
         assert torch.equal(a.tags.cpu(), b.tags)
+
+
+# ---------------------------------------------------------------------------
+# training kernels: UPDATE (C, D) and AGG (E, F)
+# ---------------------------------------------------------------------------
+UPDATE_SHAPES = [(64, 32, 64), (300, 96, 130), (257, 128, 256), (16, 100, 47),
+                 (1000, 256, 172), (16000, 256, 256)]
+
+
+def update_inputs(dev, seed, N, C, K):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.as_tensor(  # noqa: E731
+        rng.normal(size=s).astype(np.float32), device=dev)
+    return dict(agg=t(N, C), self_h=t(N, C), wn=t(C, K) * 0.1,
+                ws=t(C, K) * 0.1, b=t(K) * 0.1)
+
+
+@pytest.mark.parametrize("N,C,K", UPDATE_SHAPES)
+@pytest.mark.parametrize("relu,dropout", [(True, 0.0), (True, 0.5),
+                                          (False, 0.0), (False, 0.1)])
+def test_update_kernels_match_plain(dev, N, C, K, relu, dropout):
+    kw = update_inputs(dev, N + K, N, C, K)
+    seed = 2 ** 32 - 3
+    before = (update_fused.update_fused_fwd.launches,
+              update_fused.update_fused_bwd.launches)
+    out = update_fused.update_fused_fwd(relu=relu, dropout=dropout,
+                                        seed=seed, **kw)
+    want = ref.fused_update_ref(relu=relu, dropout=dropout, seed=seed, **kw)
+    torch.cuda.synchronize()
+    assert close(out, want)
+    if dropout:
+        # the dropped positions are exactly the hash's; elsewhere a zero
+        # may differ only where ReLU meets a pre-activation within rounding
+        from repro_torch.models.gnn.common import hash_uniform
+        dropped = hash_uniform(seed, torch.arange(N, device=dev),
+                               torch.arange(K, device=dev)) < dropout
+        assert bool((out[dropped] == 0).all())
+        differ = (out == 0) != (want == 0)
+        assert not bool((differ & (dropped | (want.abs() > 1e-4))).any())
+    g = torch.randn(N, K, device=dev)
+    dz, db = update_fused.update_fused_bwd(g, want, relu=relu,
+                                           dropout=dropout, seed=seed)
+    dz_p, db_p = ref.fused_update_bwd_ref(g, want, relu=relu,
+                                          dropout=dropout, seed=seed)
+    torch.cuda.synchronize()
+    assert torch.equal(dz, dz_p)
+    assert close(db, db_p)
+    assert (update_fused.update_fused_fwd.launches,
+            update_fused.update_fused_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+AGG_SHAPES = [(100, 30, 5, 32), (333, 64, 9, 64), (50, 50, 1, 128),
+              (300, 37, 7, 6), (176000, 16000, 10, 256)]
+
+
+@pytest.mark.parametrize("N,M,f,D", AGG_SHAPES)
+def test_agg_kernels_match_plain(dev, N, M, f, D):
+    rng = np.random.default_rng(N + D)
+    nbr = rng.integers(-1, N, (M, f)).astype(np.int32)
+    nbr[0] = -1                                    # an all-masked row
+    h = torch.as_tensor(rng.normal(size=(N, D)).astype(np.float32),
+                        device=dev)
+    nbr = torch.as_tensor(nbr, device=dev)
+    valid = torch.as_tensor(rng.random(N) > 0.15, device=dev)
+    before = (sage_agg.sage_agg_fwd.launches, sage_agg.sage_agg_bwd.launches)
+    mean, cnt = sage_agg.sage_agg_fwd(h, nbr, valid)
+    mean_p, cnt_p = ref.sage_agg_ref(h, nbr, valid)
+    torch.cuda.synchronize()
+    assert close(mean, mean_p) and torch.equal(cnt, cnt_p)
+    assert float(mean[0].abs().max()) == 0.0
+    g = torch.randn(M, D, device=dev)
+    dh = sage_agg.sage_agg_bwd(g, nbr, valid, cnt, N)
+    dh_p = ref.sage_agg_bwd_ref(g, nbr, valid, cnt_p, N)
+    torch.cuda.synchronize()
+    assert close(dh, dh_p)
+    assert (sage_agg.sage_agg_fwd.launches, sage_agg.sage_agg_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+
+
+def test_autograd_through_kernels_matches_plain(dev):
+    """UPDATE after AGG, differentiated on the card (kernels C-F) and on
+    the CPU (plain versions): the same loss, the same gradients."""
+    rng = np.random.default_rng(5)
+    N, M, f, C, K = 900, 200, 6, 48, 40
+    arrs = dict(h=rng.normal(size=(N, C)).astype(np.float32),
+                wn=(rng.normal(size=(C, K)) * 0.2).astype(np.float32),
+                ws=(rng.normal(size=(C, K)) * 0.2).astype(np.float32),
+                b=(rng.normal(size=K) * 0.1).astype(np.float32))
+    nbr = rng.integers(-1, N, (M, f)).astype(np.int32)
+    valid = rng.random(N) > 0.1
+    res = []
+    for d in (dev, torch.device("cpu")):
+        t = {k: torch.as_tensor(v, device=d).requires_grad_()
+             for k, v in arrs.items()}
+        agg = sage_agg.sage_agg(t["h"], torch.as_tensor(nbr, device=d),
+                                torch.as_tensor(valid, device=d))
+        out = update_fused.fused_update(agg, t["h"][:M], t["wn"], t["ws"],
+                                        t["b"], relu=True, dropout=0.3,
+                                        seed=11)
+        loss = (out * out).sum()
+        grads = torch.autograd.grad(loss, list(t.values()))
+        res.append([loss] + list(grads))
+    for a, b in zip(*res):
+        assert close(a.cpu(), b)
+
+
+def test_two_training_steps_on_card_match_cpu(dev):
+    """Two aep steps of 4 ranks through the kernels == the same steps
+    through the plain versions: loss and parameters within tolerance, HEC
+    tags and the pushed tags equal."""
+    from repro_torch.configs.gnn import HECConfig, small_gnn_config
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
+                                               default_push_uniforms,
+                                               minibatch_to_device)
+    g = synthetic_graph(num_vertices=2000, avg_degree=8, num_classes=6,
+                        feat_dim=24, seed=0)
+    ps = partition_graph(g, 4, seed=0)
+    cfg = small_gnn_config("graphsage", batch_size=32, feat_dim=24,
+                           num_classes=6, hidden_size=40,
+                           num_hidden_layers=2, fanouts=(4, 5, 6),
+                           hec=HECConfig(cache_size=4096, ways=4,
+                                         push_limit=128))
+    draw = default_push_uniforms(dev)
+    plan = SamplingPlan(ps, cfg, 0)
+    hosts = list(plan.batches(plan.epoch_schedule(0), 0))[:2]
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        tr = DistTrainer(cfg, 4, device=d,
+                         push_uniforms=lambda s, r, sh: draw(s, r, sh).to(d))
+        st = tr.init_state(seed=3)
+        data = build_dist_data(ps, cfg, d)
+        losses = [tr.train_step(st, data, minibatch_to_device(h, d), i)
+                  ["loss"] for i, h in enumerate(hosts)]
+        runs.append((losses, st))
+    (l_gpu, s_gpu), (l_cpu, s_cpu) = runs
+    assert np.allclose(l_gpu, l_cpu, rtol=1e-4, atol=1e-5)
+    for a, b in zip(s_gpu["model"].parameter_list(),
+                    s_cpu["model"].parameter_list()):
+        assert close(a.detach().cpu(), b.detach())
+    for la, lb in zip(s_gpu["hec"], s_cpu["hec"]):
+        for a, b in zip(la, lb):
+            assert torch.equal(a.tags.cpu(), b.tags)
+    for a, b in zip(s_gpu["inflight"], s_cpu["inflight"]):
+        assert torch.equal(a["tags"].cpu(), b["tags"])

@@ -113,3 +113,90 @@ def test_prewarm_policies_identical(part_pair):
                                               query_log=log))
     with pytest.raises(ValueError):
         select_prewarm_vids([part], "query_log")
+
+
+# ---------------------------------------------------------------------------
+# the training minibatch stream and the per-rank tables
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def parts_pair():
+    kw = dict(num_vertices=1200, avg_degree=6, num_classes=5, feat_dim=8,
+              seed=6)
+    return (partition_graph(synthetic_graph(**kw), 3, seed=2),
+            j_partition_graph(j_synthetic_graph(**kw), 3, seed=2))
+
+
+def assert_same_batch(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        for x, y in (zip(a[k], b[k]) if isinstance(a[k], list)
+                     else [(a[k], b[k])]):
+            assert_same(x, y)
+
+
+@pytest.mark.parametrize("base_seed", [0, 11])
+def test_training_minibatches_identical(parts_pair, base_seed):
+    """``SamplingPlan``'s schedules and ``stack_ranks``' [R, ...] batches
+    are the reference's, bit for bit (so both trainers see one stream)."""
+    from repro.configs.gnn import small_gnn_config as j_cfg
+    from repro.pipeline.prefetcher import SamplingPlan as JPlan
+    from repro_torch.configs.gnn import small_gnn_config
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    ps, jps = parts_pair
+    kw = dict(batch_size=24, feat_dim=8, num_classes=5, fanouts=(3, 4))
+    plan = SamplingPlan(ps, small_gnn_config("graphsage", **kw), base_seed)
+    jplan = JPlan(jps, j_cfg("graphsage", **kw), base_seed)
+    for ep in range(2):
+        sched, jsched = plan.epoch_schedule(ep), jplan.epoch_schedule(ep)
+        assert len(sched) == len(jsched) > 1
+        for row, jrow in zip(sched, jsched):
+            for x, y in zip(row, jrow):
+                assert_same(x, y)
+        for step in (0, len(sched) - 1):
+            assert_same_batch(plan.sample_host(ep, step, sched[step]),
+                              jplan.sample_host(ep, step, jsched[step]))
+        batches = list(plan.batches(sched, ep))
+        assert len(batches) == len(sched)
+        assert_same_batch(batches[-1], jplan.sample_host(
+            ep, len(sched) - 1, jsched[-1]))
+
+
+def test_eval_minibatches_identical(parts_pair):
+    from repro.configs.gnn import small_gnn_config as j_cfg
+    from repro.pipeline.staging import MinibatchPipeline
+    from repro_torch.configs.gnn import small_gnn_config
+    from repro_torch.pipeline.prefetcher import EVAL_EPOCH_TAG, SamplingPlan
+    ps, jps = parts_pair
+    kw = dict(batch_size=16, feat_dim=8, num_classes=5, fanouts=(3, 4))
+    plan = SamplingPlan(ps, small_gnn_config("graphsage", **kw), 123)
+    got = list(plan.batches(plan.eval_schedule(3, 123),
+                            EVAL_EPOCH_TAG + 123))
+    want = list(MinibatchPipeline(jps, j_cfg("graphsage", **kw),
+                                  base_seed=123).eval_batches(3, seed=123))
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert_same_batch(a, {k: [np.asarray(x) for x in v]
+                              if isinstance(v, list) else np.asarray(v)
+                              for k, v in b.items()})
+
+
+def test_dist_data_tables_identical(parts_pair):
+    """``build_dist_data``'s tables and the exchange plan's push contract
+    are the reference's, bit for bit."""
+    import torch
+    from repro.comm.plan import build_exchange_plan as j_plan
+    from repro.configs.gnn import small_gnn_config as j_cfg
+    from repro.train.gnn_trainer import build_dist_data as j_build
+    from repro_torch.comm.plan import build_exchange_plan
+    from repro_torch.configs.gnn import small_gnn_config
+    from repro_torch.train.gnn_trainer import build_dist_data
+    ps, jps = parts_pair
+    got = build_dist_data(ps, small_gnn_config("graphsage"),
+                          torch.device("cpu"))
+    want = j_build(jps, j_cfg("graphsage"))
+    for k in ("features", "labels", "num_solid", "vid_o", "push_mask"):
+        assert_same(got[k].numpy(), want[k])
+    assert_same(build_exchange_plan(ps).push_mask, j_plan(jps).push_mask)
+    for i in range(3):
+        for j in range(3):
+            assert_same(ps.db_halo(i, j), jps.db_halo(i, j))

@@ -103,7 +103,8 @@ def test_embedding_cache_surface_matches_reference():
                                                        ServingCache)
     rng = np.random.default_rng(0)
     V, dims = 500, [6, 3]
-    tc = ServingCache(dims, V, ServeCacheConfig(cache_size=128, ways=4))
+    tc = ServingCache(dims, V, ServeCacheConfig(cache_size=128, ways=4),
+                      device="cpu")
     jc = JCache(dims, V, JCfg(cache_size=128, ways=4))
     embs = [rng.normal(size=(V, d)).astype(np.float32) for d in dims]
     vids = rng.choice(V, 150, replace=False)

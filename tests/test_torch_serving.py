@@ -99,8 +99,9 @@ def test_init_params_np_he_normal_and_loads():
                                                     rel=0.1)
         assert not layer["b"].any()
     m = GraphSAGE(dims).params_from_jax(p)
-    np.testing.assert_array_equal(m.layers[1].ws.numpy(), p["layers"][1]["ws"])
-    assert not any(q.requires_grad for q in m.parameters())
+    np.testing.assert_array_equal(m.layers[1].ws.detach().numpy(),
+                                  p["layers"][1]["ws"])
+    assert all(q.requires_grad for q in m.parameters())   # trainable
     with pytest.raises(ValueError):
         GraphSAGE(dims[:-1]).params_from_jax(p)
 
