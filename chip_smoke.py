@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together, into ``build/kernels/``), then runs four
-phases on one card at the paper's full GraphSAGE width (128 -> 256 -> 256
--> 172, fanouts 5/10/15):
+source, all started together, into ``build/kernels/``), then runs six
+phases on one card, phases 1-4 at the paper's full GraphSAGE width (128 ->
+256 -> 256 -> 172, fanouts 5/10/15) and phases 5-6 at its full GAT width
+(128 -> 4 heads x 256 -> 4 heads x 256 -> 172, one head at the last
+layer):
 
   1. kernels vs plain versions: each kernel's wrapper against its plain
      PyTorch version on the same inputs — the serve layer at the three
@@ -35,26 +37,53 @@ phases on one card at the paper's full GraphSAGE width (128 -> 256 -> 256
      timed with their bounds; (c) the first two steps of (b), from the
      same state, minibatches and selection uniforms, once more on the card
      and on the CPU through the plain versions: loss, gradients (Adam's
-     first moment), pushed tags and HEC tags held against each other.
+     first moment), pushed tags and HEC tags held against each other;
+  5. GAT serving, a third main path: the ``gnn_serve`` flow with ``--model
+     gat --preset gat-papers100m --slots 64`` on phase 3's graph (cold
+     pass, offline pre-warm through the GAT AGG kernel G with ``dst_idx``,
+     warm pass), with every launch count set to 0 just before and read
+     just after (G exactly 3 per microbatch and 3 per offline chunk
+     column); every offline layer is then held against the plain version
+     on the kernel's own input, and G and the HEC probe are timed at the
+     path's shapes;
+  6. GAT training, the fourth main path: (b) ``launch/train.py gnn --model
+     gat`` with phase 4's graph and settings (lr 0.001), the HEC cut to
+     ``GAT_HEC_SIZE`` = 524,288 entries per layer (at 1M the epoch trains,
+     but ``evaluate``'s clone of every HEC runs out of the card's memory),
+     launch counts exact (per step G and H 3 per rank, per eval batch G 3
+     per rank); (a) G and H
+     against their plain versions at rank 0's three layer shapes and at a
+     ragged shape with an all-masked row, and the HEC probe at GAT's
+     training widths, timed with their bounds; (c) the first two steps on
+     the card and on the CPU, as phase 4 (c), at batch
+     ``GAT_CHECK_BATCH`` = 256 (a CPU step at batch 1000 takes over 60
+     s), with a traced card step.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
 the microbatch launches, the three offline chunk shapes for the pre-warm's
 chunks.  The HEC probe's ``ms`` is launch-weighted over both paths: its
 four serving probe shapes share the serving launches, its three training
-lookup shapes the training launches; its ``launches`` is the sum, split
-in ``launches_by_path``.  C-F's are means over their layer shapes, each
-layer standing for an equal share of the training path's launches.  Cold
+lookup shapes the training launches, and likewise at GAT's widths in
+phases 5 and 6; its ``launches`` is the sum, split in
+``launches_by_path``.  C-F's are means over their layer shapes, each
+layer standing for an equal share of the training path's launches; G's
+is launch-weighted over phase 5's online and offline shapes and phase 6's
+layer shapes, H's a mean over phase 6's layer shapes.  Cold
 and warm q/s, per-step spans and s/epoch are printed as indicative only:
 each window lasts seconds or less on the host clock.
 
-Tolerances: the serve layer, UPDATE and AGG sum in another float32 order
-than their plain versions (and AGG's gradient adds with atomics), so they
-are held to |kernel - plain| <= 1e-4 * max(1, |plain|); the dropout's
+Tolerances: the serve layer, UPDATE, AGG and GAT AGG sum in another
+float32 order than their plain versions (and the AGG and GAT AGG
+gradients add with atomics), so they are held to |kernel - plain| <= 1e-4
+* max(1, |plain|); the dropout's
 dropped positions, UPDATE's dZ, AGG's counts and the HEC probe + load are
 held bit for bit.  The card-vs-CPU training step is held to 1e-4 relative
-(loss, gradient norm, each tensor of Adam's first moment in norm): its
-sums run in other orders over up to 176,000 rows.  TF32 is off.
+(loss, gradient norm, and Adam's first moment in norm: each tensor for
+GraphSAGE, the whole for GAT, whose layer-0 attention vectors' gradients
+cancel heavily and move by up to 1.2e-4 per tensor between two float32
+summation orders): its sums run in other orders over up to 1,056,000
+rows.  TF32 is off.
 
 Prints free-form lines, then the card's name and power limit as
 nvidia-smi gives them, a JSON ``kernels`` line, and as the last line
@@ -99,8 +128,15 @@ KERNEL_ROWS = {
     "sage_agg_bwd": dict(
         route="cuda", source="src/repro_torch/csrc/sage_agg.cu",
         replaces="src/repro/kernels/sage_agg.py:43 (its gradient)"),
+    "gat_edge_fwd": dict(
+        route="cuda", source="src/repro_torch/csrc/gat_edge.cu",
+        replaces="src/repro/kernels/gat_edge.py:44"),
+    "gat_edge_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/gat_edge.cu",
+        replaces="src/repro/kernels/gat_edge.py:44 (its gradient)"),
 }
-KERNELS = ("serve_fused", "hec_search", "update_fused", "sage_agg")
+KERNELS = ("serve_fused", "hec_search", "update_fused", "sage_agg",
+           "gat_edge")
 TRAIN_VERTICES = 400_000
 TRAIN_ARGS = ["gnn", "--ranks", "4", "--degree", "10", "--classes", "172",
               "--feat-dim", "128", "--hidden", "256", "--layers", "3",
@@ -108,7 +144,12 @@ TRAIN_ARGS = ["gnn", "--ranks", "4", "--degree", "10", "--classes", "172",
               "1", "--hec-size", "1000000", "--hec-nc", "2000", "--device",
               "cuda"]
 EVAL_BATCHES = 8            # DistTrainer.evaluate's default
-CHECK_STEPS = 2             # steps of the card-vs-CPU check, phase 4 (c)
+CHECK_STEPS = 2             # steps of the card-vs-CPU checks, phases 4/6 (c)
+# entries per layer and rank, phase 6: at phase 4's 1M, GAT's epoch trains
+# but evaluate (which clones every HEC) runs out of the card's memory
+GAT_HEC_SIZE = 524_288
+# batch of phase 6 (c): at 1000 one CPU step of GAT takes over 60 s
+GAT_CHECK_BATCH = 256
 
 
 class SmokeFailure(RuntimeError):
@@ -125,7 +166,10 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3):
     with CUDA events.  ``device_ms`` queues the runs behind a device sleep
     longer than the host takes to enqueue them, so it is the card's time
     alone; ``call_ms`` is what a Python caller waits per call, enqueue
-    (wrapper checks, ctypes, allocation) included."""
+    (wrapper checks, ctypes, allocation) included.  The allocator's cache
+    is emptied first: a cache fragmented by earlier work makes it free
+    blocks inside the timed loop, and freeing waits for the device."""
+    torch.cuda.empty_cache()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -444,9 +488,7 @@ def phase2(torch, np, device):
 # phase 3: the main path, through the launcher
 # ---------------------------------------------------------------------------
 def phase3(torch, np, args):
-    from repro_torch.kernels import hec_search as hs
     from repro_torch.kernels import ref
-    from repro_torch.kernels import serve_fused as sf
     from repro_torch.launch import gnn_serve
     from repro_torch.serve.gnn import full_neighbor_matrix
 
@@ -454,14 +496,13 @@ def phase3(torch, np, args):
         "--preset", "graphsage-papers100m", "--slots", str(SLOTS),
         "--vertices", str(args.vertices), "--queries", str(args.queries),
         "--device", "cuda"])
-    sf.serve_fused_layer.launches = 0
-    hs.hec_lookup.launches = 0
+    zero_launches()
     res = gnn_serve.run(largs)
-    launches = {"serve_fused_layer": sf.serve_fused_layer.launches,
-                "hec_lookup": hs.hec_lookup.launches}
+    launches = read_launches()
     print(f"phase 3: launches on the main path: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"phase 3: {name} was never launched on the main path")
+    for name in ("serve_fused_layer", "hec_lookup"):
+        check(launches[name] > 0,
+              f"phase 3: {name} was never launched on the main path")
     cold, warm = res["cold"], res["warm"]
     check(all(r.done and np.isfinite(r.result).all() for r in cold + warm),
           "phase 3: an answer is missing or non-finite")
@@ -511,6 +552,7 @@ def phase3(torch, np, args):
 # ---------------------------------------------------------------------------
 def wrappers():
     """Every kernel wrapper, by the name of its row."""
+    from repro_torch.kernels import gat_edge as ge
     from repro_torch.kernels import hec_search as hs
     from repro_torch.kernels import sage_agg as sa
     from repro_torch.kernels import serve_fused as sf
@@ -520,59 +562,77 @@ def wrappers():
             "update_fused_fwd": uf.update_fused_fwd,
             "update_fused_bwd": uf.update_fused_bwd,
             "sage_agg_fwd": sa.sage_agg_fwd,
-            "sage_agg_bwd": sa.sage_agg_bwd}
+            "sage_agg_bwd": sa.sage_agg_bwd,
+            "gat_edge_fwd": ge.gat_edge_fwd,
+            "gat_edge_bwd": ge.gat_edge_bwd}
 
 
-def phase4_main_path(torch, np, vertices):
-    """(b): the launcher's training run; returns its result and the
-    launches it made."""
+def zero_launches():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches():
+    return {n: w.launches for n, w in wrappers().items()}
+
+
+def train_main_path(torch, np, phase, argv, per_step, per_eval):
+    """(b): the launcher's training run; every kernel's launches must be
+    ``per_step`` per step plus ``per_eval`` per eval batch (per rank and
+    layer counts are the caller's; absent = 0).  Returns its result and
+    the launches it made."""
     from repro_torch import obs
     from repro_torch.launch import train
     obs.configure()
-    ws = wrappers()
-    for w in ws.values():
-        w.launches = 0
-    res = train.run_gnn(train.parse_args(
-        TRAIN_ARGS + ["--vertices", str(vertices)]))
-    launches = {n: w.launches for n, w in ws.items()}
-    print(f"phase 4: launches on the training path: {launches}")
+    zero_launches()
+    res = train.run_gnn(train.parse_args(argv))
+    launches = read_launches()
+    print(f"{phase}: launches on the training path: {launches}")
     tr, cfg = res["trainer"], res["cfg"]
     R, L, log = tr.num_ranks, cfg.num_layers, tr.step_log
     steps = len(log)
-    print(f"phase 4: {steps} steps per rank in the epoch, {R} ranks, "
+    print(f"{phase}: {steps} steps per rank in the epoch, {R} ranks, "
           f"batch {cfg.batch_size}; {EVAL_BATCHES} eval batches")
-    per_step = {"hec_lookup": L * R, "update_fused_fwd": L * R,
-                "update_fused_bwd": L * R, "sage_agg_fwd": L * R,
-                "sage_agg_bwd": (L - 1) * R, "serve_fused_layer": 0}
-    per_eval = {"hec_lookup": L * R, "update_fused_fwd": L * R,
-                "sage_agg_fwd": L * R}
-    for n, k in per_step.items():
-        want = steps * k + EVAL_BATCHES * per_eval.get(n, 0)
-        check(launches[n] == want, f"phase 4: {n} launched {launches[n]} "
+    for n in launches:
+        want = steps * per_step.get(n, 0) + EVAL_BATCHES * per_eval.get(n, 0)
+        check(launches[n] == want, f"{phase}: {n} launched {launches[n]} "
               f"times, expected {want}")
     for i, m in enumerate(log):
         check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
-              f"phase 4: step {i}: loss {m['loss']} grad norm "
+              f"{phase}: step {i}: loss {m['loss']} grad norm "
               f"{m['grad_norm']}")
     check(all(m["aep_push_rows"] > 0 for m in log),
-          "phase 4: a step pushed no rows")
+          f"{phase}: a step pushed no rows")
     hits = [sum(m[f"hec_hits_l{l}"] for m in log) for l in range(L)]
-    check(any(h > 0 for h in hits), "phase 4: no HEC hit by the last step")
-    check(0.0 <= res["test_acc"] <= 1.0, "phase 4: evaluate failed")
+    check(any(h > 0 for h in hits), f"{phase}: no HEC hit by the last step")
+    check(0.0 <= res["test_acc"] <= 1.0, f"{phase}: evaluate failed")
     h = res["history"][0]
-    print(f"phase 4: losses {[round(m['loss'], 4) for m in log]}; seeds "
+    print(f"{phase}: losses {[round(m['loss'], 4) for m in log]}; seeds "
           f"per step {[int(m['examples']) for m in log]}; HEC hits per "
           f"layer {hits} of halos "
           f"{[sum(m[f'hec_halos_l{l}'] for m in log) for l in range(L)]}; "
           f"pushed rows per step "
           f"{[int(m['aep_push_rows']) for m in log]}; test_acc "
           f"{res['test_acc']:.4f}")
-    print(f"phase 4: indicative host clock: {res['train_seconds']:.2f} "
+    print(f"{phase}: indicative host clock: {res['train_seconds']:.2f} "
           f"s/epoch; per step ms: " + ", ".join(
               f"{p} {1e3 * h[f't_{p}'] / steps:.1f}"
               for p in ("sample", "host_prep", "stage", "step"))
           + " (sample and host_prep run on the prefetch worker)")
     return res, launches
+
+
+def phase4_main_path(torch, np, vertices):
+    """(b) of phase 4: GraphSAGE; per step C, D, E and B at every layer of
+    every rank and F at layers >= 1, per eval batch C, E and B."""
+    R, L = 4, 3
+    per_step = {"hec_lookup": L * R, "update_fused_fwd": L * R,
+                "update_fused_bwd": L * R, "sage_agg_fwd": L * R,
+                "sage_agg_bwd": (L - 1) * R}
+    per_eval = {"hec_lookup": L * R, "update_fused_fwd": L * R,
+                "sage_agg_fwd": L * R}
+    return train_main_path(torch, np, "phase 4", TRAIN_ARGS + [
+        "--vertices", str(vertices)], per_step, per_eval)
 
 
 def close_to(got, want):
@@ -701,9 +761,9 @@ def update_bwd_case(torch, uf, ref, name, g, out, relu, dropout, seed,
     return row
 
 
-def print_row(kernel, row):
+def print_row(kernel, row, phase="phase 4"):
     lib = row.get("library_ms")
-    print(f"phase 4: {kernel} {row['shape']}: max|d|={row['max_abs_err']:.3e}"
+    print(f"{phase}: {kernel} {row['shape']}: max|d|={row['max_abs_err']:.3e}"
           f"; device ms kernel {row['ms']:.4f}, plain {row['plain_ms']:.4f}"
           + (f", library {lib:.4f}" if lib is not None else "")
           + f", bound {row['bound_ms']:.4f} ({row['bound_by']}); per call "
@@ -807,82 +867,109 @@ def rel_norm(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def phase4_cpu_check(torch, np, res, steps=CHECK_STEPS, batch=None):
+def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
+              per_tensor=True):
     """(c): the main path's first ``steps`` steps from the same state,
     minibatches and uniforms, on the card and on the CPU (``batch``: a
     smaller batch for the check, should the CPU be too slow at full
-    width)."""
+    width).  Gradients are compared after the first step (Adam's first
+    moment), before Adam's per-entry normalization can move a float-noise
+    gradient entry by a full step of either sign on each device: each
+    parameter tensor within 1e-4 relative (``per_tensor``), else the
+    gradient as one vector, with every tensor's difference printed.  The
+    card's last step at the main path's batch is traced (once more on the
+    card alone when the check ran at another batch)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.gnn_serve import device_profile
     from repro_torch.pipeline.prefetcher import SamplingPlan
     from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
                                                minibatch_to_device)
-    ps, cfg = res["ps"], res["cfg"]
-    if batch is not None:
-        cfg = dataclasses.replace(cfg, batch_size=batch)
-    R = res["trainer"].num_ranks
-    plan = SamplingPlan(ps, cfg, 0)
-    sched = plan.epoch_schedule(0)
-    hosts = [plan.sample_host(0, i, sched[i]) for i in range(steps)]
-    card = DistTrainer(cfg, R, device="cuda")
-    draw = card.push_uniforms
-    cpu = DistTrainer(cfg, R, device="cpu",
-                      push_uniforms=lambda s, r, sh: draw(s, r, sh).cpu())
-    runs = {}
-    for name, tr in (("card", card), ("cpu", cpu)):
+    ps, R = res["ps"], res["trainer"].num_ranks
+
+    def first_steps(cfg):
+        plan = SamplingPlan(ps, cfg, 0)
+        sched = plan.epoch_schedule(0)
+        return [plan.sample_host(0, i, sched[i]) for i in range(steps)]
+
+    def run(tr, cfg, hosts, trace):
         st = tr.init_state(seed=0)             # the launcher's --seed 0
         data = build_dist_data(ps, cfg, tr.device)
-        logs, secs = [], []
+        out = {"logs": [], "secs": []}
         for i, host in enumerate(hosts):
             mb = minibatch_to_device(host, tr.device)
-            traced = name == "card" and i == steps - 1
+            traced = trace and i == steps - 1
             if traced:                 # the device's share of one step
                 prof = profile(activities=[ProfilerActivity.CPU,
                                            ProfilerActivity.CUDA])
                 prof.__enter__()
             t0 = time.perf_counter()
-            logs.append(tr.train_step(st, data, mb, i))
-            secs.append(time.perf_counter() - t0)
+            out["logs"].append(tr.train_step(st, data, mb, i))
+            out["secs"].append(time.perf_counter() - t0)
             if traced:
                 prof.__exit__(None, None, None)
-                traced_profile = device_profile(prof, secs[-1])
+                out["profile"] = device_profile(prof, out["secs"][-1])
             if i == 0:                 # copies: the state moves on in place
-                mu = [m.cpu().clone() for m in st["opt"].mu]
-                pushed = [q["tags"][-1].cpu().clone()
-                          for q in st["inflight"]]
-        runs[name] = dict(logs=logs, secs=secs, mu=mu, pushed=pushed,
-                          tags=[[s.tags.cpu() for s in layer]
-                                for layer in st["hec"]])
+                out["mu"] = [m.cpu().clone() for m in st["opt"].mu]
+                out["pushed"] = [q["tags"][-1].cpu().clone()
+                                 for q in st["inflight"]]
+        out["tags"] = [[s.tags.cpu() for s in layer] for layer in st["hec"]]
         del st, data
         torch.cuda.empty_cache()
+        return out
+
+    cfg = res["cfg"] if batch is None else dataclasses.replace(
+        res["cfg"], batch_size=batch)
+    hosts = first_steps(cfg)
+    card = DistTrainer(cfg, R, device="cuda")
+    draw = card.push_uniforms
+    cpu = DistTrainer(cfg, R, device="cpu",
+                      push_uniforms=lambda s, r, sh: draw(s, r, sh).cpu())
+    runs = {"card": run(card, cfg, hosts, trace=batch is None),
+            "cpu": run(cpu, cfg, hosts, trace=False)}
+    traced_profile = runs["card"].get("profile")
+    if traced_profile is None:          # the check ran at another batch
+        traced_profile = run(DistTrainer(res["cfg"], R, device="cuda"),
+                             res["cfg"], first_steps(res["cfg"]),
+                             trace=True)["profile"]
     c, p = runs["card"], runs["cpu"]
     if batch is None:
         check(c["logs"][0]["loss"] == res["trainer"].step_log[0]["loss"],
-              "phase 4 (c): the card's first step is not the main path's")
+              f"{phase} (c): the card's first step is not the main path's")
     for i in range(steps):
         for key in ("loss", "grad_norm"):
             a, b = c["logs"][i][key], p["logs"][i][key]
-            check(abs(a - b) <= 1e-4 * abs(b), f"phase 4 (c): step {i} "
+            check(abs(a - b) <= 1e-4 * abs(b), f"{phase} (c): step {i} "
                   f"{key}: card {a} vs CPU {b}")
-    worst = max(rel_norm(a, b) for a, b in zip(c["mu"], p["mu"]))
-    check(worst <= 1e-4, f"phase 4 (c): gradient (Adam mu) differs by "
-          f"{worst:.3e} relative")
+    rels = [rel_norm(a, b) for a, b in zip(c["mu"], p["mu"])]
+    worst = max(rels)
+    whole = rel_norm(torch.cat([m.ravel() for m in c["mu"]]),
+                     torch.cat([m.ravel() for m in p["mu"]]))
+    print(f"{phase} (c): gradient (Adam mu) relative difference per "
+          f"parameter, leaf order: {[float(f'{r:.2e}') for r in rels]}; "
+          f"norms {[float(f'{float(m.norm()):.3e}') for m in p['mu']]}; "
+          f"as one vector {whole:.3e}")
+    held = worst if per_tensor else whole
+    check(held <= 1e-4, f"{phase} (c): gradient (Adam mu) differs by "
+          f"{held:.3e} relative"
+          + ("" if per_tensor else " as one vector"))
     check(all(torch.equal(a, b) for a, b in zip(c["pushed"], p["pushed"])),
-          "phase 4 (c): the pushed tags differ")
+          f"{phase} (c): the pushed tags differ")
     check(all(torch.equal(a, b) for la, lb in zip(c["tags"], p["tags"])
-              for a, b in zip(la, lb)), "phase 4 (c): the HEC tags differ")
+              for a, b in zip(la, lb)), f"{phase} (c): the HEC tags differ")
     filled = sum(int((t >= 0).sum()) for layer in c["tags"] for t in layer)
-    check(steps < 2 or filled > 0, "phase 4 (c): no HEC line was filled")
-    print(f"phase 4 (c): {steps} steps at batch {cfg.batch_size}, card vs "
+    check(steps < 2 or filled > 0, f"{phase} (c): no HEC line was filled")
+    print(f"{phase} (c): {steps} steps at batch {cfg.batch_size}, card vs "
           f"CPU: losses {[m['loss'] for m in c['logs']]} vs "
           f"{[m['loss'] for m in p['logs']]}; gradient rel. diff "
-          f"{worst:.2e}; pushed tags and {filled} HEC tags equal; CPU "
-          f"s/step {[round(s, 1) for s in p['secs']]}")
+          f"{held:.2e}{'' if per_tensor else ' as one vector'}; pushed "
+          f"tags and {filled} HEC tags equal; CPU s/step "
+          f"{[round(s, 1) for s in p['secs']]}")
     dp = traced_profile
     h = res["history"][0]
     steps_b = len(res["trainer"].step_log)
-    print(f"phase 4 (c): traced card step {steps - 1}: {dp['wall_ms']:.1f} "
+    print(f"{phase} (c): traced card step {steps - 1} at batch "
+          f"{res['cfg'].batch_size}: {dp['wall_ms']:.1f} "
           f"ms wall, device busy {dp['device_busy_ms']:.2f} ms "
           f"({100 * dp['device_busy_share']:.1f}%); against the main "
           f"path's {1e3 * h['t_wall'] / steps_b:.1f} ms of epoch wall per "
@@ -890,9 +977,306 @@ def phase4_cpu_check(torch, np, res, steps=CHECK_STEPS, batch=None):
           f"{100 * dp['device_busy_ms'] * steps_b / (1e3 * h['t_wall']):.1f}%"
           f" (indicative)")
     for row in dp["top"]:
-        print(f"phase 4 (c):   {row['device_ms']:8.3f} ms  {row['calls']:5d}"
+        print(f"{phase} (c):   {row['device_ms']:8.3f} ms  {row['calls']:5d}"
               f"x  {row['op'][:90]}")
     return dp
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: GAT
+# ---------------------------------------------------------------------------
+def gat_case(torch, ge, ref, name, z, e_u, e_v, nbr, valid, dst_idx=None,
+             timed=True):
+    """Kernel G vs plain on one input; returns the kernel's output and a
+    row."""
+    out = ge.gat_edge_fwd(z, e_u, e_v, nbr, valid, dst_idx)
+    torch.cuda.synchronize()
+    want = ref.gat_edge_ref(z, e_u, e_v, nbr, valid, dst_idx)
+    ok, err = close_to(out, want)
+    check(bool(torch.isfinite(out).all()) and ok,
+          f"{name}: GAT AGG max |kernel - plain| {err:.3e} over tolerance")
+    N, H, dh = z.shape
+    M, f = nbr.shape
+    row = {"shape": f"z {N}x{H}x{dh}, nbr {M}x{f}"
+                    + (", dst_idx" if dst_idx is not None else ""),
+           "max_abs_err": err, "library_ms": None}
+    del want
+    if timed:
+        # each included source's z and e_u row read once, the valid flag of
+        # each slot, nbr, the e_v (and dst) rows, out written; per included
+        # slot two flops per z element and about 8 per head (softmax)
+        idx = nbr.long()
+        used = (idx >= 0) & valid[idx.clamp(0, N - 1)]
+        rows = idx.clamp(0, N - 1)[used].unique().numel()
+        slots = int(used.sum())
+        nbytes = (rows * (H * dh + H) * 4 + int((idx >= 0).sum())
+                  + M * f * 4 + M * H * 4 + (M * 4 if dst_idx is not None
+                                             else 0) + M * H * dh * 4)
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, slots * (2.0 * H * dh + 8 * H))
+        row["ms"], row["call_ms"] = time_ms(torch, lambda: ge.gat_edge_fwd(
+            z, e_u, e_v, nbr, valid, dst_idx))
+        # the plain version launches tens of torch ops per call: fewer
+        # calls, so that they fit in the queue behind the device sleep
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: ref.gat_edge_ref(z, e_u, e_v, nbr, valid, dst_idx),
+            iters=10)
+    return out, row
+
+
+def gat_bwd_case(torch, ge, ref, name, g, z, e_u, e_v, nbr, valid,
+                 timed=True):
+    got = ge.gat_edge_bwd(g, z, e_u, e_v, nbr, valid)
+    torch.cuda.synchronize()
+    want = ref.gat_edge_bwd_ref(g, z, e_u, e_v, nbr, valid)
+    errs = []
+    for label, a, b in zip(("dz", "de_u", "de_v"), got, want):
+        ok, err = close_to(a, b)
+        check(bool(torch.isfinite(a).all()) and ok,
+              f"{name}: GAT AGG gradient {label} max |kernel - plain| "
+              f"{err:.3e} over tolerance")
+        errs.append(err)
+    N, H, dh = z.shape
+    M, f = nbr.shape
+    row = {"shape": f"g {M}x{H * dh}, nbr {M}x{f} -> dz {N}x{H}x{dh}",
+           "max_abs_err": max(errs), "library_ms": None}
+    del got, want, a, b
+    if timed:
+        # g, the included sources' z and e_u rows, the slots' valid flags,
+        # nbr and e_v read once; dz, de_u and de_v written whole; per
+        # included slot a dot product and a scaled add per z element
+        idx = nbr.long()
+        used = (idx >= 0) & valid[idx.clamp(0, N - 1)]
+        rows = idx.clamp(0, N - 1)[used].unique().numel()
+        nbytes = (M * H * dh * 4 + rows * (H * dh + H) * 4
+                  + int((idx >= 0).sum()) + M * f * 4 + M * H * 4
+                  + N * H * dh * 4 + N * H * 4 + e_v.shape[0] * H * 4)
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, int(used.sum()) * (4.0 * H * dh + 12 * H))
+        row["ms"], row["call_ms"] = time_ms(torch, lambda: ge.gat_edge_bwd(
+            g, z, e_u, e_v, nbr, valid))
+        # about 80 torch ops per call: 3 calls fit in the launch queue
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: ref.gat_edge_bwd_ref(g, z, e_u, e_v, nbr, valid),
+            iters=3)
+    return row
+
+
+def peak_line(torch, phase):
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"{phase}: peak device memory {peak / 2 ** 30:.2f} GiB of "
+          f"{total / 2 ** 30:.2f} GiB ({100 * peak / total:.1f}%)")
+
+
+def phase5(torch, np, args):
+    """GAT serving through the launcher; returns the launches, G's rows
+    (online and offline) and B's rows at the path's probe shapes."""
+    from repro_torch.kernels import gat_edge as ge
+    from repro_torch.kernels import hec_search as hs
+    from repro_torch.kernels import ref
+    from repro_torch.launch import gnn_serve
+    from repro_torch.pipeline.vectorized_sampler import \
+        sample_blocks_vectorized
+    from repro_torch.serve.gnn import full_neighbor_matrix
+
+    torch.cuda.reset_peak_memory_stats()
+    largs = gnn_serve.parse_args([
+        "--model", "gat", "--preset", "gat-papers100m", "--slots",
+        str(SLOTS), "--vertices", str(args.vertices), "--queries",
+        str(args.queries), "--device", "cuda"])
+    zero_launches()
+    res = gnn_serve.run(largs)
+    launches = read_launches()
+    print(f"phase 5: launches on the GAT serving path: {launches}")
+    srv, part, cfg = res["srv"], res["part"], res["cfg"]
+    model, L, S = srv.model, cfg.num_layers, part.num_solid
+    # every microbatch (warm-up, cold and warm passes) runs G once per
+    # layer; the pre-warm once per layer and chunk of dst rows
+    microbatches = srv._mb_counter
+    chunks = -(-S // OFFLINE_CHUNK)
+    want = L * (microbatches + chunks)
+    check(launches["gat_edge_fwd"] == want, f"phase 5: G launched "
+          f"{launches['gat_edge_fwd']} times, expected {want} ({L} x "
+          f"({microbatches} microbatches + {chunks} offline chunks))")
+    check(launches["hec_lookup"] > 0, "phase 5: B was never launched")
+    for n in ("serve_fused_layer", "update_fused_fwd", "update_fused_bwd",
+              "sage_agg_fwd", "sage_agg_bwd", "gat_edge_bwd"):
+        check(launches[n] == 0, f"phase 5: {n} launched on the GAT path")
+    cold, warm = res["cold"], res["warm"]
+    check(all(r.done and np.isfinite(r.result).all() for r in cold + warm),
+          "phase 5: an answer is missing or non-finite")
+    offline = res["embs"][-1].cpu().numpy()
+    fast = [r for r in warm if r.served_by == "output_cache"]
+    check(len(fast) > 0, "phase 5: the warm pass had no fast-path answer")
+    check(all(np.array_equal(r.result, offline[r.vid]) for r in fast),
+          "phase 5: a fast-path answer differs from its offline row")
+
+    # every pre-warm layer against the plain version on its own input
+    dev = torch.device("cuda")
+    nbr_full = torch.as_tensor(full_neighbor_matrix(part), dtype=torch.int32,
+                               device=dev)
+    ones = torch.ones(S, dtype=torch.bool, device=dev)
+    vids = torch.arange(S, dtype=torch.int32, device=dev)
+    h = torch.as_tensor(part.features, device=dev)
+    offline_err, rows_g = 0.0, []
+    for k, (layer, e) in enumerate(zip(model.layers, res["embs"])):
+        z, e_u, e_v = layer.project(h)
+        want = ref.gat_edge_ref(z, e_u, e_v, nbr_full, ones, vids)
+        torch.cuda.synchronize()
+        ok, err = close_to(e, want)
+        check(e.shape == want.shape and bool(torch.isfinite(e).all()) and ok,
+              f"phase 5: offline layer {k + 1}: shape {tuple(e.shape)}, max "
+              f"|kernel - plain| {err:.3e}")
+        offline_err = max(offline_err, err)
+        # the first chunk of the layer, timed
+        _, row = gat_case(torch, ge, ref, f"offline chunk layer {k}", z, e_u,
+                          e_v, nbr_full[:OFFLINE_CHUNK], ones,
+                          vids[:OFFLINE_CHUNK])
+        row["path"] = "offline"
+        rows_g.append(row)
+        print_row("gat_edge_fwd (G)", row, "phase 5")
+        h = e
+        del z, e_u, e_v, want
+    print(f"phase 5: offline embeddings of {S} vertices, {L * chunks} G "
+          f"launches ({chunks} chunks x {L} layers, neighbor lists "
+          f"{nbr_full.shape[1]} wide), match the plain version: max|d|="
+          f"{offline_err:.3e}")
+
+    # a microbatch's shapes: G per layer, and B on the server's caches
+    rng = np.random.default_rng(5)
+    seeds = rng.choice(S, size=SLOTS, replace=False)
+    blocks = sample_blocks_vectorized(part, seeds, cfg.fanouts,
+                                      np.random.default_rng([5, 0]), SLOTS)
+    feats = torch.as_tensor(part.features, device=dev)
+    nodes0 = torch.as_tensor(blocks.layer_nodes[0], device=dev)
+    valid = torch.as_tensor(blocks.node_mask[0], device=dev)
+    h = feats[nodes0.clamp(0, S - 1)] * valid[:, None]
+    for k, layer in enumerate(model.layers):
+        nbr = torch.as_tensor(blocks.nbr_idx[k], dtype=torch.int32,
+                              device=dev)
+        z, e_u, e_v = layer.project(h)
+        h, row = gat_case(torch, ge, ref, f"serve layer {k}", z, e_u, e_v,
+                          nbr, valid)
+        row["path"] = "online"
+        rows_g.append(row)
+        print_row("gat_edge_fwd (G)", row, "phase 5")
+        valid = torch.as_tensor(blocks.node_mask[k + 1], device=dev)
+    rows_b = []
+    probes = [(k, blocks.layer_nodes[k]) for k in range(1, L)] \
+        + [(L, blocks.seeds)]
+    for k, nodes in probes:
+        row = hec_case(torch, hs, f"GAT serve probe l{k}",
+                       srv.cache.states[k - 1],
+                       torch.as_tensor(nodes, dtype=torch.int32, device=dev))
+        rows_b.append(row)
+        print(f"phase 5: hec_lookup {row['shape']} ({row['hits']} hits): "
+              f"bit-exact; device ms kernel {row['ms']:.4f}, plain "
+              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']})")
+    print(f"phase 5: cold {res['cold_qps']:.1f} q/s "
+          f"({res['cold_metrics']['steps_run']} microbatches), warm "
+          f"{res['warm_qps']:.1f} q/s ({len(fast)}/{len(warm)} fast-path "
+          f"answers equal to their offline rows); indicative only")
+    peak_line(torch, "phase 5")
+    return launches, rows_g, rows_b, microbatches, chunks, offline_err
+
+
+def phase6_main_path(torch, np, vertices, hec_size):
+    """(b) of phase 6: GAT; per step G and H at every layer of every rank
+    and B at every layer, per eval batch G and B."""
+    R, L = 4, 3                              # TRAIN_ARGS' ranks and layers
+    per_step = {"hec_lookup": L * R, "gat_edge_fwd": L * R,
+                "gat_edge_bwd": L * R}
+    per_eval = {"hec_lookup": L * R, "gat_edge_fwd": L * R}
+    torch.cuda.reset_peak_memory_stats()
+    # argparse keeps the last of a repeated flag: these override TRAIN_ARGS
+    argv = TRAIN_ARGS + ["--vertices", str(vertices), "--model", "gat",
+                         "--lr", "0.001", "--hec-size", str(hec_size)]
+    print(f"phase 6 (b): HEC of {hec_size} entries x 8 ways per layer and "
+          f"rank")
+    res, launches = train_main_path(torch, np, "phase 6", argv, per_step,
+                                    per_eval)
+    peak_line(torch, "phase 6 (b)")
+    return res, launches
+
+
+def phase6_kernels(torch, np, res):
+    """(a): G and H against their plain versions at the layer shapes of
+    the main path's first minibatch (rank 0) and at a ragged shape, and B
+    at its lookups on the run's caches."""
+    from repro_torch.kernels import gat_edge as ge
+    from repro_torch.kernels import hec_search as hs
+    from repro_torch.kernels import ref
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.train.gnn_trainer import minibatch_to_device
+    torch.cuda.reset_peak_memory_stats()
+    ps, cfg, data, state = res["ps"], res["cfg"], res["data"], res["state"]
+    dev = torch.device("cuda")
+    plan = SamplingPlan(ps, cfg, 0)
+    mb = minibatch_to_device(plan.sample_host(0, 0, plan.epoch_schedule(0)[0]),
+                             dev)
+    r = 0
+    rows = {n: [] for n in ("gat_edge_fwd", "gat_edge_bwd", "hec_lookup")}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    num_solid = data["num_solid"][r]
+    feats = data["features"][r]
+    nodes = [n[r] for n in mb["layer_nodes"]]
+    own = [m[r] & (n < num_solid) for n, m in zip(nodes, mb["node_mask"])]
+    h = feats[nodes[0].clamp(0, feats.shape[0] - 1).long()] \
+        * own[0][:, None].float()
+    for k, layer in enumerate(state["model"].layers):
+        nbr = mb["nbr_idx"][k][r]
+        z, e_u, e_v = layer.project(h)
+        out, row = gat_case(torch, ge, ref, f"layer {k}", z, e_u, e_v, nbr,
+                            own[k])
+        rows["gat_edge_fwd"].append(row)
+        print_row("gat_edge_fwd (G)", row, "phase 6")
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        row = gat_bwd_case(torch, ge, ref, f"layer {k}", g, z, e_u, e_v, nbr,
+                           own[k])
+        rows["gat_edge_bwd"].append(row)
+        print_row("gat_edge_bwd (H)", row, "phase 6")
+        del z, e_u, e_v, g
+        vid_o = data["vid_o"][r]
+        vids = torch.where(nodes[k] >= 0,
+                           vid_o[nodes[k].clamp(0, vid_o.shape[0] - 1)
+                                 .long()], -1)
+        row = hec_case(torch, hs, f"GAT train lookup l{k}",
+                       state["hec"][k][r], vids.to(torch.int32).contiguous())
+        rows["hec_lookup"].append(row)
+        print(f"phase 6: hec_lookup {row['shape']} ({row['hits']} hits): "
+              f"bit-exact; device ms kernel {row['ms']:.4f}, plain "
+              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']})")
+        h = out
+    # ragged: dh off the float4 path and on it, f past one chunk of 32
+    # slots, -1 pads, indices past N, invalid sources, an all-masked row,
+    # clipped and repeated dst ids
+    for (N, M, f, H, dh) in ((257, 61, 13, 3, 20), (300, 40, 45, 2, 6)):
+        z = torch.randn(N, H, dh, generator=gen, device=dev)
+        e_u = torch.randn(N, H, generator=gen, device=dev)
+        e_v = torch.randn(N, H, generator=gen, device=dev)
+        nbr = torch.randint(-1, N + 3, (M, f), generator=gen, device=dev,
+                            dtype=torch.int32)
+        nbr[0] = -1
+        vr = torch.rand(N, generator=gen, device=dev) > 0.2
+        dst = torch.randint(-2, N + 2, (M,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        out, _ = gat_case(torch, ge, ref, "ragged", z, e_u, e_v, nbr, vr,
+                          timed=False)
+        check(float(out[0].abs().max()) == 0.0,
+              "phase 6 (a): an all-masked row is not zero")
+        gat_case(torch, ge, ref, "ragged dst_idx", z, e_u, e_v, nbr, vr,
+                 dst, timed=False)
+        gat_bwd_case(torch, ge, ref, "ragged", torch.randn(
+            M, H * dh, generator=gen, device=dev), z, e_u, e_v, nbr, vr,
+            timed=False)
+    print("phase 6 (a): ragged shapes (257 x 13 slots, 3 x 20 heads; 300 x "
+          "45 slots, 2 x 6 heads; all-masked rows, dst_idx) within "
+          "tolerance")
+    peak_line(torch, "phase 6 (a)")
+    return rows
 
 
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
@@ -922,6 +1306,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--vertices", type=int, default=100_000)
     ap.add_argument("--queries", type=int, default=1024)
+    ap.add_argument("--gat-hec-size", type=int, default=GAT_HEC_SIZE,
+                    help="HEC entries per layer and rank in phase 6")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -982,8 +1368,39 @@ def main(argv=None) -> int:
         rows4 = phase4_kernels(torch, np, res)
     print(f"phase 4 (a): done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    phase4_cpu_check(torch, np, res)
+    cpu_check(torch, np, "phase 4", res)
     print(f"phase 4 (c): done in {time.perf_counter() - t0:.1f}s")
+    del res                 # its HEC and data, before the GAT phases
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        launches5, rows5_g, rows5_b, microbatches5, chunks5, offline_err5 = \
+            phase5(torch, np, args)
+    print(f"phase 5: done in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res, launches6 = phase6_main_path(torch, np, TRAIN_VERTICES,
+                                      args.gat_hec_size)
+    print(f"phase 6 (b): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rows6 = phase6_kernels(torch, np, res)
+    print(f"phase 6 (a): done in {time.perf_counter() - t0:.1f}s")
+    res["state"] = res["data"] = None      # room for the check's own state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batch = None if GAT_CHECK_BATCH == int(TRAIN_ARGS[
+        TRAIN_ARGS.index("--batch") + 1]) else GAT_CHECK_BATCH
+    # GAT's attention vectors at layer 0 have gradients with heavy
+    # cancellation (the softmax gradient is centred): per tensor they
+    # differ by up to 1.2e-4 between two float32 summation orders, while
+    # the gradient as a whole agrees to about 1e-5 (PERF.md)
+    cpu_check(torch, np, "phase 6", res, batch=batch, per_tensor=False)
+    peak_line(torch, "phase 6 (c)")
+    print(f"phase 6 (c): done in {time.perf_counter() - t0:.1f}s")
 
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]
@@ -991,7 +1408,12 @@ def main(argv=None) -> int:
     check(launches_online > 0 and launches_online % len(online) == 0,
           f"phase 3: {launches_online} online serve-layer launches is not "
           f"a whole number of microbatches")
-    b_serve, b_train = launches["hec_lookup"], launches4["hec_lookup"]
+    b_paths = {"serve": launches["hec_lookup"],
+               "train": launches4["hec_lookup"],
+               "gat_serve": launches5["hec_lookup"],
+               "gat_train": launches6["hec_lookup"]}
+    b_rows = [(rows_b, "serve"), (rows4["hec_lookup"], "train"),
+              (rows5_b, "gat_serve"), (rows6["hec_lookup"], "gat_train")]
     layer_mean = ("mean over the training path's layer shapes (rank 0's "
                   "first minibatch), each layer standing for an equal "
                   "share of the launches")
@@ -1003,19 +1425,32 @@ def main(argv=None) -> int:
                   "layer shape stands for its microbatch launches, each "
                   "offline shape (first chunk) for its layer's pre-warm "
                   "chunks", max_abs_err=offline_err),
-        summarize("hec_lookup", rows_b + rows4["hec_lookup"],
-                  {"hec_lookup": b_serve + b_train},
-                  [b_serve / len(rows_b)] * len(rows_b)
-                  + [b_train / len(rows4["hec_lookup"])]
-                  * len(rows4["hec_lookup"]),
-                  "launch-weighted mean over both paths: the four serving "
-                  "probe shapes share the serving launches, the three "
-                  "training lookup shapes the training launches")]
-    rows[1]["launches_by_path"] = {"serve": b_serve, "train": b_train}
+        summarize("hec_lookup", [r for rs, _ in b_rows for r in rs],
+                  {"hec_lookup": sum(b_paths.values())},
+                  [b_paths[p] / len(rs) for rs, p in b_rows for _ in rs],
+                  "launch-weighted mean over the four paths: each path's "
+                  "probe or lookup shapes share its launches")]
+    rows[1]["launches_by_path"] = b_paths
     for name in ("update_fused_fwd", "update_fused_bwd", "sage_agg_fwd",
                  "sage_agg_bwd"):
         rows.append(summarize(name, rows4[name], launches4,
                               [1] * len(rows4[name]), layer_mean))
+    g_online = [r for r in rows5_g if r["path"] == "online"]
+    g_offline = [r for r in rows5_g if r["path"] == "offline"]
+    g_train = launches6["gat_edge_fwd"]
+    rows.append(summarize(
+        "gat_edge_fwd", g_online + g_offline + rows6["gat_edge_fwd"],
+        {"gat_edge_fwd": launches5["gat_edge_fwd"] + g_train},
+        [microbatches5] * len(g_online) + [chunks5] * len(g_offline)
+        + [g_train / len(rows6["gat_edge_fwd"])] * len(rows6["gat_edge_fwd"]),
+        "launch-weighted mean over the GAT paths: each serving layer shape "
+        "stands for its microbatch launches, each offline shape (first "
+        "chunk) for its layer's pre-warm chunks, each training layer shape "
+        "for a third of the training launches", max_abs_err=offline_err5))
+    rows[-1]["launches_by_path"] = {"gat_serve": launches5["gat_edge_fwd"],
+                                    "gat_train": g_train}
+    rows.append(summarize("gat_edge_bwd", rows6["gat_edge_bwd"], launches6,
+                          [1] * len(rows6["gat_edge_bwd"]), layer_mean))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms per launch (device, "
               f"{r['ms_over']}), plain {r['plain_ms']:.4f} ms, bound "

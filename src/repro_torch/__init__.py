@@ -8,15 +8,16 @@ card unless the caller passes ``device="cpu"``; see :mod:`.device`.
 
 Ported so far:
 
-* single-rank GraphSAGE serving with the HEC-backed embedding cache
-  (``serve/gnn``, ``launch/gnn_serve``), through the fused serve-layer
-  kernel (``kernels/serve_fused``) and the fused HEC probe + load kernel
+* single-rank GraphSAGE and GAT serving with the HEC-backed embedding
+  cache (``serve/gnn``, ``launch/gnn_serve``), through the fused
+  serve-layer kernel (``kernels/serve_fused``) or the GAT AGG kernel
+  (``kernels/gat_edge``), and the fused HEC probe + load kernel
   (``kernels/hec_search``);
-* distributed minibatch GraphSAGE training in ``aep`` mode
+* distributed minibatch GraphSAGE and GAT training in ``aep`` mode
   (``train/gnn_trainer``, ``launch/train``): R ranks in one process on
   one device over the stacked collective backend (``comm/``), with the
   HEC and the delayed embedding push, through the UPDATE and AGG kernels
-  and their gradients (``kernels/update_fused``, ``kernels/sage_agg``)
-  and the HEC probe + load kernel.
+  (GraphSAGE) or the GAT AGG kernel (GAT) and their gradients, and the
+  HEC probe + load kernel.
 """
 from repro_torch.device import resolve_device  # noqa: F401

@@ -71,10 +71,20 @@ class GNNConfig:
     def num_layers(self) -> int:
         return self.num_hidden_layers + 1
 
+    @property
+    def hidden_width(self) -> int:
+        """Width of a hidden layer's output: ``hidden_size``, times
+        ``num_heads`` for GAT (its heads are concatenated)."""
+        return self.hidden_size * (self.num_heads if self.model == "gat"
+                                   else 1)
 
-# Paper-faithful preset (Table 2): GraphSAGE on ogbn-papers100M.
+
+# Paper-faithful presets (Table 2): GraphSAGE and GAT on ogbn-papers100M.
 GRAPHSAGE_PAPERS100M = GNNConfig(
     name="graphsage-papers100m", model="graphsage", lr=0.006,
+    feat_dim=128, num_classes=172)
+GAT_PAPERS100M = GNNConfig(
+    name="gat-papers100m", model="gat", lr=0.001, aggregator="gcn",
     feat_dim=128, num_classes=172)
 
 

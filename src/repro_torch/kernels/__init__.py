@@ -9,4 +9,7 @@ compiles them on first launch.
   update_fused.update_fused_bwd      (its gradient, dZ and db)
   sage_agg.sage_agg_fwd           <- repro/kernels/sage_agg.py:sage_agg
   sage_agg.sage_agg_bwd              (its gradient with respect to h)
+  gat_edge.gat_edge_fwd           <- repro/kernels/gat_edge.py:gat_edge
+                                     + the gather of ops.gat_edge_aggregate
+  gat_edge.gat_edge_bwd              (its gradient, dz, de_u and de_v)
 """

@@ -136,3 +136,104 @@ def hec_lookup_ref(tags: torch.Tensor, values: torch.Tensor,
                       torch.zeros((), dtype=values.dtype,
                                   device=values.device))
     return hit, s.to(torch.int32), way.to(torch.int32), emb
+
+
+def _slot_blocks(M: int, f: int, width: int, limit: int = 1 << 28):
+    """Slices of the fanout such that a gathered ``[M, block, width]``
+    tensor holds at most ``limit`` elements (at least one slot each): few
+    torch ops per call, and no multi-GB tensor at training layer 0."""
+    step = max(1, limit // max(M * width, 1))
+    for j0 in range(0, f, step):
+        yield slice(j0, min(j0 + step, f))
+
+
+def _gat_alpha(e_u: torch.Tensor, e_v: torch.Tensor, nbr_idx: torch.Tensor,
+               src_valid: torch.Tensor,
+               dst_idx: Optional[torch.Tensor] = None):
+    """The edge softmax of GAT AGG: ``(alpha [M, f, H], s [M, f, H], idx
+    [M, f] int64)``, ``s = e_u[nbr] + e_v[dst]`` before the LeakyReLU.
+    ``idx`` is ``nbr_idx`` clamped to ``[0, N)``, as jnp's gather clamps; a
+    slot counts when it is not a -1 pad and its source is valid.  The
+    softmax is the Pallas kernel's: masked slots at -1e30, the max over
+    the fanout subtracted, masked slots zeroed after the exp, the sum
+    floored at 1e-20 (a row with no slot gives zeros)."""
+    M = nbr_idx.shape[0]
+    idx = nbr_idx.long().clamp(0, max(e_u.shape[0] - 1, 0))
+    mask = (nbr_idx >= 0) & src_valid[idx]
+    if dst_idx is None:
+        ev = e_v[:M]
+    else:
+        ev = e_v[dst_idx.long().clamp(0, e_v.shape[0] - 1)]
+    s = e_u[idx] + ev[:, None, :]
+    m3 = mask[..., None]
+    neg = torch.full((), -1e30, dtype=s.dtype, device=s.device)
+    lrelu = torch.where(s >= 0, s, 0.2 * s)
+    scores = torch.where(m3, lrelu, neg)
+    p = torch.exp(scores - scores.amax(dim=1, keepdim=True))
+    p = torch.where(m3, p, torch.zeros((), dtype=s.dtype, device=s.device))
+    alpha = p / p.sum(dim=1, keepdim=True).clamp_min(1e-20)
+    return alpha, s, idx
+
+
+def gat_edge_ref(z: torch.Tensor, e_u: torch.Tensor, e_v: torch.Tensor,
+                 nbr_idx: torch.Tensor, src_valid: torch.Tensor,
+                 dst_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GAT AGG (paper eq. 2): LeakyReLU(0.2) of ``e_u[nbr] + e_v[dst]``, a
+    masked softmax over the fanout per head, then ``out[m, h, :] = sum_f
+    alpha[m, f, h] z[nbr[m, f], h, :]``; ``repro.kernels.ref.gat_edge_ref``
+    and the Pallas ``gat_edge`` behind ``ops.gat_edge_aggregate``.
+
+    z [N, H, dh]; e_u [N, H]; e_v [N_ev, H]; nbr_idx [M, f] (-1 pad);
+    src_valid [N] bool; dst_idx [M] (default: row m reads ``e_v[m]``;
+    else ``e_v[clip(dst_idx)]``, the offline engine's ``_gat_chunk``)
+    -> [M, H * dh].  The gathered neighbor rows are made in blocks of
+    slots (:func:`_slot_blocks`), never as one ``[M, f, H, dh]`` tensor
+    when that would be large."""
+    alpha, _, idx = _gat_alpha(e_u, e_v, nbr_idx, src_valid, dst_idx)
+    M, f = nbr_idx.shape
+    out = torch.zeros((M,) + tuple(z.shape[1:]), dtype=z.dtype,
+                      device=z.device)
+    for js in _slot_blocks(M, f, z.shape[1] * z.shape[2]):
+        out = out + torch.einsum("mjh,mjhe->mhe", alpha[:, js], z[idx[:, js]])
+    return out.reshape(M, -1)
+
+
+def gat_edge_bwd_ref(g: torch.Tensor, z: torch.Tensor, e_u: torch.Tensor,
+                     e_v: torch.Tensor, nbr_idx: torch.Tensor,
+                     src_valid: torch.Tensor,
+                     dst_idx: Optional[torch.Tensor] = None):
+    """Gradient of :func:`gat_edge_ref` from ``g = dL/dout [M, H * dh]``:
+    ``(dz [N, H, dh], de_u [N, H], de_v [N_ev, H])``.
+
+    ``da[m,f,h] = <g[m,h,:], z[nbr,h,:]>``; the softmax's ``dl = alpha *
+    (da - sum_f alpha * da)`` (0 at masked slots); ``ds = dl`` where
+    ``s >= 0`` else ``0.2 dl`` (LeakyReLU's gradient is 1 at 0, as
+    ``jax.nn.leaky_relu``'s); then ``de_u[nbr] += ds``, ``dz[nbr] +=
+    alpha g`` and ``de_v[dst] += sum_f ds``.  A slot whose index is past
+    ``N`` reads row ``N - 1`` in the forward but scatters nothing into
+    ``dz`` and ``de_u``: jnp's gather clamps, its gradient (a scatter)
+    drops out-of-range indices."""
+    alpha, s, idx = _gat_alpha(e_u, e_v, nbr_idx, src_valid, dst_idx)
+    M, f = nbr_idx.shape
+    N, H, dh = z.shape
+    g3 = g.reshape(M, H, dh)
+    blocks = list(_slot_blocks(M, f, H * dh))
+    da = torch.cat([torch.einsum("mhe,mjhe->mjh", g3, z[idx[:, js]])
+                    for js in blocks], 1) if f else alpha
+    dl = alpha * (da - (alpha * da).sum(dim=1, keepdim=True))
+    ds = torch.where(s >= 0, dl, 0.2 * dl)
+    inside = (nbr_idx < N)[..., None].to(g.dtype)
+    de_u = torch.zeros((N, H), dtype=g.dtype, device=g.device)
+    de_u.index_add_(0, idx.reshape(-1), (ds * inside).reshape(-1, H))
+    dz = torch.zeros_like(z)
+    for js in blocks:
+        a = alpha[:, js] * inside[:, js]                       # [M, b, H]
+        dz.index_add_(0, idx[:, js].reshape(-1),
+                      (a[..., None] * g3[:, None]).reshape(-1, H, dh))
+    de_v = torch.zeros((e_v.shape[0], H), dtype=g.dtype, device=g.device)
+    dsum = ds.sum(dim=1)
+    if dst_idx is None:
+        de_v[:M] = dsum
+    else:
+        de_v.index_add_(0, dst_idx.long().clamp(0, e_v.shape[0] - 1), dsum)
+    return dz, de_u, de_v

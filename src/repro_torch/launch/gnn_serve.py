@@ -1,7 +1,8 @@
 """GNN inference serving run on the card (counterpart of
 ``repro/launch/gnn_serve.py``):
 
-  python -m repro_torch.launch.gnn_serve [--preset graphsage-papers100m]
+  python -m repro_torch.launch.gnn_serve [--model graphsage|gat]
+      [--preset small|graphsage-papers100m|gat-papers100m]
       [--vertices 20000] [--slots 32] [--queries 1024] [--overlap 0.5]
       [--cache-size 65536] [--no-prewarm] [--device cuda] [--profile]
 
@@ -12,10 +13,13 @@ full-graph embeddings, pre-warms the cache, and the same workload is
 served again — the second pass answers from the output cache without
 sampling or compute.
 
-Presets: ``small`` is the reference launcher's CPU-sized model (feat 32,
-hidden 64, 2 layers, 16 classes, fanouts 5,10); ``graphsage-papers100m``
-is the paper's full width (feat 128, hidden 256, 3 layers, 172 classes,
-fanouts 5,10,15).  Weights are He-normal from numpy seed 0.
+Presets: ``small`` is the reference launcher's CPU-sized model of
+``--model`` (feat 32, hidden 64, 2 layers, 16 classes, fanouts 5,10; GAT
+with 4 heads); ``graphsage-papers100m`` and ``gat-papers100m`` are the
+paper's full widths (feat 128, hidden 256, 3 layers, 172 classes,
+fanouts 5,10,15; GAT with 4 heads of 256 and one of 172 at the last
+layer), and fix the model.  Weights are drawn from numpy seed 0 at the
+reference's scales.
 """
 from __future__ import annotations
 
@@ -26,11 +30,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-PRESETS = ("small", "graphsage-papers100m")
+PRESETS = ("small", "graphsage-papers100m", "gat-papers100m")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default=None, choices=["graphsage", "gat"],
+                    help="graphsage (default) or gat; a papers100m preset "
+                         "names its own")
     ap.add_argument("--preset", default="small", choices=PRESETS)
     ap.add_argument("--vertices", type=int, default=20_000)
     ap.add_argument("--slots", type=int, default=32)
@@ -48,11 +55,20 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def model_config(preset: str):
-    from repro_torch.configs.gnn import GRAPHSAGE_PAPERS100M, small_gnn_config
-    if preset == "graphsage-papers100m":
-        return GRAPHSAGE_PAPERS100M
-    return small_gnn_config("graphsage", batch_size=64, feat_dim=32,
+def model_config(preset: str, model: Optional[str] = None):
+    """The preset's config; ``model`` picks the small preset's model and
+    must agree with a papers100m preset's."""
+    from repro_torch.configs.gnn import (GAT_PAPERS100M, GRAPHSAGE_PAPERS100M,
+                                         small_gnn_config)
+    paper = {"graphsage-papers100m": GRAPHSAGE_PAPERS100M,
+             "gat-papers100m": GAT_PAPERS100M}
+    if preset in paper:
+        cfg = paper[preset]
+        if model is not None and model != cfg.model:
+            raise SystemExit(f"--model {model} does not match --preset "
+                             f"{preset}")
+        return cfg
+    return small_gnn_config(model or "graphsage", batch_size=64, feat_dim=32,
                             num_classes=16, fanouts=(5, 10), hidden_size=64)
 
 
@@ -93,22 +109,24 @@ def run(args: argparse.Namespace) -> dict:
     from repro_torch import obs
     from repro_torch.device import resolve_device
     from repro_torch.graph import partition_graph, synthetic_graph
-    from repro_torch.models.gnn.graphsage import GraphSAGE
+    from repro_torch.models.gnn import build_model
     from repro_torch.serve.gnn import (GNNServeConfig, GNNServeScheduler,
                                        ServeCacheConfig, layerwise_embeddings,
                                        warm_cache)
 
     device = resolve_device(args.device)
-    cfg = model_config(args.preset)
+    cfg = model_config(args.preset, args.model)
     g = synthetic_graph(num_vertices=args.vertices, avg_degree=8,
                         num_classes=cfg.num_classes, feat_dim=cfg.feat_dim,
                         seed=0)
     part = partition_graph(g, 1, seed=0).parts[0]
+    heads = f", {cfg.num_heads} heads" if cfg.model == "gat" else ""
     print(f"serving graph: {part.num_solid} vertices, "
           f"{len(part.indices)} edges; model {cfg.name} "
-          f"({cfg.feat_dim}->{cfg.hidden_size}x{cfg.num_layers - 1}->"
-          f"{cfg.num_classes}, fanouts {tuple(cfg.fanouts)}) on {device}")
-    model = GraphSAGE.from_config(cfg, seed=0, device=device)
+          f"({cfg.feat_dim}->{cfg.hidden_width}x{cfg.num_layers - 1}"
+          f"->{cfg.num_classes}{heads}, fanouts {tuple(cfg.fanouts)}) on "
+          f"{device}")
+    model = build_model(cfg, seed=0, device=device)
     srv = GNNServeScheduler(
         cfg, model, part,
         GNNServeConfig(num_slots=args.slots,

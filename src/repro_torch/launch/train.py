@@ -1,16 +1,16 @@
 """Training launcher (counterpart of ``repro/launch/train.py gnn``).
 
-  python -m repro_torch.launch.train gnn --ranks 4 --vertices 20000 \\
-      --epochs 5 [--device cuda]
+  python -m repro_torch.launch.train gnn [--model graphsage|gat] \\
+      --ranks 4 --vertices 20000 --epochs 5 [--device cuda]
 
-Distributed minibatch GraphSAGE in ``aep`` mode: a synthetic power-law
-graph, partitioned into ``--ranks`` parts, trained by ``--ranks`` ranks
-that run in one process on one device (the stacked collective backend).
-The flags and defaults are the reference launcher's, for what this slice
-has; ``--device`` (default ``cuda``) picks the card or, with ``cpu``, the
-plain PyTorch versions of the kernels.  ``--model gat`` and ``--mode
-sync|drop`` raise ``NotImplementedError``; the health, quality and
-resilience flags are not offered yet.
+Distributed minibatch GraphSAGE or GAT in ``aep`` mode: a synthetic
+power-law graph, partitioned into ``--ranks`` parts, trained by
+``--ranks`` ranks that run in one process on one device (the stacked
+collective backend).  The flags and defaults are the reference
+launcher's, for what the port has; ``--device`` (default ``cuda``) picks
+the card or, with ``cpu``, the plain PyTorch versions of the kernels.
+``--mode sync|drop`` raises ``NotImplementedError``; the health, quality
+and resilience flags are not offered yet.
 
 Prints the graph, the partition, per-epoch loss, accuracy and HEC hit
 rates, and ``done: ... s/epoch; test_acc=...``.
@@ -82,10 +82,6 @@ def run_gnn(args) -> dict:
     from repro_torch.graph import partition_graph, synthetic_graph
     from repro_torch.train.gnn_trainer import DistTrainer, build_dist_data
 
-    if args.model != "graphsage":
-        raise NotImplementedError(
-            f"--model {args.model}: only GraphSAGE training is ported; GAT "
-            f"comes with slice 3 (kernel gat_edge)")
     if args.mode != "aep":
         raise NotImplementedError(
             f"--mode {args.mode}: only aep is ported; sync and drop come "

@@ -1,0 +1,26 @@
+"""The port's GNN models, ``graphsage`` and ``gat``, chosen by
+``cfg.model`` through :func:`build_model`.  The submodules are imported
+inside it: the kernels' plain versions import ``common`` from this
+package, and the models import the kernels."""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.device import DeviceLike
+
+__all__ = ["build_model", "gat", "graphsage"]
+
+
+def build_model(cfg, seed: int = 0, device: DeviceLike = None,
+                params: Optional[dict] = None):
+    """``cfg.model``'s model at ``cfg``'s widths, with weights from numpy
+    ``seed`` or the reference's tree ``params``, on ``device`` (``None``:
+    the card; raises without one)."""
+    from repro_torch.models.gnn.gat import GAT
+    from repro_torch.models.gnn.graphsage import GraphSAGE
+    models = {"graphsage": GraphSAGE, "gat": GAT}
+    if cfg.model not in models:
+        raise ValueError(f"unknown model {cfg.model!r}; expected one of "
+                         f"{sorted(models)}")
+    return models[cfg.model].from_config(cfg, seed=seed, device=device,
+                                         params=params)

@@ -76,15 +76,17 @@ class GraphSAGE(nn.Module):
             SAGELayer(i, o) for i, o in zip(self.dims[:-1], self.dims[1:]))
 
     @classmethod
-    def from_config(cls, cfg, seed: int = 0,
-                    device: DeviceLike = None) -> "GraphSAGE":
-        """Random He-normal model of ``cfg``'s widths from a numpy seed, on
-        ``device`` (``None``: the card; raises without one)."""
+    def from_config(cls, cfg, seed: int = 0, device: DeviceLike = None,
+                    params: Optional[dict] = None) -> "GraphSAGE":
+        """Random He-normal model of ``cfg``'s widths from a numpy seed (or
+        the reference's tree ``params``), on ``device`` (``None``: the
+        card; raises without one)."""
         device = resolve_device(device)
         dims = layer_dims(cfg.feat_dim, cfg.hidden_size, cfg.num_classes,
                           cfg.num_layers)
         model = cls(dims)
-        model.params_from_jax(init_params_np(seed, dims))
+        model.params_from_jax(params if params is not None
+                              else init_params_np(seed, dims))
         return model.to(device)
 
     @property

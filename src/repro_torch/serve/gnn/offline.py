@@ -1,13 +1,16 @@
 """Layer-wise offline (full-graph, exact) GNN inference — counterpart of
-``repro/serve/gnn/offline.py`` for GraphSAGE.
+``repro/serve/gnn/offline.py`` for GraphSAGE and GAT.
 
 Materializes h^1 for EVERY vertex from h^0, then h^2 from h^1, ... — each
 vertex's layer-k embedding is computed exactly once, from its *full*
-neighbor list (no sampling), in chunks of dst vertices.  Each chunk is one
+neighbor list (no sampling), in chunks of dst vertices, whose rows are
+addressed by vertex id and not as a prefix.  GraphSAGE: each chunk is one
 launch of the fused serve-layer kernel with ``self_idx`` = the chunk's
-vertex ids, since a chunk's self rows are ``h_all[dst]`` and not a
-prefix.  Used to pre-warm the serving cache and as the exactness
-reference of the serving tests.
+vertex ids.  GAT: the projection and both attention logits are computed
+once per layer for all vertices (the reference's ``_gat_nodes``), then
+each chunk is one launch of the GAT AGG kernel with ``dst_idx`` = the
+chunk's vertex ids (its ``_gat_chunk``).  Used to pre-warm the serving
+cache and as the exactness reference of the serving tests.
 """
 from __future__ import annotations
 
@@ -17,14 +20,17 @@ import numpy as np
 import torch
 
 from repro_torch.graph.partition import Partition
+from repro_torch.kernels.gat_edge import gat_edge_aggregate
 from repro_torch.kernels.serve_fused import serve_fused_layer
+from repro_torch.models.gnn.gat import GAT
+from repro_torch.models.gnn.graphsage import GraphSAGE
+
+MODEL_CLASSES = {"graphsage": GraphSAGE, "gat": GAT}
 
 
 def serve_layer_dims(cfg) -> List[int]:
     """Dim of h^k for k = 1..L (hidden layers then the output layer)."""
-    hid = cfg.hidden_size if cfg.model == "graphsage" \
-        else cfg.hidden_size * cfg.num_heads
-    return [hid] * (cfg.num_layers - 1) + [cfg.num_classes]
+    return [cfg.hidden_width] * (cfg.num_layers - 1) + [cfg.num_classes]
 
 
 def full_neighbor_matrix(part: Partition,
@@ -46,9 +52,10 @@ def full_neighbor_matrix(part: Partition,
 
 
 def _check_model(cfg, model):
-    if cfg.model != "graphsage":
-        raise NotImplementedError(
-            f"model {cfg.model!r}: only GraphSAGE serving is ported")
+    cls = MODEL_CLASSES.get(cfg.model)
+    if cls is None or not isinstance(model, cls):
+        raise ValueError(f"model {type(model).__name__} does not serve "
+                         f"config model {cfg.model!r}")
     if model.num_layers != cfg.num_layers:
         raise ValueError(f"model has {model.num_layers} layers, config "
                          f"{cfg.num_layers}")
@@ -62,7 +69,7 @@ def layerwise_embeddings(cfg, model, part: Partition,
     _check_model(cfg, model)
     if part.num_halo:
         raise ValueError("offline inference is single-partition")
-    dev = model.layers[0].wn.device
+    dev = next(model.parameters()).device
     S = part.num_solid
     nbr_full = torch.as_tensor(full_neighbor_matrix(part), dtype=torch.int32,
                                device=dev)
@@ -71,14 +78,24 @@ def layerwise_embeddings(cfg, model, part: Partition,
     h = torch.as_tensor(part.features, dtype=torch.float32, device=dev)
     outs: List[torch.Tensor] = []
     L = model.num_layers
+    gat = cfg.model == "gat"
     for l, layer in enumerate(model.layers):
-        nxt = torch.empty((S, layer.wn.shape[1]), dtype=torch.float32,
-                          device=dev)
+        if gat:
+            z, e_u, e_v = layer.project(h)
+            width = z.shape[1] * z.shape[2]
+        else:
+            width = layer.wn.shape[1]
+        nxt = torch.empty((S, width), dtype=torch.float32, device=dev)
         for start in range(0, S, chunk_size):
             stop = min(start + chunk_size, S)
-            nxt[start:stop] = serve_fused_layer(
-                h, nbr_full[start:stop], valid, layer.wn, layer.ws, layer.b,
-                relu=l < L - 1, self_idx=vids[start:stop])
+            if gat:
+                nxt[start:stop] = gat_edge_aggregate(
+                    z, e_u, e_v, nbr_full[start:stop], valid,
+                    vids[start:stop])
+            else:
+                nxt[start:stop] = serve_fused_layer(
+                    h, nbr_full[start:stop], valid, layer.wn, layer.ws,
+                    layer.b, relu=l < L - 1, self_idx=vids[start:stop])
         h = nxt
         outs.append(h)
     return outs
@@ -91,7 +108,7 @@ def direct_forward(cfg, model, part: Partition) -> torch.Tensor:
     _check_model(cfg, model)
     if part.num_halo:
         raise ValueError("offline inference is single-partition")
-    dev = model.layers[0].wn.device
+    dev = next(model.parameters()).device
     nbr = torch.as_tensor(full_neighbor_matrix(part), dtype=torch.int32,
                           device=dev)
     h0 = torch.as_tensor(part.features, dtype=torch.float32, device=dev)

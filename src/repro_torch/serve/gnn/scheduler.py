@@ -1,6 +1,7 @@
 """Batched GNN inference scheduler: fixed-shape microbatches over the
 on-demand sampler, with HEC-backed reuse of overlapping neighborhoods —
-counterpart of ``repro/serve/gnn/scheduler.py`` (GraphSAGE, one rank).
+counterpart of ``repro/serve/gnn/scheduler.py`` (GraphSAGE or GAT, one
+rank).
 
 Per-vertex requests queue up and are packed into microbatches of exactly
 ``num_slots`` seeds.  Each microbatch:
@@ -10,8 +11,9 @@ Per-vertex requests queue up and are packed into microbatches of exactly
      and never take a slot; the rest are sampled with
      ``sample_blocks_vectorized(expandable=...)`` so any vertex whose
      layer-k embedding is resident becomes a leaf,
-  2. **serve step** (device): the model's forward, one fused serve-layer
-     kernel launch per layer, with a hook that substitutes cached
+  2. **serve step** (device): the model's forward (per layer one fused
+     serve-layer kernel launch for GraphSAGE; ``torch.addmm`` and one GAT
+     AGG kernel launch for GAT), with a hook that substitutes cached
      embeddings (one fused HEC probe + load launch per hidden layer, one
      more for the seeds), then every freshly computed layer-k embedding
      is stored back (``hec_store``, torch ops),
@@ -82,9 +84,6 @@ class GNNServeScheduler:
     def __init__(self, cfg, model, part: Partition,
                  serve_cfg: Optional[GNNServeConfig] = None,
                  device: DeviceLike = None):
-        if cfg.model != "graphsage":
-            raise NotImplementedError(
-                f"model {cfg.model!r}: only GraphSAGE serving is ported")
         if part.num_halo:
             raise ValueError("serving is single-partition")
         self.device = resolve_device(device)

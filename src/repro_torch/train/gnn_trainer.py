@@ -1,5 +1,6 @@
-"""Distributed minibatch GraphSAGE training in ``aep`` mode (paper
-Algorithms 1 and 2) — counterpart of ``repro/train/gnn_trainer.py``.
+"""Distributed minibatch GNN training (GraphSAGE or GAT) in ``aep`` mode
+(paper Algorithms 1 and 2) — counterpart of
+``repro/train/gnn_trainer.py``.
 
 One paper "rank" owns a graph partition, a HEC per layer and an AEP
 in-flight queue; the model parameters are replicated and the gradients
@@ -15,14 +16,16 @@ without the hot tier and the fault codes):
      the queue's slot 0 (in place);
   2. per rank, gather the layer-0 features and substitute HEC hits (the
      HEC probe + load kernel) for halo rows;
-  3. per rank and layer, AGG and UPDATE with the hash dropout (the AGG and
-     UPDATE kernels), then the halo hook: HEC hits replace halo rows by
-     ``torch.where``, so substituted rows get no gradient;
+  3. per rank and layer, the model's layer with the hash dropout
+     (GraphSAGE: the AGG and UPDATE kernels; GAT: the projection in
+     ``torch.addmm`` and the GAT AGG kernel), then the halo hook: HEC hits
+     replace halo rows by ``torch.where``, so substituted rows get no
+     gradient;
   4. per rank, the masked cross-entropy over the seeds;
   5. the AEP push of every rank's selection in ONE fused all_to_all,
      between the forward and the backward (the paper's overlap); it reads
      detached forward activations;
-  6. per rank, the backward (the UPDATE and AGG gradient kernels and
+  6. per rank, the backward (the layers' gradient kernels and
      ``torch.matmul``);
   7. the example-weighted gradient all-reduce;
   8. Adam with a global-norm clip of 1.0, in place.
@@ -50,7 +53,7 @@ from repro_torch.comm.plan import _pad_stack, build_exchange_plan
 from repro_torch.configs.gnn import GNNConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.partition import PartitionSet
-from repro_torch.models.gnn import graphsage as sage_lib
+from repro_torch.models.gnn import build_model
 from repro_torch.pipeline.prefetcher import EVAL_EPOCH_TAG, SamplingPlan
 from repro_torch.train import optimizer as opt_lib
 
@@ -59,7 +62,7 @@ PushUniforms = Callable[[int, int, Sequence[int]], torch.Tensor]
 
 def layer_dims(cfg: GNNConfig) -> List[int]:
     """Embedding dim held in HEC_l for l = 0..L-1 (inputs + hidden)."""
-    return [cfg.feat_dim] + [cfg.hidden_size] * (cfg.num_layers - 1)
+    return [cfg.feat_dim] + [cfg.hidden_width] * (cfg.num_layers - 1)
 
 
 def build_dist_data(ps: PartitionSet, cfg: GNNConfig, device) -> dict:
@@ -143,7 +146,7 @@ class RankForward:
 
 @dataclasses.dataclass
 class DistTrainer:
-    """R-rank GraphSAGE trainer in ``aep`` mode on one device.
+    """R-rank GNN trainer (``cfg.model``) in ``aep`` mode on one device.
 
     ``push_uniforms(seed, rank, (R, N0))`` gives the AEP selection's
     uniforms for a step (default: :func:`default_push_uniforms`).
@@ -155,10 +158,6 @@ class DistTrainer:
     push_uniforms: Optional[PushUniforms] = None
 
     def __post_init__(self):
-        if self.cfg.model != "graphsage":
-            raise NotImplementedError(
-                f"model {self.cfg.model!r}: only GraphSAGE training is "
-                f"ported; GAT comes with slice 3 (kernel gat_edge)")
         if self.mode != "aep":
             raise NotImplementedError(
                 f"mode {self.mode!r}: only aep is ported; sync and drop "
@@ -174,15 +173,11 @@ class DistTrainer:
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int = 0, params: Optional[dict] = None) -> dict:
-        """Fresh state: the model (He-normal from numpy ``seed``, or the
+        """Fresh state: ``cfg.model``'s model (from numpy ``seed``, or the
         reference's ``{"layers": [...]}`` tree ``params``), Adam, one
         empty HEC per (layer, rank) and empty in-flight queues."""
         cfg, dev = self.cfg, self.device
-        mdims = sage_lib.layer_dims(cfg.feat_dim, cfg.hidden_size,
-                                    cfg.num_classes, cfg.num_layers)
-        model = sage_lib.GraphSAGE(mdims).params_from_jax(
-            params if params is not None
-            else sage_lib.init_params_np(seed, mdims)).to(dev)
+        model = build_model(cfg, seed=seed, device=dev, params=params)
         dims = layer_dims(cfg)
         hec = [[hec_lib.hec_init(cfg.hec.cache_size, cfg.hec.ways, dims[l],
                                  dev) for _ in range(self.num_ranks)]

@@ -7,19 +7,19 @@ a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerance: the serve layer, UPDATE (forward and backward) and AGG sum
-float32 in another order than their plain versions, and the AGG gradient
-adds with atomics in a run-dependent order, so |kernel - plain| <= 1e-4 *
-max(1, |plain|); the dropout's zero pattern and the HEC probe + load are
-held bit for bit.
+Tolerance: the serve layer, UPDATE (forward and backward), AGG and GAT
+AGG sum float32 in another order than their plain versions, and the AGG
+and GAT AGG gradients add with atomics in a run-dependent order, so
+|kernel - plain| <= 1e-4 * max(1, |plain|); the dropout's zero pattern
+and the HEC probe + load are held bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.cache import hec
-from repro_torch.kernels import (hec_search, ref, sage_agg, serve_fused,
-                                 update_fused)
+from repro_torch.kernels import (gat_edge, hec_search, ref, sage_agg,
+                                 serve_fused, update_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -81,7 +81,8 @@ EDGE_VIDS = [-1, -2, -5, -2 ** 31, 2 ** 31 - 1, 0, 1, 255, 256]
 
 
 @pytest.mark.parametrize("cache_size,ways,d", [
-    (64, 4, 8), (256, 8, 5), (96, 32, 3), (65536, 8, 256), (4096, 8, 172)])
+    (64, 4, 8), (256, 8, 5), (96, 32, 3), (65536, 8, 256), (4096, 8, 172),
+    (65536, 8, 1024)])
 def test_hec_kernel_bitmatches_plain(dev, cache_size, ways, d):
     st = filled_state(dev, cache_size + d, cache_size, ways, d)
     probe = torch.cat([torch.tensor(EDGE_VIDS, dtype=torch.int32, device=dev),
@@ -305,6 +306,135 @@ def test_two_training_steps_on_card_match_cpu(dev):
     for a, b in zip(s_gpu["model"].parameter_list(),
                     s_cpu["model"].parameter_list()):
         assert close(a.detach().cpu(), b.detach())
+    for la, lb in zip(s_gpu["hec"], s_cpu["hec"]):
+        for a, b in zip(la, lb):
+            assert torch.equal(a.tags.cpu(), b.tags)
+    for a, b in zip(s_gpu["inflight"], s_cpu["inflight"]):
+        assert torch.equal(a["tags"].cpu(), b["tags"])
+
+
+# ---------------------------------------------------------------------------
+# GAT AGG (G, H)
+# ---------------------------------------------------------------------------
+GAT_SHAPES = [(80, 20, 4, 2, 8), (257, 61, 13, 3, 20), (300, 40, 7, 2, 6),
+              (300, 40, 40, 4, 16), (20000, 4000, 5, 4, 256),
+              (16000, 1000, 15, 1, 172), (100000, 2048, 77, 4, 256)]
+
+
+def gat_inputs(dev, seed, N, M, f, H, dh, dst):
+    """-1 pads, indices past N, an all-masked row, invalid sources and a
+    score of exactly 0; ``dst``: clipped and repeated dst ids."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    z = rng.normal(size=(N, H, dh)).astype(np.float32)
+    eu = rng.normal(size=(N, H)).astype(np.float32)
+    ev = rng.normal(size=(N, H)).astype(np.float32)
+    nbr = rng.integers(-1, N + 3, (M, f)).astype(np.int32)
+    nbr[0] = -1
+    valid = rng.random(N) > 0.15
+    nbr[1, 0] = np.flatnonzero(valid[:N - 1])[0]
+    eu[nbr[1, 0], 0] = -ev[1, 0]
+    d = None
+    if dst:
+        d = rng.integers(-2, N + 2, M).astype(np.int32)
+        d[:3] = [-1, 5, 5]
+    return dict(z=t(z), e_u=t(eu), e_v=t(ev), nbr_idx=t(nbr),
+                src_valid=t(valid), dst_idx=None if d is None else t(d))
+
+
+@pytest.mark.parametrize("N,M,f,H,dh", GAT_SHAPES)
+@pytest.mark.parametrize("dst", [False, True])
+def test_gat_kernels_match_plain(dev, N, M, f, H, dh, dst):
+    kw = gat_inputs(dev, N + f + H, N, M, f, H, dh, dst)
+    before = (gat_edge.gat_edge_fwd.launches, gat_edge.gat_edge_bwd.launches)
+    out = gat_edge.gat_edge_fwd(**kw)
+    want = ref.gat_edge_ref(**kw)
+    torch.cuda.synchronize()
+    assert close(out, want)
+    assert float(out[0].abs().max()) == 0.0
+    g = torch.randn(M, H * dh, device=dev)
+    got = gat_edge.gat_edge_bwd(g, **kw)
+    plain = ref.gat_edge_bwd_ref(g, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert a.shape == b.shape and close(a, b)
+    assert (gat_edge.gat_edge_fwd.launches, gat_edge.gat_edge_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+
+
+def test_gat_autograd_on_card_matches_cpu(dev):
+    """A GAT layer (projection, logits, kernels G and H) differentiated on
+    the card and on the CPU: the same output and parameter gradients."""
+    from repro_torch.models.gnn.gat import GATLayer
+    rng = np.random.default_rng(8)
+    N, M, f, din, H, dh = 700, 150, 9, 48, 4, 16
+    h = rng.normal(size=(N, din)).astype(np.float32)
+    nbr = rng.integers(-1, N, (M, f)).astype(np.int32)
+    valid = rng.random(N) > 0.1
+    res = []
+    for d in (dev, torch.device("cpu")):
+        torch.manual_seed(0)
+        layer = GATLayer(din, H, dh)
+        with torch.no_grad():
+            for p in layer.parameters():
+                p.copy_(torch.randn(p.shape) * 0.2)
+        layer = layer.to(d)
+        out = layer(torch.as_tensor(h, device=d),
+                    torch.as_tensor(nbr, device=d),
+                    torch.as_tensor(valid, device=d))
+        grads = torch.autograd.grad((out * out).sum(),
+                                    list(layer.parameters()))
+        res.append([out] + list(grads))
+    for a, b in zip(*res):
+        assert close(a.detach().cpu(), b.detach())
+
+
+def test_gat_training_steps_on_card_match_cpu(dev):
+    """Two aep steps of a 4-rank GAT through kernels G, H and B == the same
+    steps through the plain versions: loss and gradient norm within 1e-4
+    relative, the first step's gradients (Adam's first moment) within
+    tolerance, HEC tags and pushed tags equal.  (After a step, entries
+    whose gradient is at float-noise level have moved by Adam's full step
+    of either sign on each device, so later gradients are compared
+    through the loss only.)"""
+    from repro_torch.configs.gnn import HECConfig, small_gnn_config
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
+                                               default_push_uniforms,
+                                               minibatch_to_device)
+    g = synthetic_graph(num_vertices=2000, avg_degree=8, num_classes=6,
+                        feat_dim=24, seed=0)
+    ps = partition_graph(g, 4, seed=0)
+    cfg = small_gnn_config("gat", batch_size=32, feat_dim=24, num_classes=6,
+                           hidden_size=16, num_hidden_layers=2,
+                           fanouts=(4, 5, 6),
+                           hec=HECConfig(cache_size=4096, ways=4,
+                                         push_limit=128))
+    draw = default_push_uniforms(dev)
+    plan = SamplingPlan(ps, cfg, 0)
+    hosts = list(plan.batches(plan.epoch_schedule(0), 0))[:2]
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        tr = DistTrainer(cfg, 4, device=d,
+                         push_uniforms=lambda s, r, sh: draw(s, r, sh).to(d))
+        st = tr.init_state(seed=3)
+        data = build_dist_data(ps, cfg, d)
+        logs = []
+        for i, h in enumerate(hosts):
+            logs.append(tr.train_step(st, data, minibatch_to_device(h, d), i))
+            if i == 0:
+                mu = [m.cpu().clone() for m in st["opt"].mu]
+        runs.append((logs, mu, st))
+    (l_gpu, mu_gpu, s_gpu), (l_cpu, mu_cpu, s_cpu) = runs
+    for a, b in zip(l_gpu, l_cpu):
+        for k in ("loss", "grad_norm"):
+            assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), k
+        for k in a:
+            if k.startswith(("hec_hits", "hec_halos", "aep_push")):
+                assert a[k] == b[k], k
+    for a, b in zip(mu_gpu, mu_cpu):
+        assert close(a, b)
     for la, lb in zip(s_gpu["hec"], s_cpu["hec"]):
         for a, b in zip(la, lb):
             assert torch.equal(a.tags.cpu(), b.tags)

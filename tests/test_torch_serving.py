@@ -1,9 +1,10 @@
-"""The port's GraphSAGE serving path against the reference's, on the CPU.
+"""The port's serving path (GraphSAGE and GAT) against the reference's,
+on the CPU.
 
 The same numpy weights (``init_params_np``) go into the reference's
 ``{"layers": [...]}`` tree and, through ``params_from_jax``, into the
-port's ``GraphSAGE``; the same graph and workload go through both
-schedulers.  Floats within atol=rtol=1e-5 (torch and XLA sum float32 in
+port's ``GraphSAGE`` or ``GAT``; the same graph and workload go through
+both schedulers.  Floats within atol=rtol=1e-5 (torch and XLA sum float32 in
 different orders); counters and cache tags exactly.  Also: the port's own
 serving contracts (cached == uncached, invalidation, exactness, admission),
 its device rule, and that it never imports ``jax`` or ``repro``.
@@ -32,6 +33,7 @@ from repro.serve.gnn import layerwise_embeddings as j_layerwise
 from repro_torch.configs.gnn import small_gnn_config
 from repro_torch.device import resolve_device
 from repro_torch.graph import partition_graph, synthetic_graph
+from repro_torch.models.gnn import gat as gat_lib
 from repro_torch.models.gnn.graphsage import (GraphSAGE, init_params_np,
                                               layer_dims)
 from repro_torch.pipeline.vectorized_sampler import sample_blocks_vectorized
@@ -64,25 +66,33 @@ def sampled_parts():
                   feat_dim=16, seed=1)
 
 
-def configs(layers=2, **over):
+def configs(layers=2, model="graphsage", **over):
     kw = dict(batch_size=16, feat_dim=16, num_classes=5, hidden_size=32,
               num_hidden_layers=layers - 1, **over)
-    return small_gnn_config("graphsage", **kw), \
-        j_small_config("graphsage", **kw)
+    if model == "gat":
+        kw.update(hidden_size=8, num_heads=3)
+    return small_gnn_config(model, **kw), j_small_config(model, **kw)
 
 
 def models(cfg, seed):
     """The same numpy weights as a port model and a reference tree."""
-    dims = layer_dims(cfg.feat_dim, cfg.hidden_size, cfg.num_classes,
-                      cfg.num_layers)
-    p = init_params_np(seed, dims)
-    return GraphSAGE(dims).params_from_jax(p), \
-        jax.tree_util.tree_map(jnp.asarray, p)
+    if cfg.model == "gat":
+        shapes = gat_lib.layer_shapes(cfg.feat_dim, cfg.hidden_size,
+                                      cfg.num_classes, cfg.num_layers,
+                                      cfg.num_heads)
+        p = gat_lib.init_params_np(seed, shapes)
+        model = gat_lib.GAT(shapes).params_from_jax(p)
+    else:
+        dims = layer_dims(cfg.feat_dim, cfg.hidden_size, cfg.num_classes,
+                          cfg.num_layers)
+        p = init_params_np(seed, dims)
+        model = GraphSAGE(dims).params_from_jax(p)
+    return model, jax.tree_util.tree_map(jnp.asarray, p)
 
 
-def exact_cfgs(part, layers=2):
+def exact_cfgs(part, layers=2, model="graphsage"):
     d = int((part.indptr[1:] - part.indptr[:-1]).max())
-    return configs(layers, fanouts=(d,) * layers)
+    return configs(layers, model, fanouts=(d,) * layers)
 
 
 # ---------------------------------------------------------------------------
@@ -143,10 +153,12 @@ def test_graphsage_forward_matches_reference(sampled_parts, layers):
     np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
 
 
-@pytest.mark.parametrize("layers", [2, 3])
-def test_layerwise_embeddings_match_reference(exact_parts, layers):
+@pytest.mark.parametrize("model,layers", [
+    ("graphsage", 2), ("graphsage", 3), ("gat", 2), ("gat", 3)],
+    ids=["2", "3", "gat-2", "gat-3"])
+def test_layerwise_embeddings_match_reference(exact_parts, model, layers):
     part, jpart = exact_parts
-    cfg, jcfg = exact_cfgs(part, layers)
+    cfg, jcfg = exact_cfgs(part, layers, model)
     model, jparams = models(cfg, seed=0)
     embs = layerwise_embeddings(cfg, model, part, chunk_size=128)
     jembs = j_layerwise(jcfg, jparams, jpart, chunk_size=128)
@@ -162,13 +174,15 @@ def test_layerwise_embeddings_match_reference(exact_parts, layers):
 # ---------------------------------------------------------------------------
 # the scheduler against the reference scheduler
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("layers,dedup", [(2, False), (3, True)])
-def test_scheduler_matches_reference(sampled_parts, layers, dedup):
+@pytest.mark.parametrize("model,layers,dedup", [
+    ("graphsage", 2, False), ("graphsage", 3, True), ("gat", 2, False),
+    ("gat", 3, True)], ids=["2-False", "3-True", "gat-2-False", "gat-3-True"])
+def test_scheduler_matches_reference(sampled_parts, model, layers, dedup):
     """Random sampling, a small cache with evictions, repeats: answers
     within tolerance; steps, fast-path hits, per-layer hits/lookups and
     the final cache tags identical."""
     part, jpart = sampled_parts
-    cfg, jcfg = configs(layers, fanouts=(3, 4, 5)[:layers])
+    cfg, jcfg = configs(layers, model, fanouts=(3, 4, 5)[:layers])
     model, jparams = models(cfg, seed=7)
     rng = np.random.default_rng(3)
     vids = np.concatenate([rng.integers(0, part.num_solid, 60),
@@ -279,11 +293,32 @@ def test_admission_dedup_and_latency(exact_parts):
     assert ddup.dedup_merged > 0 and ddup.steps_run < plain.steps_run
 
 
-def test_gat_serving_not_ported(exact_parts):
+def test_offline_refuses_a_model_of_another_kind(exact_parts):
     part, _ = exact_parts
-    cfg = small_gnn_config("gat", feat_dim=16, num_classes=5)
-    with pytest.raises(NotImplementedError):
-        GNNServeScheduler(cfg, GraphSAGE([16, 64, 5]), part, device="cpu")
+    cfg, _ = exact_cfgs(part, model="gat")
+    sage, _ = models(exact_cfgs(part)[0], seed=0)
+    with pytest.raises(ValueError, match="does not serve"):
+        layerwise_embeddings(cfg, sage, part)
+
+
+def test_gat_serving_exact_and_warm_fast_path(exact_parts):
+    """GAT: sampled serving on an exact-sampling graph equals the offline
+    embeddings; a warmed server answers from them bit for bit."""
+    part, _ = exact_parts
+    cfg, _ = exact_cfgs(part, layers=3, model="gat")
+    model, _ = models(cfg, seed=1)
+    vids = np.arange(0, part.num_solid, 7)
+    embs = layerwise_embeddings(cfg, model, part, chunk_size=128)
+    assert [e.shape[1] for e in embs] == [24, 24, 5]
+    out = make_server(cfg, model, part).serve(vids)
+    np.testing.assert_allclose(out, embs[-1].numpy()[vids], **TOL)
+    np.testing.assert_allclose(direct_forward(cfg, model, part).numpy(),
+                               embs[-1].numpy(), **TOL)
+    warm = make_server(cfg, model, part)
+    warm_cache(warm.cache, embs, np.arange(part.num_solid))
+    out_w = warm.serve(vids)
+    assert warm.steps_run == 0
+    np.testing.assert_array_equal(out_w, embs[-1].numpy()[vids])
 
 
 def test_device_none_means_cuda_and_never_falls_back(exact_parts,
@@ -313,6 +348,29 @@ def test_launcher_flow_on_cpu():
          "--slots", "8", "--profile"]))
     assert res["cold_profile"]["device_busy_ms"] == 0.0     # no card here
     assert res["cold_ms_per_microbatch"]["serve_sample"] > 0
+    assert all(np.isfinite(r.result).all() for r in res["cold"] + res["warm"])
+    offline = res["embs"][-1].numpy()
+    fast = [r for r in res["warm"] if r.served_by == "output_cache"]
+    assert fast and all(np.array_equal(r.result, offline[r.vid])
+                        for r in fast)
+
+
+def test_gat_launcher_flow_on_cpu(capsys):
+    from repro_torch.configs.gnn import GAT_PAPERS100M
+    from repro_torch.launch import gnn_serve
+    cfg = gnn_serve.model_config("gat-papers100m")
+    assert cfg is GAT_PAPERS100M
+    assert gnn_serve.model_config("gat-papers100m", "gat") is cfg
+    assert (cfg.model, cfg.feat_dim, cfg.hidden_size, cfg.num_heads,
+            cfg.num_layers, cfg.num_classes, tuple(cfg.fanouts), cfg.lr) == \
+        ("gat", 128, 256, 4, 3, 172, (5, 10, 15), 0.001)
+    with pytest.raises(SystemExit):
+        gnn_serve.model_config("gat-papers100m", "graphsage")
+    res = gnn_serve.run(gnn_serve.parse_args(
+        ["--model", "gat", "--device", "cpu", "--vertices", "800",
+         "--queries", "96", "--slots", "8"]))
+    assert "model gat-small (32->256x1->16, 4 heads" in capsys.readouterr().out
+    assert res["cfg"].model == "gat"
     assert all(np.isfinite(r.result).all() for r in res["cold"] + res["warm"])
     offline = res["embs"][-1].numpy()
     fast = [r for r in res["warm"] if r.served_by == "output_cache"]

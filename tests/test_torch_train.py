@@ -3,10 +3,11 @@
 The same numpy inputs go through ``repro`` and ``repro_torch``: Adam, the
 GraphSAGE training forward and its gradients, the AEP pieces (delay queue,
 push selection with the reference's uniforms, the fused push on the
-stacked backend, the consume into the HEC), and the whole trainer at R=1
-and R=4 for three steps, with the reference's initial params and its
-selection uniforms (drawn in a subprocess with four forced host devices,
-as ``tests/test_comm.py`` runs its trainer).
+stacked backend, the consume into the HEC), and the whole trainer, for
+GraphSAGE and for GAT, at R=1 and R=4 for three steps, with the
+reference's initial params and its selection uniforms (drawn in a
+subprocess with four forced host devices, as ``tests/test_comm.py`` runs
+its trainer).
 
 Tolerances: integer and data-movement outputs are held bit for bit (HEC
 tags, ages and pushed rows, push selections, minibatches); the loss
@@ -277,9 +278,12 @@ def test_consume_push_matches_reference():
 
 
 # ---------------------------------------------------------------------------
-# the slice as a whole: 3 steps at R=1 and R=4 against the reference
+# the slices as a whole: 3 steps at R=1 and R=4 against the reference
 # ---------------------------------------------------------------------------
 STEPS = 3
+MODELS = ("graphsage", "gat")
+PARAM_NAMES = {"graphsage": ("wn", "ws", "b"),
+               "gat": ("w", "b", "a_u", "a_v")}
 _REF_SCRIPT = r"""
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -296,19 +300,20 @@ STEPS = int(sys.argv[2])
 out = {}
 g = synthetic_graph(num_vertices=1500, avg_degree=8, num_classes=6,
                     feat_dim=24, seed=0)
-cfg = small_gnn_config("graphsage", batch_size=32, feat_dim=24,
-                       num_classes=6,
-                       hec=HECConfig(cache_size=4096, ways=4, life_span=2,
-                                     push_limit=256, delay=1))
-for R in (1, 4):
+for model, R in [(m, R) for m in sys.argv[3].split(",") for R in (1, 4)]:
+    cfg = small_gnn_config(model, batch_size=32, feat_dim=24, num_classes=6,
+                           hec=HECConfig(cache_size=4096, ways=4,
+                                         life_span=2, push_limit=256,
+                                         delay=1))
     ps = partition_graph(g, R, seed=0)
     dd = build_dist_data(ps, cfg)
     mesh = Mesh(np.array(jax.devices()[:R]), ("data",))
     tr = DistTrainer(cfg=cfg, mesh=mesh, num_ranks=R, mode="aep")
     st = tr.init_state(jax.random.key(0), dd)
+    pre = f"{model}/r{R}"
     for l, layer in enumerate(st["params"]["layers"]):
-        for n in ("wn", "ws", "b"):
-            out[f"r{R}/params0/{l}/{n}"] = np.asarray(layer[n])
+        for n, v in layer.items():
+            out[f"{pre}/params0/{l}/{n}"] = np.asarray(v)
     step_fn = tr.make_step(dd, donate=False)
     pipe = MinibatchPipeline(ps, cfg, base_seed=0, mesh=mesh)
     def batches():
@@ -320,7 +325,7 @@ for R in (1, 4):
         seed = jnp.uint32(i)
         N0 = mb["layer_nodes"][0].shape[1]
         key = jax.random.fold_in(jax.random.PRNGKey(7), seed)
-        out[f"r{R}/u/{i}"] = np.stack([np.asarray(jax.random.uniform(
+        out[f"{pre}/u/{i}"] = np.stack([np.asarray(jax.random.uniform(
             jax.random.fold_in(key, jnp.int32(r)), (R, N0), minval=1e-6,
             maxval=1.0)) for r in range(R)])
         (st["params"], st["opt_state"], st["hec"], st["hot"],
@@ -328,17 +333,20 @@ for R in (1, 4):
             st["params"], st["opt_state"], st["hec"], st["hot"],
             st["inflight"], dd, mb, seed)
         for k, v in metrics.items():
-            out[f"r{R}/m/{i}/{k}"] = np.asarray(v)
+            out[f"{pre}/m/{i}/{k}"] = np.asarray(v)
         for l, layer in enumerate(st["params"]["layers"]):
-            for n in ("wn", "ws", "b"):
-                out[f"r{R}/params/{i}/{l}/{n}"] = np.asarray(layer[n])
+            for n, v in layer.items():
+                out[f"{pre}/params/{i}/{l}/{n}"] = np.asarray(v)
+                for mom in ("mu", "nu"):
+                    out[f"{pre}/{mom}/{i}/{l}/{n}"] = np.asarray(
+                        st["opt_state"][mom]["layers"][l][n])
         for l, h in enumerate(st["hec"]):
             for f in ("tags", "age", "values"):
-                out[f"r{R}/{f}/{i}/{l}"] = np.asarray(getattr(h, f))
-        out[f"r{R}/inflight/{i}"] = np.asarray(st["inflight"]["tags"])
+                out[f"{pre}/{f}/{i}/{l}"] = np.asarray(getattr(h, f))
+        out[f"{pre}/inflight/{i}"] = np.asarray(st["inflight"]["tags"])
     st["step"] = jnp.asarray(STEPS, jnp.int32)
-    out[f"r{R}/eval_acc"] = np.asarray(tr.evaluate(ps, dd, st,
-                                                   num_batches=2))
+    out[f"{pre}/eval_acc"] = np.asarray(tr.evaluate(ps, dd, st,
+                                                    num_batches=2))
 np.savez(sys.argv[1], **out)
 """
 
@@ -348,25 +356,26 @@ def reference_run(tmp_path_factory):
     path = tmp_path_factory.mktemp("ref") / "ref.npz"
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", _REF_SCRIPT, str(path),
-                           str(STEPS)], env=env, capture_output=True,
-                          text=True, timeout=900)
+                           str(STEPS), ",".join(MODELS)], env=env,
+                          capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return dict(np.load(path))
 
 
-def trainer_setup(R, ref):
+def trainer_setup(model, R, ref):
     g = synthetic_graph(num_vertices=1500, avg_degree=8, num_classes=6,
                         feat_dim=24, seed=0)
-    cfg = small_gnn_config("graphsage", batch_size=32, feat_dim=24,
+    cfg = small_gnn_config(model, batch_size=32, feat_dim=24,
                            num_classes=6,
                            hec=HECConfig(cache_size=4096, ways=4,
                                          life_span=2, push_limit=256,
                                          delay=1))
     ps = partition_graph(g, R, seed=0)
+    pre = f"{model}/r{R}"
     tr = DistTrainer(cfg, R, device="cpu", push_uniforms=lambda s, r, sh:
-                     t(ref[f"r{R}/u/{s}"][r]))
-    params = {"layers": [{n: ref[f"r{R}/params0/{l}/{n}"]
-                          for n in ("wn", "ws", "b")} for l in range(2)]}
+                     t(ref[f"{pre}/u/{s}"][r]))
+    params = {"layers": [{n: ref[f"{pre}/params0/{l}/{n}"]
+                          for n in PARAM_NAMES[model]} for l in range(2)]}
     return ps, cfg, tr, tr.init_state(params=params), \
         build_dist_data(ps, cfg, CPU)
 
@@ -375,25 +384,80 @@ def stacked(state, field, l):
     return torch.stack([getattr(s, field) for s in state["hec"][l]]).numpy()
 
 
-@pytest.mark.parametrize("R", [1, 4])
-def test_three_steps_match_reference(reference_run, R):
-    ref = reference_run
-    ps, cfg, tr, st, data = trainer_setup(R, ref)
+def load_reference_step(st, ref, model, i):
+    """Set the port's parameters and Adam moments to the reference's after
+    its step ``i``."""
+    with torch.no_grad():
+        k = 0
+        for l, layer in enumerate(st["model"].layers):
+            for n in sorted(PARAM_NAMES[model]):      # the leaf order
+                getattr(layer, n).copy_(t(ref[f"params/{i}/{l}/{n}"]))
+                st["opt"].mu[k].copy_(t(ref[f"mu/{i}/{l}/{n}"]))
+                st["opt"].nu[k].copy_(t(ref[f"nu/{i}/{l}/{n}"]))
+                k += 1
+
+
+def check_adam_step(st, ref, model, i):
+    """GAT's parameters after step ``i``, each step started from the
+    reference's state: Adam's first moment (the gradient) within rtol
+    1e-4 / atol 1e-6 everywhere, and the parameters within 1e-4 wherever
+    Adam's step is set by the gradient.  Adam divides each entry's moment
+    by its own root mean square plus eps = 1e-8, so an entry whose
+    gradient is at float-noise level (the last layer's ``a_v`` gets
+    gradients of 1e-10 here in both frameworks: its softmax is invariant
+    to ``e_v`` but for the LeakyReLU's kink) moves by up to lr with either
+    sign; those entries (sqrt of the bias-corrected second moment below
+    1e-6, 100 x eps) are held through their gradient only, and must stay
+    under 1% of all entries."""
+    bias2 = 1 - 0.999 ** (i + 1)
+    k, loose, total = 0, 0, 0
+    for l, layer in enumerate(st["model"].layers):
+        for n in sorted(PARAM_NAMES[model]):
+            np.testing.assert_allclose(st["opt"].mu[k].numpy(),
+                                       ref[f"mu/{i}/{l}/{n}"], rtol=1e-4,
+                                       atol=1e-6)
+            sure = np.sqrt(ref[f"nu/{i}/{l}/{n}"] / bias2) > 1e-6
+            np.testing.assert_allclose(
+                getattr(layer, n).detach().numpy()[sure],
+                ref[f"params/{i}/{l}/{n}"][sure], rtol=1e-4, atol=1e-4)
+            loose += int((~sure).sum())
+            total += sure.size
+            k += 1
+    assert loose <= 0.01 * total, (i, loose, total)
+
+
+@pytest.mark.parametrize("model,R", [(m, R) for m in MODELS for R in (1, 4)],
+                         ids=["1", "4", "gat-1", "gat-4"])
+def test_three_steps_match_reference(reference_run, model, R):
+    """GraphSAGE runs free for three steps.  GAT starts each step from the
+    reference's parameters and Adam moments (``check_adam_step`` says
+    why); its HEC and pushes run free."""
+    ref = {k.removeprefix(f"{model}/"): v for k, v in reference_run.items()
+           if k.startswith(f"{model}/")}
+    ps, cfg, tr, st, data = trainer_setup(model, R, reference_run)
     plan = SamplingPlan(ps, cfg, 0)
     hosts = [h for ep in range(2)
              for h in plan.batches(plan.epoch_schedule(ep), ep)][:STEPS]
+    rr = {k.removeprefix(f"r{R}/"): v for k, v in ref.items()
+          if k.startswith(f"r{R}/")}
     for i, host in enumerate(hosts):
+        if model == "gat" and i:
+            load_reference_step(st, rr, model, i - 1)
         m = tr.train_step(st, data, minibatch_to_device(host, CPU), i)
         want = float(ref[f"r{R}/m/{i}/loss"])
         assert abs(m["loss"] - want) <= 1e-5 * abs(want), (i, m["loss"])
         for k in m:
             if k.startswith(("hec_hits", "hec_halos", "aep_push", "exam")):
                 assert m[k] == float(ref[f"r{R}/m/{i}/{k}"]), (i, k)
-        for l, layer in enumerate(st["model"].layers):
-            for n in ("wn", "ws", "b"):
-                np.testing.assert_allclose(
-                    getattr(layer, n).detach().numpy(),
-                    ref[f"r{R}/params/{i}/{l}/{n}"], rtol=1e-4, atol=1e-4)
+        if model == "gat":
+            check_adam_step(st, rr, model, i)
+        else:
+            for l, layer in enumerate(st["model"].layers):
+                for n in PARAM_NAMES[model]:
+                    np.testing.assert_allclose(
+                        getattr(layer, n).detach().numpy(),
+                        ref[f"r{R}/params/{i}/{l}/{n}"], rtol=1e-4,
+                        atol=1e-4)
         for l in range(cfg.num_layers):
             np.testing.assert_array_equal(stacked(st, "tags", l),
                                           ref[f"r{R}/tags/{i}/{l}"])
@@ -409,6 +473,8 @@ def test_three_steps_match_reference(reference_run, R):
         assert m["hec_hits_l0"] > 0 and m["aep_push_rows"] > 0
 
     # evaluate: the reference's accuracy, and the training state untouched
+    if model == "gat":
+        load_reference_step(st, rr, model, STEPS - 1)
     before = {"tags": [stacked(st, "tags", l) for l in range(2)],
               "values": [stacked(st, "values", l) for l in range(2)],
               "age": [stacked(st, "age", l) for l in range(2)],
@@ -450,8 +516,32 @@ def test_launcher_trains_on_cpu(tmp_path, capsys):
         np.testing.assert_array_equal(a, b.detach().numpy())
 
 
-@pytest.mark.parametrize("flag", [["--model", "gat"], ["--mode", "sync"],
-                                  ["--mode", "drop"]])
+def test_launcher_trains_gat_on_cpu(tmp_path, capsys):
+    from repro_torch.launch import train
+    ckpt = str(tmp_path / "params.npz")
+    res = train.run_gnn(train.parse_args(
+        ["gnn", "--model", "gat", "--device", "cpu", "--ranks", "2",
+         "--vertices", "1200", "--epochs", "2", "--batch", "32", "--hidden",
+         "16", "--lr", "0.003", "--ckpt", ckpt]))
+    out = capsys.readouterr().out
+    assert out.count("[aep] epoch") == 2 and "test_acc=" in out
+    hist = res["history"]
+    assert hist[-1]["loss"] < hist[0]["loss"]
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    model = res["state"]["model"]
+    assert [layer.w.shape[1:] for layer in model.layers] == [(4, 16),
+                                                             (1, 16)]
+    assert res["state"]["hec"][1][0].values.shape[-1] == 64   # 16 x 4 heads
+    with np.load(ckpt) as z:
+        assert sorted(z.files) == sorted(
+            [f"leaf_{i}" for i in range(8)] + ["__step__"])
+        leaves = [z[f"leaf_{i}"] for i in range(8)]
+    for a, b in zip(leaves, model.parameter_list()):
+        np.testing.assert_array_equal(a, b.detach().numpy())
+    assert leaves[0].shape == (4, 16) and leaves[3].shape == (64, 4, 16)
+
+
+@pytest.mark.parametrize("flag", [["--mode", "sync"], ["--mode", "drop"]])
 def test_launcher_refuses_what_waits(flag):
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="slice"):
@@ -485,3 +575,12 @@ def test_port_configs_match_reference_defaults():
     assert (s.hec.cache_size, s.hec.ways, s.hec.push_limit, s.dropout,
             s.lr) == (r.hec.cache_size, r.hec.ways, r.hec.push_limit,
                       r.dropout, r.lr)
+    fields = ("name", "model", "fanouts", "hidden_size", "num_hidden_layers",
+              "num_heads", "batch_size", "lr", "dropout", "aggregator",
+              "feat_dim", "num_classes")
+    for a, b in ((t_cfg.GRAPHSAGE_PAPERS100M, j_cfg.GRAPHSAGE_PAPERS100M),
+                 (t_cfg.GAT_PAPERS100M, j_cfg.GAT_PAPERS100M),
+                 (t_cfg.small_gnn_config("gat"),
+                  j_cfg.small_gnn_config("gat"))):
+        assert [getattr(a, f) for f in fields] == \
+            [getattr(b, f) for f in fields]
