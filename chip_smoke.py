@@ -57,7 +57,9 @@ layer):
      training widths, timed with their bounds; (c) the first two steps on
      the card and on the CPU, as phase 4 (c), at batch
      ``GAT_CHECK_BATCH`` = 256 (a CPU step at batch 1000 takes over 60
-     s), with a traced card step.
+     s), and every gradient tensor against a float64 witness of the first
+     step, which alone holds layer 0's ``a_u`` and ``a_v``; with a traced
+     card step.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
@@ -79,11 +81,13 @@ gradients add with atomics), so they are held to |kernel - plain| <= 1e-4
 * max(1, |plain|); the dropout's
 dropped positions, UPDATE's dZ, AGG's counts and the HEC probe + load are
 held bit for bit.  The card-vs-CPU training step is held to 1e-4 relative
-(loss, gradient norm, and Adam's first moment in norm: each tensor for
-GraphSAGE, the whole for GAT, whose layer-0 attention vectors' gradients
-cancel heavily and move by up to 1.2e-4 per tensor between two float32
-summation orders): its sums run in other orders over up to 1,056,000
-rows.  TF32 is off.
+(loss, gradient norm, and Adam's first moment of each tensor in norm):
+its sums run in other orders over up to 1,056,000 rows.  For GAT the card
+is also held to a float64 witness of the first step, per tensor within
+1e-4, and that replaces the CPU for layer 0's attention vectors: their
+gradients cancel heavily (the softmax gradient is centred), and there the
+CPU's float32 sits 9e-5 to 1.2e-4 from the witness, the card 6e-7 to
+3e-6.  TF32 is off.
 
 Prints free-form lines, then the card's name and power limit as
 nvidia-smi gives them, a JSON ``kernels`` line, and as the last line
@@ -150,6 +154,11 @@ CHECK_STEPS = 2             # steps of the card-vs-CPU checks, phases 4/6 (c)
 GAT_HEC_SIZE = 524_288
 # batch of phase 6 (c): at 1000 one CPU step of GAT takes over 60 s
 GAT_CHECK_BATCH = 256
+# phase 6 (c): the leaves (layer 0's a_u and a_v, whose sums cancel
+# heavily) where the CPU's float32 gradient sits 9e-5 to 1.2e-4 from a
+# float64 witness, too far to hold the card to; the card is held to the
+# witness at every leaf instead (PERF.md)
+GAT_CPU_NOISY_LEAVES = (0, 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -867,18 +876,54 @@ def rel_norm(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def float64_first_moment(torch, ps, cfg, R, host):
+    """Adam's first moment after step 0 in float64 on the CPU, the
+    witness of (c): the step's gradient (at step 0 the HEC is empty, so it
+    is a function of the parameters, the minibatch and the dropout seed
+    alone) through the trainer's own per-rank forward with a float64 model
+    and features, example-weighted over the ranks, clipped to norm 1 and
+    scaled by 1 - b1, as ``adam_update`` does."""
+    from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
+                                               minibatch_to_device)
+    # an empty HEC misses at any size: a small one spares the host memory
+    cfg = dataclasses.replace(cfg, hec=dataclasses.replace(
+        cfg.hec, cache_size=64 * cfg.hec.ways))
+    tr = DistTrainer(cfg, R, device="cpu")
+    st = tr.init_state(seed=0)
+    model = st["model"].double()
+    data = build_dist_data(ps, cfg, tr.device)
+    data["features"] = data["features"].double()
+    mb = minibatch_to_device(host, tr.device)
+    params = model.parameter_list()
+    grads, examples = [torch.zeros_like(q) for q in params], 0.0
+    for r in range(R):              # one rank's graph alive at a time
+        f = tr._rank_forward(model, st["hec"], data, mb, r, 0, cfg.dropout)
+        check(all(int(hit) == 0 for hit, _ in f.hits),
+              "the float64 witness hit its empty HEC")
+        n = float(f.n_valid)
+        for g, d in zip(grads, torch.autograd.grad(f.loss, params)):
+            g.add_(d * n)
+        examples += n
+    grads = [g / max(examples, 1.0) for g in grads]
+    gnorm = float(sum(g.square().sum() for g in grads)) ** 0.5
+    scale = min(1.0, 1.0 / (gnorm + 1e-9))
+    return [0.1 * scale * g for g in grads]
+
+
 def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
-              per_tensor=True):
+              noisy_leaves=()):
     """(c): the main path's first ``steps`` steps from the same state,
     minibatches and uniforms, on the card and on the CPU (``batch``: a
     smaller batch for the check, should the CPU be too slow at full
     width).  Gradients are compared after the first step (Adam's first
     moment), before Adam's per-entry normalization can move a float-noise
     gradient entry by a full step of either sign on each device: each
-    parameter tensor within 1e-4 relative (``per_tensor``), else the
-    gradient as one vector, with every tensor's difference printed.  The
-    card's last step at the main path's batch is traced (once more on the
-    card alone when the check ran at another batch)."""
+    parameter tensor within 1e-4 relative but the ``noisy_leaves``; when
+    there are any, every tensor of the card is also held within 1e-4
+    relative of a float64 witness on the CPU (:func:`float64_first_moment`),
+    beside which the CPU's float32 is printed.  The card's last step at the
+    main path's batch is traced (once more on the card alone when the
+    check ran at another batch)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.gnn_serve import device_profile
@@ -941,18 +986,28 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
             a, b = c["logs"][i][key], p["logs"][i][key]
             check(abs(a - b) <= 1e-4 * abs(b), f"{phase} (c): step {i} "
                   f"{key}: card {a} vs CPU {b}")
+    fmt = lambda xs: [float(f"{x:.3e}") for x in xs]  # noqa: E731
     rels = [rel_norm(a, b) for a, b in zip(c["mu"], p["mu"])]
-    worst = max(rels)
-    whole = rel_norm(torch.cat([m.ravel() for m in c["mu"]]),
-                     torch.cat([m.ravel() for m in p["mu"]]))
     print(f"{phase} (c): gradient (Adam mu) relative difference per "
-          f"parameter, leaf order: {[float(f'{r:.2e}') for r in rels]}; "
-          f"norms {[float(f'{float(m.norm()):.3e}') for m in p['mu']]}; "
-          f"as one vector {whole:.3e}")
-    held = worst if per_tensor else whole
+          f"parameter, leaf order: {fmt(rels)}; norms "
+          f"{fmt(float(m.norm()) for m in p['mu'])}")
+    held = max((r for i, r in enumerate(rels) if i not in noisy_leaves),
+               default=0.0)
     check(held <= 1e-4, f"{phase} (c): gradient (Adam mu) differs by "
-          f"{held:.3e} relative"
-          + ("" if per_tensor else " as one vector"))
+          f"{held:.3e} relative")
+    if noisy_leaves:
+        t0 = time.perf_counter()
+        w = float64_first_moment(torch, ps, cfg, R, hosts[0])
+        secs = time.perf_counter() - t0
+        vs = {dev: [rel_norm(a.double(), b) for a, b in zip(runs[dev]["mu"],
+                                                            w)]
+              for dev in ("card", "cpu")}
+        print(f"{phase} (c): against the float64 witness ({secs:.1f} s on "
+              f"the CPU), per parameter: card {fmt(vs['card'])}; CPU "
+              f"float32 {fmt(vs['cpu'])}")
+        worst = max(vs["card"])
+        check(worst <= 1e-4, f"{phase} (c): the card's gradient (Adam mu) "
+              f"is {worst:.3e} relative from the float64 witness")
     check(all(torch.equal(a, b) for a, b in zip(c["pushed"], p["pushed"])),
           f"{phase} (c): the pushed tags differ")
     check(all(torch.equal(a, b) for la, lb in zip(c["tags"], p["tags"])
@@ -962,7 +1017,8 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
     print(f"{phase} (c): {steps} steps at batch {cfg.batch_size}, card vs "
           f"CPU: losses {[m['loss'] for m in c['logs']]} vs "
           f"{[m['loss'] for m in p['logs']]}; gradient rel. diff "
-          f"{held:.2e}{'' if per_tensor else ' as one vector'}; pushed "
+          f"{held:.2e}" + (f" but for leaves {list(noisy_leaves)}"
+                           if noisy_leaves else "") + "; pushed "
           f"tags and {filled} HEC tags equal; CPU s/step "
           f"{[round(s, 1) for s in p['secs']]}")
     dp = traced_profile
@@ -1182,7 +1238,7 @@ def phase5(torch, np, args):
     return launches, rows_g, rows_b, microbatches, chunks, offline_err
 
 
-def phase6_main_path(torch, np, vertices, hec_size):
+def phase6_main_path(torch, np, vertices):
     """(b) of phase 6: GAT; per step G and H at every layer of every rank
     and B at every layer, per eval batch G and B."""
     R, L = 4, 3                              # TRAIN_ARGS' ranks and layers
@@ -1192,9 +1248,9 @@ def phase6_main_path(torch, np, vertices, hec_size):
     torch.cuda.reset_peak_memory_stats()
     # argparse keeps the last of a repeated flag: these override TRAIN_ARGS
     argv = TRAIN_ARGS + ["--vertices", str(vertices), "--model", "gat",
-                         "--lr", "0.001", "--hec-size", str(hec_size)]
-    print(f"phase 6 (b): HEC of {hec_size} entries x 8 ways per layer and "
-          f"rank")
+                         "--lr", "0.001", "--hec-size", str(GAT_HEC_SIZE)]
+    print(f"phase 6 (b): HEC of {GAT_HEC_SIZE} entries x 8 ways per layer "
+          f"and rank")
     res, launches = train_main_path(torch, np, "phase 6", argv, per_step,
                                     per_eval)
     peak_line(torch, "phase 6 (b)")
@@ -1306,8 +1362,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--vertices", type=int, default=100_000)
     ap.add_argument("--queries", type=int, default=1024)
-    ap.add_argument("--gat-hec-size", type=int, default=GAT_HEC_SIZE,
-                    help="HEC entries per layer and rank in phase 6")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1381,8 +1435,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    res, launches6 = phase6_main_path(torch, np, TRAIN_VERTICES,
-                                      args.gat_hec_size)
+    res, launches6 = phase6_main_path(torch, np, TRAIN_VERTICES)
     print(f"phase 6 (b): done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -1394,11 +1447,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     batch = None if GAT_CHECK_BATCH == int(TRAIN_ARGS[
         TRAIN_ARGS.index("--batch") + 1]) else GAT_CHECK_BATCH
-    # GAT's attention vectors at layer 0 have gradients with heavy
-    # cancellation (the softmax gradient is centred): per tensor they
-    # differ by up to 1.2e-4 between two float32 summation orders, while
-    # the gradient as a whole agrees to about 1e-5 (PERF.md)
-    cpu_check(torch, np, "phase 6", res, batch=batch, per_tensor=False)
+    cpu_check(torch, np, "phase 6", res, batch=batch,
+              noisy_leaves=GAT_CPU_NOISY_LEAVES)
     peak_line(torch, "phase 6 (c)")
     print(f"phase 6 (c): done in {time.perf_counter() - t0:.1f}s")
 

@@ -8,7 +8,18 @@ from typing import Optional
 
 from repro_torch.device import DeviceLike
 
-__all__ = ["build_model", "gat", "graphsage"]
+__all__ = ["build_model", "gat", "graphsage", "model_class"]
+
+
+def model_class(name: str):
+    """The model class of ``cfg.model`` == ``name``."""
+    from repro_torch.models.gnn.gat import GAT
+    from repro_torch.models.gnn.graphsage import GraphSAGE
+    models = {"graphsage": GraphSAGE, "gat": GAT}
+    if name not in models:
+        raise ValueError(f"unknown model {name!r}; expected one of "
+                         f"{sorted(models)}")
+    return models[name]
 
 
 def build_model(cfg, seed: int = 0, device: DeviceLike = None,
@@ -16,11 +27,5 @@ def build_model(cfg, seed: int = 0, device: DeviceLike = None,
     """``cfg.model``'s model at ``cfg``'s widths, with weights from numpy
     ``seed`` or the reference's tree ``params``, on ``device`` (``None``:
     the card; raises without one)."""
-    from repro_torch.models.gnn.gat import GAT
-    from repro_torch.models.gnn.graphsage import GraphSAGE
-    models = {"graphsage": GraphSAGE, "gat": GAT}
-    if cfg.model not in models:
-        raise ValueError(f"unknown model {cfg.model!r}; expected one of "
-                         f"{sorted(models)}")
-    return models[cfg.model].from_config(cfg, seed=seed, device=device,
-                                         params=params)
+    return model_class(cfg.model).from_config(cfg, seed=seed, device=device,
+                                              params=params)

@@ -96,6 +96,18 @@ class GATLayer(nn.Module):
         are the prefix of the source rows."""
         return gat_edge_aggregate(*self.project(h), nbr_idx, valid)
 
+    def offline_chunk_fn(self, h: torch.Tensor, valid: torch.Tensor,
+                         last: bool):
+        """The layer over every vertex of the offline engine, one chunk of
+        dst vertices at a time: ``z``, ``e_u`` and ``e_v`` projected once
+        for all vertices (the reference's ``_gat_nodes``), then ``fn(nbr
+        [m, f], ids [m]) -> [m, H * dh]``, one GAT AGG launch with
+        ``dst_idx`` = ``ids`` (its ``_gat_chunk``).  ``last`` changes
+        nothing: no layer applies a ReLU after the aggregation."""
+        z, e_u, e_v = self.project(h)
+        return lambda nbr, ids: gat_edge_aggregate(z, e_u, e_v, nbr, valid,
+                                                   ids)
+
 
 class GAT(nn.Module):
     def __init__(self, shapes: Sequence[Shape]):

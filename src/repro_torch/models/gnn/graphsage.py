@@ -67,6 +67,15 @@ class SAGELayer(nn.Module):
         self.ws = nn.Parameter(torch.zeros(d_in, d_out))
         self.b = nn.Parameter(torch.zeros(d_out))
 
+    def offline_chunk_fn(self, h: torch.Tensor, valid: torch.Tensor,
+                         last: bool):
+        """The layer over every vertex of the offline engine, one chunk of
+        dst vertices at a time: ``fn(nbr [m, f], ids [m]) -> [m, d_out]``,
+        one fused serve-layer launch with ``self_idx`` = ``ids``."""
+        return lambda nbr, ids: serve_fused_layer(
+            h, nbr, valid, self.wn, self.ws, self.b, relu=not last,
+            self_idx=ids)
+
 
 class GraphSAGE(nn.Module):
     def __init__(self, dims: Sequence[int]):

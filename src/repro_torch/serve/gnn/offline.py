@@ -4,13 +4,11 @@
 Materializes h^1 for EVERY vertex from h^0, then h^2 from h^1, ... — each
 vertex's layer-k embedding is computed exactly once, from its *full*
 neighbor list (no sampling), in chunks of dst vertices, whose rows are
-addressed by vertex id and not as a prefix.  GraphSAGE: each chunk is one
-launch of the fused serve-layer kernel with ``self_idx`` = the chunk's
-vertex ids.  GAT: the projection and both attention logits are computed
-once per layer for all vertices (the reference's ``_gat_nodes``), then
-each chunk is one launch of the GAT AGG kernel with ``dst_idx`` = the
-chunk's vertex ids (its ``_gat_chunk``).  Used to pre-warm the serving
-cache and as the exactness reference of the serving tests.
+addressed by vertex id and not as a prefix: each layer's
+``offline_chunk_fn`` says how (GraphSAGE: one fused serve-layer launch
+per chunk with ``self_idx``; GAT: one projection of every vertex, then
+one GAT AGG launch per chunk with ``dst_idx``).  Used to pre-warm the
+serving cache and as the exactness reference of the serving tests.
 """
 from __future__ import annotations
 
@@ -20,12 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.partition import Partition
-from repro_torch.kernels.gat_edge import gat_edge_aggregate
-from repro_torch.kernels.serve_fused import serve_fused_layer
-from repro_torch.models.gnn.gat import GAT
-from repro_torch.models.gnn.graphsage import GraphSAGE
-
-MODEL_CLASSES = {"graphsage": GraphSAGE, "gat": GAT}
+from repro_torch.models.gnn import model_class
 
 
 def serve_layer_dims(cfg) -> List[int]:
@@ -52,8 +45,7 @@ def full_neighbor_matrix(part: Partition,
 
 
 def _check_model(cfg, model):
-    cls = MODEL_CLASSES.get(cfg.model)
-    if cls is None or not isinstance(model, cls):
+    if not isinstance(model, model_class(cfg.model)):
         raise ValueError(f"model {type(model).__name__} does not serve "
                          f"config model {cfg.model!r}")
     if model.num_layers != cfg.num_layers:
@@ -77,26 +69,12 @@ def layerwise_embeddings(cfg, model, part: Partition,
     valid = torch.ones(S, dtype=torch.bool, device=dev)
     h = torch.as_tensor(part.features, dtype=torch.float32, device=dev)
     outs: List[torch.Tensor] = []
-    L = model.num_layers
-    gat = cfg.model == "gat"
     for l, layer in enumerate(model.layers):
-        if gat:
-            z, e_u, e_v = layer.project(h)
-            width = z.shape[1] * z.shape[2]
-        else:
-            width = layer.wn.shape[1]
-        nxt = torch.empty((S, width), dtype=torch.float32, device=dev)
-        for start in range(0, S, chunk_size):
-            stop = min(start + chunk_size, S)
-            if gat:
-                nxt[start:stop] = gat_edge_aggregate(
-                    z, e_u, e_v, nbr_full[start:stop], valid,
-                    vids[start:stop])
-            else:
-                nxt[start:stop] = serve_fused_layer(
-                    h, nbr_full[start:stop], valid, layer.wn, layer.ws,
-                    layer.b, relu=l < L - 1, self_idx=vids[start:stop])
-        h = nxt
+        chunk_fn = layer.offline_chunk_fn(h, valid,
+                                          last=l == model.num_layers - 1)
+        h = torch.cat([chunk_fn(nbr_full[s:s + chunk_size],
+                                vids[s:s + chunk_size])
+                       for s in range(0, S, chunk_size)])
         outs.append(h)
     return outs
 
