@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together, into ``build/kernels/``), then runs six
-phases on one card, phases 1-4 at the paper's full GraphSAGE width (128 ->
-256 -> 256 -> 172, fanouts 5/10/15) and phases 5-6 at its full GAT width
-(128 -> 4 heads x 256 -> 4 heads x 256 -> 172, one head at the last
+source, all started together, into ``build/kernels/``), then runs seven
+phases on one card, phases 1-4 and 7 at the paper's full GraphSAGE width
+(128 -> 256 -> 256 -> 172, fanouts 5/10/15) and phases 5-6 at its full GAT
+width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172, one head at the last
 layer):
 
   1. kernels vs plain versions: each kernel's wrapper against its plain
@@ -59,7 +59,23 @@ layer):
      ``GAT_CHECK_BATCH`` = 256 (a CPU step at batch 1000 takes over 60
      s), and every gradient tensor against a float64 witness of the first
      step, which alone holds layer 0's ``a_u`` and ``a_v``; with a traced
-     card step.
+     card step;
+  7. device-drawn training, the fifth main path: (b) ``DistTrainer.
+     train_epochs`` for two epochs and ``evaluate`` on phase 4's graph,
+     data and settings with ``SamplerConfig(device_draw=True,
+     policy="cv")`` (the launcher has no flag for it, as the reference's
+     has none), so epoch 1 draws with weights from the live HEC tags;
+     launch counts exact (the fanout draw I 3 per rank per step and per
+     eval batch, C-F and B as in phase 4), and the host ``sample`` ms per
+     step printed beside phase 4's host draw; (a) I against its plain
+     version, bit for bit, at the three layer shapes of the path's first
+     minibatch on rank 0's partition under all three policies and at
+     ragged shapes (-1 rows, halos, ``allow=False``, ``deg == f`` and
+     ``deg < f``, a multi-edge row, width < f, n off a multiple of 32),
+     each timed with its bound; (c) the minibatches of (b)'s first two
+     steps and of epoch 1's first, drawn again on the card and on the CPU
+     through the plain draw: every ``stack_ranks`` array equal; and the
+     host draw's share of a host-drawn ``sample_host`` of the first step.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
@@ -71,17 +87,19 @@ phases 5 and 6; its ``launches`` is the sum, split in
 ``launches_by_path``.  C-F's are means over their layer shapes, each
 layer standing for an equal share of the training path's launches; G's
 is launch-weighted over phase 5's online and offline shapes and phase 6's
-layer shapes, H's a mean over phase 6's layer shapes.  Cold
+layer shapes, H's a mean over phase 6's layer shapes, I's a mean over
+phase 7's layer shapes under cv (its ``plain_ms`` is blocking: the plain
+draw waits for the card to find its wide rows).  Cold
 and warm q/s, per-step spans and s/epoch are printed as indicative only:
 each window lasts seconds or less on the host clock.
 
 Tolerances: the serve layer, UPDATE, AGG and GAT AGG sum in another
 float32 order than their plain versions (and the AGG and GAT AGG
 gradients add with atomics), so they are held to |kernel - plain| <= 1e-4
-* max(1, |plain|); the dropout's
-dropped positions, UPDATE's dZ, AGG's counts and the HEC probe + load are
-held bit for bit.  The card-vs-CPU training step is held to 1e-4 relative
-(loss, gradient norm, and Adam's first moment of each tensor in norm):
+* max(1, |plain|); the dropout's dropped positions, UPDATE's dZ, AGG's
+counts, the HEC probe + load and the fanout draw are held bit for bit.
+The card-vs-CPU training step is held to 1e-4 relative (loss, gradient
+norm, and Adam's first moment of each tensor in norm):
 its sums run in other orders over up to 1,056,000 rows.  For GAT the card
 is also held to a float64 witness of the first step, per tensor within
 1e-4, and that replaces the CPU for layer 0's attention vectors: their
@@ -138,9 +156,12 @@ KERNEL_ROWS = {
     "gat_edge_bwd": dict(
         route="cuda", source="src/repro_torch/csrc/gat_edge.cu",
         replaces="src/repro/kernels/gat_edge.py:44 (its gradient)"),
+    "sample_draw": dict(
+        route="cuda", source="src/repro_torch/csrc/sample_draw.cu",
+        replaces="src/repro/kernels/sample_draw.py:65"),
 }
 KERNELS = ("serve_fused", "hec_search", "update_fused", "sage_agg",
-           "gat_edge")
+           "gat_edge", "sample_draw")
 TRAIN_VERTICES = 400_000
 TRAIN_ARGS = ["gnn", "--ranks", "4", "--degree", "10", "--classes", "172",
               "--feat-dim", "128", "--hidden", "256", "--layers", "3",
@@ -564,6 +585,7 @@ def wrappers():
     from repro_torch.kernels import gat_edge as ge
     from repro_torch.kernels import hec_search as hs
     from repro_torch.kernels import sage_agg as sa
+    from repro_torch.kernels import sample_draw as sd
     from repro_torch.kernels import serve_fused as sf
     from repro_torch.kernels import update_fused as uf
     return {"serve_fused_layer": sf.serve_fused_layer,
@@ -573,7 +595,8 @@ def wrappers():
             "sage_agg_fwd": sa.sage_agg_fwd,
             "sage_agg_bwd": sa.sage_agg_bwd,
             "gat_edge_fwd": ge.gat_edge_fwd,
-            "gat_edge_bwd": ge.gat_edge_bwd}
+            "gat_edge_bwd": ge.gat_edge_bwd,
+            "sample_draw": sd.sample_draw}
 
 
 def zero_launches():
@@ -596,12 +619,21 @@ def train_main_path(torch, np, phase, argv, per_step, per_eval):
     zero_launches()
     res = train.run_gnn(train.parse_args(argv))
     launches = read_launches()
+    check_training(np, phase, res, launches, per_step, per_eval)
+    return res, launches
+
+
+def check_training(np, phase, res, launches, per_step, per_eval):
+    """The checks and printout of a training run (b): exact launches,
+    finite losses and gradients, pushes and HEC hits, the accuracy, and
+    the host spans per step of each epoch."""
     print(f"{phase}: launches on the training path: {launches}")
     tr, cfg = res["trainer"], res["cfg"]
     R, L, log = tr.num_ranks, cfg.num_layers, tr.step_log
     steps = len(log)
-    print(f"{phase}: {steps} steps per rank in the epoch, {R} ranks, "
-          f"batch {cfg.batch_size}; {EVAL_BATCHES} eval batches")
+    print(f"{phase}: {steps} steps per rank in {len(res['history'])} "
+          f"epoch(s), {R} ranks, batch {cfg.batch_size}; {EVAL_BATCHES} "
+          f"eval batches")
     for n in launches:
         want = steps * per_step.get(n, 0) + EVAL_BATCHES * per_eval.get(n, 0)
         check(launches[n] == want, f"{phase}: {n} launched {launches[n]} "
@@ -615,7 +647,6 @@ def train_main_path(torch, np, phase, argv, per_step, per_eval):
     hits = [sum(m[f"hec_hits_l{l}"] for m in log) for l in range(L)]
     check(any(h > 0 for h in hits), f"{phase}: no HEC hit by the last step")
     check(0.0 <= res["test_acc"] <= 1.0, f"{phase}: evaluate failed")
-    h = res["history"][0]
     print(f"{phase}: losses {[round(m['loss'], 4) for m in log]}; seeds "
           f"per step {[int(m['examples']) for m in log]}; HEC hits per "
           f"layer {hits} of halos "
@@ -623,12 +654,13 @@ def train_main_path(torch, np, phase, argv, per_step, per_eval):
           f"pushed rows per step "
           f"{[int(m['aep_push_rows']) for m in log]}; test_acc "
           f"{res['test_acc']:.4f}")
-    print(f"{phase}: indicative host clock: {res['train_seconds']:.2f} "
-          f"s/epoch; per step ms: " + ", ".join(
-              f"{p} {1e3 * h[f't_{p}'] / steps:.1f}"
-              for p in ("sample", "host_prep", "stage", "step"))
-          + " (sample and host_prep run on the prefetch worker)")
-    return res, launches
+    per_epoch = steps // len(res["history"])
+    for e, h in enumerate(res["history"]):
+        print(f"{phase}: epoch {e} indicative host clock: "
+              f"{h['t_wall']:.2f} s; per step ms: " + ", ".join(
+                  f"{p} {1e3 * h[f't_{p}'] / per_epoch:.1f}"
+                  for p in ("sample", "host_prep", "stage", "step"))
+              + " (sample and host_prep run on the prefetch worker)")
 
 
 def phase4_main_path(torch, np, vertices):
@@ -1335,6 +1367,265 @@ def phase6_kernels(torch, np, res):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training with the fanout draw on the card (kernel I)
+# ---------------------------------------------------------------------------
+POLICIES = ("uniform", "labor", "cv")
+DRAW_EPOCHS = 2             # phase 7 (b): epoch 1 draws with cv weights
+
+
+def time_blocking_ms(torch, fn, iters: int = 3, warmup: int = 1):
+    """ms per call of ``fn`` between CUDA events, for a function that
+    waits for the device itself (the plain draw syncs to find the rows
+    wider than f): device and host time together, which is what its
+    caller waits."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(iters):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / iters
+
+
+def card_csr(torch, np, indptr, indices, weights, num_solid):
+    dev = torch.device("cuda")
+    return {"indptr": torch.as_tensor(indptr.astype(np.int32), device=dev),
+            "indices": torch.as_tensor(indices.astype(np.int32), device=dev),
+            "wtab": torch.as_tensor(weights.astype(np.float32), device=dev),
+            "num_solid": num_solid,
+            "width": max(int(np.diff(indptr[:num_solid + 1]).max())
+                         if num_solid else 0, 1)}
+
+
+def draw_case(torch, np, sd, ref, name, csr, cur, f, policy, seed,
+              allow=None, timed=True):
+    """Kernel I vs its plain version on one input, bit for bit; a row."""
+    dev = torch.device("cuda")
+    cur_t = torch.as_tensor(np.asarray(cur).astype(np.int32), device=dev)
+    allow_t = None if allow is None else torch.as_tensor(allow, device=dev)
+    args = (csr["indptr"], csr["indices"], csr["wtab"], cur_t, seed, allow_t)
+    kw = dict(f=f, num_solid=csr["num_solid"], width=csr["width"],
+              policy=policy)
+    got = sd.sample_draw(*args, **kw)
+    torch.cuda.synchronize()
+    want = ref.draw_neighbors(*args, **kw)
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"{name} ({policy}): kernel I differs from the plain draw in "
+          f"{int((got != want).sum())} of {want.numel()} entries")
+    n = cur_t.shape[0]
+    row = {"shape": f"cur {n}, f {f}, {policy}", "policy": policy,
+           "max_abs_err": 0.0, "library_ms": None}
+    if timed:
+        # what this input needs: cur (and allow) and the output per row,
+        # two indptr words per valid row, each candidate's index once, and
+        # under cv the weight of each candidate of a row wider than f; one
+        # hash (about 12 integer operations) per candidate of such a row
+        ip = csr["indptr"].long()
+        valid = (cur_t >= 0) & (cur_t < csr["num_solid"])
+        if allow_t is not None:
+            valid &= allow_t
+        vc = torch.where(valid, cur_t.long(), 0)
+        deg = torch.where(valid, ip[vc + 1] - ip[vc], 0)
+        cand, cand_big = int(deg.sum()), int(deg[deg > f].sum())
+        nbytes = (n * (4 + 4 * f) + (n if allow_t is not None else 0)
+                  + int(valid.sum()) * 8 + cand * 4
+                  + (cand_big * 4 if policy == "cv" else 0))
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 12.0 * cand_big)
+        row["candidates"] = cand
+        row["ms"], row["call_ms"] = time_ms(
+            torch, lambda: sd.sample_draw(*args, **kw))
+        row["plain_ms"] = time_blocking_ms(
+            torch, lambda: ref.draw_neighbors(*args, **kw))
+    return row
+
+
+def ragged_draw_csr(np, rng, S, H, max_deg):
+    """S solids over S + H VID_p, degrees up to ``max_deg``: rows of 0, 1,
+    3 and 4 neighbors and one listing a vertex five times (a multi-edge),
+    each cut to ``max_deg``."""
+    deg = rng.integers(0, max_deg + 1, S)
+    deg[:5] = np.minimum([0, 1, 3, 4, 9], max_deg)
+    rows = [rng.integers(0, S + H, d) for d in deg]
+    if max_deg >= 9:
+        rows[4] = np.array([7, S + 1, 7, 7, 12, 7, 3, 7, 30])
+    return np.concatenate([[0], np.cumsum(deg)]), np.concatenate(rows)
+
+
+def phase7_main_path(torch, np, res4):
+    """(b): ``DistTrainer.train_epochs`` for two epochs and ``evaluate``
+    with ``device_draw=True, policy="cv"`` on phase 4's graph, data and
+    settings; per step C, D, E, B and I at every layer of every rank and F
+    at layers >= 1, per eval batch C, E, B and I."""
+    from repro_torch import obs
+    from repro_torch.configs.gnn import SamplerConfig
+    from repro_torch.train.gnn_trainer import DistTrainer
+    ps, data, cfg4 = res4["ps"], res4["data"], res4["cfg"]
+    cfg = dataclasses.replace(cfg4, pipeline=dataclasses.replace(
+        cfg4.pipeline, sampler=SamplerConfig(policy="cv", device_draw=True)))
+    R, L = 4, cfg.num_layers
+    per_step = {"hec_lookup": L * R, "update_fused_fwd": L * R,
+                "update_fused_bwd": L * R, "sage_agg_fwd": L * R,
+                "sage_agg_bwd": (L - 1) * R, "sample_draw": L * R}
+    per_eval = {"hec_lookup": L * R, "update_fused_fwd": L * R,
+                "sage_agg_fwd": L * R, "sample_draw": L * R}
+    torch.cuda.reset_peak_memory_stats()
+    obs.configure()
+    zero_launches()
+    tr = DistTrainer(cfg=cfg, num_ranks=R, device="cuda")
+    # the residency each epoch's draw reads, kept for (a) and (c)
+    residencies, cv_residency = [], tr._cv_residency
+    tr._cv_residency = lambda p, st: residencies.append(
+        cv_residency(p, st)) or residencies[-1]
+    state = tr.init_state(seed=0)
+    t0 = time.perf_counter()
+    state, hist = tr.train_epochs(ps, data, state, DRAW_EPOCHS, log_every=1)
+    secs = time.perf_counter() - t0
+    acc = tr.evaluate(ps, data, state)
+    launches = read_launches()
+    reg = obs.get().registry
+    res = {"trainer": tr, "cfg": cfg, "history": hist, "test_acc": acc,
+           "state": state, "ps": ps, "residencies": residencies,
+           "cv_residency": cv_residency}
+    check_training(np, "phase 7", res, launches, per_step, per_eval)
+    check([h["sampler_policy"] for h in hist] == ["cv"] * DRAW_EPOCHS,
+          "phase 7: an epoch's history does not name the cv policy")
+    resident = [int(sum(m.sum() for m in ms)) for ms in residencies]
+    check(len(resident) == DRAW_EPOCHS and resident[0] == 0
+          and resident[1] > 0, f"phase 7: resident vertices per epoch "
+          f"{resident}: epoch 1 must draw with HEC residency")
+    steps4 = len(res4["trainer"].step_log)
+    per_epoch = len(tr.step_log) // DRAW_EPOCHS
+    calls = reg.value("phase_calls", phase="kernel_sample_draw")
+    draw_s = reg.value("phase_seconds", phase="kernel_sample_draw")
+    print(f"phase 7 (b): resident vertices (all ranks) per epoch "
+          f"{resident}; {secs:.2f} s for {DRAW_EPOCHS} epochs")
+    print(f"phase 7 (b): sample ms per step, indicative: host draw (phase "
+          f"4) {1e3 * res4['history'][0]['t_sample'] / steps4:.1f}; device "
+          f"draw " + ", ".join(
+              f"epoch {e} {1e3 * h['t_sample'] / per_epoch:.1f}"
+              for e, h in enumerate(hist))
+          + f"; the kernel_sample_draw span (upload, launch, copy back) "
+          f"{calls:.0f} calls, {1e3 * draw_s / max(calls, 1):.3f} ms each")
+    peak_line(torch, "phase 7 (b)")
+    return res, launches
+
+
+def phase7_kernels(torch, np, res):
+    """(a): kernel I against its plain version at the three layer shapes
+    of the main path's first minibatch on rank 0's partition under every
+    policy (cv with the residency of (b)'s trained HEC), and at ragged
+    shapes; each timed with its bound.  Returns the cv rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sample_draw as sd
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.pipeline.threefry import draw_seed
+    ps, cfg = res["ps"], res["cfg"]
+    part = ps.parts[0]
+    mask = res["cv_residency"](ps, res["state"])[0]
+    weights = 1.0 + cfg.pipeline.sampler.cv_boost * mask.astype(np.float32)
+    csr = card_csr(torch, np, part.indptr, part.indices, weights,
+                   part.num_solid)
+    plan = SamplingPlan(ps, cfg, 0, device="cuda")
+    plan.set_cv_residency(res["residencies"][0])
+    host = plan.sample_host(0, 0, plan.epoch_schedule(0)[0])
+    rows = []
+    for policy in POLICIES:
+        for k in range(cfg.num_layers - 1, -1, -1):
+            cur = host["layer_nodes"][k + 1][0]
+            row = draw_case(torch, np, sd, ref, f"layer {k}", csr, cur,
+                            cfg.fanouts[k], policy, draw_seed(0, 0, 0, 0, k))
+            print(f"phase 7 (a): sample_draw (I) layer {k} {row['shape']} "
+                  f"({row['candidates']} candidates): bit-exact; device ms "
+                  f"kernel {row['ms']:.4f}, plain {row['plain_ms']:.4f} "
+                  f"(blocking), bound {row['bound_ms']:.5f} "
+                  f"({row['bound_by']}); per call kernel "
+                  f"{row['call_ms']:.4f}")
+            if policy == "cv":
+                rows.append(row)
+    # ragged: -1 rows, halos, allow=False, deg == f and deg < f, a
+    # multi-edge row (labor keys tie), width < f, n off a multiple of 32
+    rng = np.random.default_rng(7)
+    for S, H, max_deg, n, f in ((40, 10, 70, 77, 3), (40, 10, 2, 77, 4),
+                                (3000, 500, 300, 5001, 15)):
+        indptr, indices = ragged_draw_csr(np, rng, S, H, max_deg)
+        w = 1.0 + 4.0 * (rng.random(S + H) < 0.3)
+        small = card_csr(torch, np, indptr, indices, w, S)
+        cur = rng.integers(-1, S + H, n)
+        cur[:6] = [-1, S, 0, 1, 2, 4]
+        allow = rng.random(n) > 0.1
+        for policy in POLICIES:
+            for a in (allow, None):
+                row = draw_case(torch, np, sd, ref, f"ragged {S}x{max_deg}",
+                                small, cur, f, policy, 0xF00DCAFE, a)
+                print(f"phase 7 (a): sample_draw (I) ragged S {S}, degree "
+                      f"<= {max_deg}, {row['shape']}, allow "
+                      f"{a is not None}: bit-exact; device ms kernel "
+                      f"{row['ms']:.4f}, bound {row['bound_ms']:.5f}")
+    return rows
+
+
+def phase7_check(torch, np, res):
+    """(c): the minibatches of (b)'s first two steps (and epoch 1's first,
+    with the residency (b) installed then), drawn once more on the card
+    and on the CPU through the plain draw: every ``stack_ranks`` array
+    equal.  First, the host draw's share of the host-drawn first step."""
+    from repro_torch.configs.gnn import SamplerConfig
+    from repro_torch.pipeline import vectorized_sampler as vs
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    ps, cfg = res["ps"], res["cfg"]
+    # the host draw's share of a host-drawn step, for comparison: the
+    # same first minibatch through the host sampler, its draw timed
+    host_plan = SamplingPlan(ps, dataclasses.replace(
+        cfg, pipeline=dataclasses.replace(cfg.pipeline,
+                                          sampler=SamplerConfig())), 0)
+    spent, host_draw = [0.0], vs._draw_neighbors
+
+    def timed_draw(*a, **kw):
+        t = time.perf_counter()
+        out = host_draw(*a, **kw)
+        spent[0] += time.perf_counter() - t
+        return out
+    vs._draw_neighbors = timed_draw
+    try:
+        t0 = time.perf_counter()
+        host_plan.sample_host(0, 0, host_plan.epoch_schedule(0)[0])
+        total = time.perf_counter() - t0
+    finally:
+        vs._draw_neighbors = host_draw
+    print(f"phase 7 (c): host-drawn sample_host of epoch 0 step 0: "
+          f"{1e3 * total:.1f} ms, of which the host draw (_draw_neighbors) "
+          f"{1e3 * spent[0]:.1f} ms ({100 * spent[0] / total:.0f}%)")
+    compared = 0
+    for epoch, steps in ((0, (0, 1)), (1, (0,))):
+        plans = [SamplingPlan(ps, cfg, 0, device=d) for d in ("cuda", "cpu")]
+        for plan in plans:
+            plan.set_cv_residency(res["residencies"][epoch])
+        sched = plans[0].epoch_schedule(epoch)
+        for step in steps:
+            t0 = time.perf_counter()
+            card = plans[0].sample_host(epoch, step, sched[step])
+            t1 = time.perf_counter()
+            cpu = plans[1].sample_host(epoch, step, sched[step])
+            t2 = time.perf_counter()
+            for k in card:
+                for a, b in (zip(card[k], cpu[k]) if isinstance(card[k], list)
+                             else [(card[k], cpu[k])]):
+                    check(a.dtype == b.dtype and np.array_equal(a, b),
+                          f"phase 7 (c): epoch {epoch} step {step}: {k} "
+                          f"differs between the card and the CPU")
+                    compared += 1
+            print(f"phase 7 (c): epoch {epoch} step {step}: every "
+                  f"stack_ranks array equal, card and CPU (sample_host "
+                  f"{1e3 * (t1 - t0):.1f} ms on the card, "
+                  f"{1e3 * (t2 - t1):.1f} ms through the plain draw on the "
+                  f"CPU)")
+    return compared
+
+
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
     """One contract row: per-launch means over the timed shapes, shape i
     standing for ``weights[i]`` launches of the main paths."""
@@ -1424,7 +1715,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cpu_check(torch, np, "phase 4", res)
     print(f"phase 4 (c): done in {time.perf_counter() - t0:.1f}s")
-    del res                 # its HEC and data, before the GAT phases
+    # phase 7 trains on phase 4's graph and data: its HEC goes before GAT
+    res4 = {k: res[k] for k in ("ps", "data", "cfg", "history", "trainer")}
+    del res
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1451,6 +1744,20 @@ def main(argv=None) -> int:
               noisy_leaves=GAT_CPU_NOISY_LEAVES)
     peak_line(torch, "phase 6 (c)")
     print(f"phase 6 (c): done in {time.perf_counter() - t0:.1f}s")
+    del res
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res7, launches7 = phase7_main_path(torch, np, res4)
+    print(f"phase 7 (b): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rows7 = phase7_kernels(torch, np, res7)
+    print(f"phase 7 (a): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    compared = phase7_check(torch, np, res7)
+    print(f"phase 7 (c): {compared} arrays equal; done in "
+          f"{time.perf_counter() - t0:.1f}s")
 
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]
@@ -1501,6 +1808,8 @@ def main(argv=None) -> int:
                                     "gat_train": g_train}
     rows.append(summarize("gat_edge_bwd", rows6["gat_edge_bwd"], launches6,
                           [1] * len(rows6["gat_edge_bwd"]), layer_mean))
+    rows.append(summarize("sample_draw", rows7, launches7,
+                          [1] * len(rows7), layer_mean + ", under cv"))
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms per launch (device, "
               f"{r['ms_over']}), plain {r['plain_ms']:.4f} ms, bound "

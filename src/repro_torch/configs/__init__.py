@@ -1,4 +1,4 @@
 from repro_torch.configs.gnn import (GNNConfig,  # noqa: F401
                                      GAT_PAPERS100M, GRAPHSAGE_PAPERS100M,
-                                     HECConfig,
-                                     PipelineConfig, small_gnn_config)
+                                     HECConfig, PipelineConfig,
+                                     SamplerConfig, small_gnn_config)

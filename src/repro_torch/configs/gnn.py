@@ -3,9 +3,9 @@ and its HEC/AEP hyperparameters (Table 2 and §4.4: cs=1M entries per
 layer, nc=2000, ls=2, d=1, minibatch 1000, fan-out 5,10,15).
 
 Serving reads the model shape; training reads ``lr``, ``dropout``, the
-HEC/AEP knobs (``hec``) and the minibatch prefetch (``pipeline``).  The
-reference's hot tier (``hot_size``/``hot_budget``), the device-side
-sampler and the double-buffered staging wait for their slices.
+HEC/AEP knobs (``hec``) and the minibatch prefetch and fanout draw
+(``pipeline``).  The reference's hot tier (``hot_size``/``hot_budget``)
+and the double-buffered staging wait for their slices.
 """
 from __future__ import annotations
 
@@ -32,13 +32,49 @@ class HECConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SamplerConfig:
+    """Fanout-draw policy and placement (host numpy or the card).
+
+    ``device_draw=False`` (default) keeps the host vectorized sampler.
+    ``device_draw=True`` runs each layer's neighbor draw through kernel I
+    (``kernels/sample_draw.py``; its plain version on the CPU), seeded per
+    (base_seed, epoch, step, rank, layer) by the reference's ``fold_in``
+    chain (``pipeline/threefry.py``), so it draws the reference's
+    minibatches for any prefetch worker count.
+
+    Policies (device draw only; the host draw is uniform):
+      uniform  iid neighbor sampling (the paper's sampler)
+      labor    one shared hash key per vertex: overlapping fanouts select
+               the same neighbors (LABOR-style correlated draw)
+      cv       control-variate sampling: LABOR keys divided by
+               ``1 + cv_boost * resident``, preferring vertices with a
+               live HEC line; the trainer refreshes residency each epoch
+    """
+    policy: str = "uniform"         # uniform | labor | cv
+    device_draw: bool = False
+    cv_boost: float = 4.0           # cv: weight boost for HEC-resident rows
+
+    def __post_init__(self):
+        if self.policy not in ("uniform", "labor", "cv"):
+            raise ValueError(f"policy must be uniform|labor|cv, "
+                             f"got {self.policy!r}")
+        if self.policy != "uniform" and not self.device_draw:
+            raise ValueError(
+                f"policy={self.policy!r} needs device_draw=True "
+                f"(the host draw is uniform-only)")
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Background minibatch preparation: ``num_workers`` sampling threads
-    (0 = inline), ``prefetch_depth`` minibatches ahead of the step.  Every
-    step owns its RNG stream, so the minibatches are the same for any
+    (0 = inline), ``prefetch_depth`` minibatches ahead of the step, and
+    the fanout draw (``sampler``).  Every step owns its RNG stream and
+    every device draw its seed, so the minibatches are the same for any
     worker count."""
     num_workers: int = 1
     prefetch_depth: int = 1
+    sampler: SamplerConfig = dataclasses.field(
+        default_factory=SamplerConfig)
 
     def __post_init__(self):
         if self.num_workers < 0:

@@ -3,11 +3,13 @@
 //   forward   mean[m] = sum_{j in J(m)} h[nbr[m,j]] / max(|J(m)|, 1),
 //             cnt[m]  = |J(m)|,   J(m) = { j : nbr[m,j] >= 0 && valid[nbr[m,j]] }
 //                                                                   (kernel E)
-//   backward  dh[nbr[m,j]] += g[m] / max(cnt[m], 1)  for j in J(m)  (kernel F)
+//   backward  dh[nbr[m,j]] += g[m] / max(cnt[m], 1)  for j in J(m),
+//             nbr[m,j] < N                                          (kernel F)
 //
 // The sums run in slot order from 0, as the Pallas kernel's grid does, and
-// the mean is a true division.  An index past the last row is clamped to
-// it, as jnp's gather clamps.
+// the mean is a true division.  In the forward an index past the last row
+// is clamped to it, as jnp's gather clamps; the backward drops it, as the
+// gather's gradient (a scatter) drops out-of-range indices.
 //
 // Replaces the TPU kernel repro/kernels/sage_agg.py:sage_agg (forward,
 // whose (s, c) outputs are kernel E's sum and count); kernel F is its
@@ -98,7 +100,7 @@ sage_agg_bwd_kernel(const float* __restrict__ g,
   const float* grow = g + (size_t)m * D;
   int idx;
   for (int j = 0; j < f; ++j) {
-    if (!included(row, j, N, valid, &idx)) continue;
+    if (row[j] >= N || !included(row, j, N, valid, &idx)) continue;
     float* dst = dh + (size_t)idx * D;
     for (int d = lane; d < D; d += 32) atomicAdd(dst + d, grow[d] / denom);
   }

@@ -12,4 +12,6 @@ compiles them on first launch.
   gat_edge.gat_edge_fwd           <- repro/kernels/gat_edge.py:gat_edge
                                      + the gather of ops.gat_edge_aggregate
   gat_edge.gat_edge_bwd              (its gradient, dz, de_u and de_v)
+  sample_draw.sample_draw         <- repro/kernels/sample_draw.py:sample_keys_kernel
+                                     + the rest of draw_neighbors_device
 """

@@ -12,12 +12,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.gnn.common import (f32, gather_neighbors,
-                                           hash_dropout, hash_uniform,
-                                           masked_mean)
+from repro_torch.models.gnn.common import (_MIX1, _MIX2, f32,
+                                           gather_neighbors, hash_dropout,
+                                           hash_uniform, masked_mean)
 
 _MIX = 0x9E3779B1          # Fibonacci hashing multiplier of the HEC layout
 _U32 = 0xFFFFFFFF
+SAMPLE_POLICIES = ("uniform", "labor", "cv")
 
 
 def fused_update_ref(agg: torch.Tensor, self_h: torch.Tensor,
@@ -74,9 +75,12 @@ def sage_agg_bwd_ref(g: torch.Tensor, nbr_idx: torch.Tensor,
                      src_valid: torch.Tensor, cnt: torch.Tensor,
                      num_src: int) -> torch.Tensor:
     """Gradient of AGG w.r.t. ``h_src``: ``dh[nbr[i, j]] += g[i] /
-    max(cnt[i], 1)`` over the included entries -> [num_src, D]."""
-    idx = nbr_idx.clamp_min(0).long()
-    mask = (nbr_idx >= 0) & src_valid[idx]
+    max(cnt[i], 1)`` over the included entries -> [num_src, D].  An index
+    past ``num_src`` reads row ``num_src - 1`` in the forward (jnp's
+    gather clamps) but adds nothing here: the gather's gradient, a
+    scatter, drops out-of-range indices."""
+    idx = nbr_idx.long().clamp(0, max(num_src - 1, 0))
+    mask = (nbr_idx >= 0) & (nbr_idx < num_src) & src_valid[idx]
     # excluded entries add zeros: no boolean indexing, so no host sync
     rows = (g / cnt.clamp_min(1.0)[:, None])[:, None, :] \
         * mask[..., None].to(g.dtype)
@@ -237,3 +241,109 @@ def gat_edge_bwd_ref(g: torch.Tensor, z: torch.Tensor, e_u: torch.Tensor,
     else:
         de_v.index_add_(0, dst_idx.long().clamp(0, e_v.shape[0] - 1), dsum)
     return dz, de_u, de_v
+
+
+def _hash_u01(a: torch.Tensor, b: torch.Tensor, seed: int) -> torch.Tensor:
+    """The u32 mix hash of ``hash_uniform`` on elementwise operands ``a``,
+    ``b`` (int64 tensors holding u32 values) -> float32 in [0, 1)."""
+    h = ((a * _MIX1) & _U32) ^ ((b * _MIX2) & _U32) ^ (int(seed) & _U32)
+    h = h ^ (h >> 15)
+    h = h * _MIX1 & _U32
+    h = h ^ (h >> 13)
+    return (h >> 8).to(torch.float32) / float(1 << 24)
+
+
+def sample_keys(seed: int, nbr_vid: torch.Tensor,
+                weights: Optional[torch.Tensor] = None, *,
+                policy: str = "uniform",
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Selection keys of the fanout draw, the f smallest of a row win;
+    ``repro.kernels.ref.sample_keys_ref`` (and the Pallas
+    ``sample_keys_kernel``) bit for bit.
+
+    nbr_vid [n, W] candidate VIDs (-1 = no candidate); weights [n, W]
+    float32 (``cv`` only); ``rows`` [n] the rows' positions in the draw
+    (default ``0..n-1``; ``uniform`` hashes them).  Returns [n, W]
+    float32, +inf where ``nbr_vid`` is -1:
+
+      uniform  hash(row, slot)
+      labor    hash(vid, 0)
+      cv       hash(vid, 0) / max(weight, 1e-6), an IEEE float32 division
+
+    u32 arithmetic is emulated in int64, as in ``hash_uniform``."""
+    if policy not in SAMPLE_POLICIES:
+        raise ValueError(f"unknown sample policy: {policy!r}")
+    n, w = nbr_vid.shape
+    dev = nbr_vid.device
+    if policy == "uniform":
+        if rows is None:
+            rows = torch.arange(n, device=dev)
+        keys = _hash_u01(rows.long()[:, None] & _U32,
+                         torch.arange(w, device=dev)[None, :], seed)
+    else:
+        vid = nbr_vid.long().clamp_min(0) & _U32
+        keys = _hash_u01(vid, torch.zeros_like(vid), seed)
+        if policy == "cv":
+            keys = keys / weights.to(torch.float32).clamp_min(1e-6)
+    return torch.where(nbr_vid >= 0, keys,
+                       torch.full((), float("inf"), device=dev))
+
+
+def draw_neighbors(indptr: torch.Tensor, indices: torch.Tensor,
+                   wtab: torch.Tensor, cur: torch.Tensor, seed: int,
+                   allow: Optional[torch.Tensor], *, f: int, num_solid: int,
+                   width: int, policy: str = "uniform",
+                   limit: int = 1 << 24) -> torch.Tensor:
+    """The fanout draw of kernel I: ``cur`` [n] frontier VID_p -> [n, f]
+    int32 neighbor VID_p (-1 pad); ``repro.kernels.sample_draw.
+    draw_neighbors_device`` bit for bit.
+
+    indptr [S+1], indices [E] the solid CSR; wtab [S+H] float32 per-VID_p
+    weights (``cv``); allow [n] bool or None; ``width`` the CSR's largest
+    degree.  A row that is -1, a halo (``>= num_solid``) or not allowed
+    draws nothing; a row with ``deg <= f`` takes its whole CSR range in
+    order; a larger row keeps the f candidates with the smallest
+    :func:`sample_keys`, in ``lax.top_k``'s order (ascending key, the
+    lower slot first on equal keys, as under ``labor`` when a vertex
+    appears twice in a row).  The larger rows are expanded to a dense
+    candidate matrix ``width`` wide in blocks of at most ``limit``
+    elements, and each block's f smallest are taken over the packed
+    ``(key bits << 32) | slot``: keys are non-negative, so their bits
+    order as the floats do, and no two packed values are equal."""
+    n = cur.shape[0]
+    dev = cur.device
+    cur = cur.long()
+    valid = (cur >= 0) & (cur < num_solid)
+    if allow is not None:
+        valid = valid & allow.bool()
+    vc = torch.where(valid, cur, torch.zeros((), dtype=torch.long,
+                                             device=dev))
+    start = indptr[vc].long()
+    deg = torch.where(valid, indptr[vc + 1].long() - start,
+                      torch.zeros((), dtype=torch.long, device=dev))
+    num_edges = indices.shape[0]
+    if num_edges == 0 or f <= 0:
+        return torch.full((n, max(f, 0)), -1, dtype=torch.int32, device=dev)
+    col = torch.arange(f, device=dev)
+    gi = (start[:, None] + col[None, :]).clamp_max(num_edges - 1)
+    out = torch.where(col[None, :] < deg[:, None], indices[gi].long(),
+                      torch.full((), -1, dtype=torch.long, device=dev))
+    big = torch.nonzero(deg > f).flatten()
+    if big.numel():
+        wcol = torch.arange(width, device=dev)
+        block = max(1, limit // max(width, 1))
+        for b0 in range(0, big.numel(), block):
+            rows = big[b0:b0 + block]
+            in_row = wcol[None, :] < deg[rows][:, None]
+            gi = (start[rows][:, None] + wcol[None, :]).clamp_max(
+                num_edges - 1)
+            nbr = torch.where(in_row, indices[gi].long(),
+                              torch.full((), -1, dtype=torch.long,
+                                         device=dev))
+            w = wtab[nbr.clamp_min(0)] if policy == "cv" else None
+            keys = sample_keys(seed, nbr, w, policy=policy, rows=rows)
+            packed = (keys.view(torch.int32).long() << 32) | wcol[None, :]
+            sel = torch.topk(packed, f, dim=1, largest=False,
+                             sorted=True).indices
+            out[rows] = torch.gather(nbr, 1, sel)
+    return out.to(torch.int32)

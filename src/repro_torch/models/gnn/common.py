@@ -21,8 +21,9 @@ _U32 = 0xFFFFFFFF
 def gather_neighbors(h_src: torch.Tensor, nbr_idx: torch.Tensor,
                      src_valid: torch.Tensor):
     """h_src [N_src, D]; nbr_idx [N_dst, f] (-1 pad) ->
-    (feats [N_dst, f, D], mask [N_dst, f])."""
-    idx = nbr_idx.clamp_min(0).long()
+    (feats [N_dst, f, D], mask [N_dst, f]).  An index past the last row
+    reads the last row, as jnp's gather clamps."""
+    idx = nbr_idx.long().clamp(0, max(h_src.shape[0] - 1, 0))
     feats = h_src[idx]
     mask = (nbr_idx >= 0) & src_valid[idx]
     return feats, mask

@@ -6,8 +6,12 @@ Determinism contract: every minibatch is a pure function of
 ``(base_seed, epoch, step)`` — each step owns a private
 ``np.random.Generator`` seeded from that triple, and the per-epoch shuffle
 of each rank's training seeds likewise owns a per-``(epoch, rank)``
-stream, with the reference's domain tags.  So the port draws exactly the
-reference's minibatches, for any number of worker threads.
+stream, with the reference's domain tags.  With
+``SamplerConfig.device_draw`` each rank's fanout draw runs through its
+:class:`~repro_torch.pipeline.vectorized_sampler.DeviceSampler` on
+``device`` (kernel I on the card, its plain version on the CPU), seeded
+by the reference's ``fold_in`` chain.  Either way the port draws exactly
+the reference's minibatches, for any number of worker threads.
 
 Rank imbalance: an epoch takes ``max_r ceil(train_r / batch)`` steps on
 every rank; ranks that run out of seeds contribute empty (fully masked)
@@ -21,15 +25,18 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
-from typing import Callable, Iterator, List, Sequence
+import threading
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from repro_torch import obs
 from repro_torch.configs.gnn import GNNConfig
+from repro_torch.device import DeviceLike
 from repro_torch.graph.partition import PartitionSet
 from repro_torch.graph.sampling import epoch_minibatches, pad_schedule
-from repro_torch.pipeline.vectorized_sampler import (sample_blocks_vectorized,
+from repro_torch.pipeline.vectorized_sampler import (DeviceSampler,
+                                                     sample_blocks_vectorized,
                                                      stack_ranks)
 
 # domain-separation tags so shuffle and sampling streams never collide
@@ -40,10 +47,18 @@ EVAL_EPOCH_TAG = 1 << 20   # eval streams live far away from training epochs
 
 @dataclasses.dataclass
 class SamplingPlan:
-    """Deterministic schedule of per-rank seed batches + per-step RNG streams."""
+    """Deterministic schedule of per-rank seed batches + per-step RNG
+    streams.  ``device`` places the device draw's samplers (``None``: the
+    card); it is read only when ``cfg.pipeline.sampler.device_draw`` is
+    on."""
     ps: PartitionSet
     cfg: GNNConfig
     base_seed: int = 0
+    device: DeviceLike = None
+    _samplers: Optional[List[DeviceSampler]] = dataclasses.field(
+        default=None, init=False, repr=False)
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, init=False, repr=False)
 
     def epoch_schedule(self, epoch: int) -> List[List[np.ndarray]]:
         """``schedule[step][rank]`` -> seed VID_p array (empty when padded)."""
@@ -72,15 +87,42 @@ class SamplingPlan:
         return np.random.default_rng(
             [self.base_seed, epoch, step, _SAMPLE_TAG])
 
+    def device_samplers(self) -> List[DeviceSampler]:
+        """One :class:`DeviceSampler` per rank, made at the first call."""
+        with self._lock:
+            if self._samplers is None:
+                s = self.cfg.pipeline.sampler
+                self._samplers = [
+                    DeviceSampler(p, base_seed=self.base_seed, rank=r,
+                                  policy=s.policy, cv_boost=s.cv_boost,
+                                  device=self.device)
+                    for r, p in enumerate(self.ps.parts)]
+            return self._samplers
+
+    def set_cv_residency(self, masks: Sequence[np.ndarray]) -> None:
+        """Install each rank's HEC residency (bool over VID_p) for ``cv``
+        draws."""
+        for sampler, m in zip(self.device_samplers(), masks):
+            sampler.set_residency(m)
+
     def sample_host(self, epoch: int, step: int,
                     seed_lists: Sequence[np.ndarray]) -> dict:
         """One synchronized [R, ...] host minibatch for ``(epoch, step)``."""
         cfg = self.cfg
         rng = self.step_rng(epoch, step)
+        # the device draw: per-rank closures over (epoch, step); the seed
+        # chain, not `rng`, carries the determinism
+        samplers = (self.device_samplers()
+                    if cfg.pipeline.sampler.device_draw else None)
         with obs.span("sample"):
-            mbs = [sample_blocks_vectorized(self.ps.parts[r], seed_lists[r],
-                                            cfg.fanouts, rng, cfg.batch_size)
-                   for r in range(self.ps.num_parts)]
+            mbs = []
+            for r in range(self.ps.num_parts):
+                draw_fn = None if samplers is None else (
+                    lambda k, cur, f, allow, _s=samplers[r]:
+                    _s.draw(epoch, step, k, cur, f, allow))
+                mbs.append(sample_blocks_vectorized(
+                    self.ps.parts[r], seed_lists[r], cfg.fanouts, rng,
+                    cfg.batch_size, draw_fn=draw_fn))
         with obs.span("host_prep"):
             return stack_ranks(mbs)
 

@@ -1,6 +1,6 @@
 """Vectorized CSR neighbor sampler (own numpy copy of
 ``repro/pipeline/vectorized_sampler.py``: ``_draw_neighbors``,
-``sample_blocks_vectorized`` and ``stack_ranks``).
+``sample_blocks_vectorized``, ``DeviceSampler`` and ``stack_ranks``).
 
 Produces the fixed-shape ``MinibatchBlocks`` contract with no per-row
 Python loops:
@@ -14,17 +14,26 @@ Python loops:
 
 The RNG consumption is the reference's, call for call, so the same
 ``np.random.default_rng([seed, mb])`` gives identical blocks in both
-packages (``tests/test_torch_graph.py``).  The on-device draw
-(``DeviceSampler``) is not ported yet.
+packages (``tests/test_torch_graph.py``).  With
+``SamplerConfig.device_draw`` the fanout draw runs on the card instead
+(:class:`DeviceSampler`, kernel I), seeded by the reference's ``fold_in``
+chain, and the relabelling stays here on the host.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch import obs
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.partition import Partition
 from repro_torch.graph.sampling import MinibatchBlocks, layer_capacities
+from repro_torch.kernels.sample_draw import sample_draw
+from repro_torch.pipeline.threefry import draw_seed
 
 
 def _draw_neighbors(indptr: np.ndarray, indices: np.ndarray, cur: np.ndarray,
@@ -88,7 +97,8 @@ def sample_blocks_vectorized(part: Partition, seeds_p: np.ndarray,
                              rng: np.random.Generator,
                              batch_size: int,
                              expandable: Optional[Sequence[np.ndarray]]
-                             = None) -> MinibatchBlocks:
+                             = None,
+                             draw_fn=None) -> MinibatchBlocks:
     """Fixed-shape blocks for ``seeds_p`` (uniform without replacement per
     row; the full row when ``deg <= fanout``).
 
@@ -99,6 +109,11 @@ def sample_blocks_vectorized(part: Partition, seeds_p: np.ndarray,
     its layer-``k`` embedding is expected from a cache (serving) or the HEC
     (training halos), so its subtree is never sampled.  Entry 0 is unused
     (layer 0 is never expanded).
+
+    ``draw_fn`` (optional) replaces the per-layer fanout draw:
+    ``draw_fn(k, cur, f, allow) -> [len(cur), f]`` neighbor VID_p (-1
+    pad), the contract of ``_draw_neighbors``; ``rng`` then draws nothing
+    (:class:`DeviceSampler`).
     """
     fanouts = list(fanouts)
     L = len(fanouts)
@@ -128,8 +143,11 @@ def sample_blocks_vectorized(part: Partition, seeds_p: np.ndarray,
             # halos or padding, which never expand regardless of `allow`
             m = expandable[k + 1]
             allow = m[np.where((cur >= 0) & (cur < len(m)), cur, 0)]
-        nbrs = _draw_neighbors(part.indptr, part.indices, cur, S, f, rng,
-                               allow=allow)
+        if draw_fn is not None:
+            nbrs = draw_fn(k, cur, f, allow)
+        else:
+            nbrs = _draw_neighbors(part.indptr, part.indices, cur, S, f,
+                                   rng, allow=allow)
 
         # finer node list: dst prefix + sorted unique new neighbors
         flat = nbrs.ravel()
@@ -162,6 +180,93 @@ def sample_blocks_vectorized(part: Partition, seeds_p: np.ndarray,
     return MinibatchBlocks(layer_nodes=layer_nodes, node_mask=node_mask,
                            nbr_idx=nbr_idx, seeds=seeds, seed_mask=seed_mask,
                            labels=labels)
+
+
+class DeviceSampler:
+    """The fanout draw of one partition on the card (kernel I), the
+    reference's ``DeviceSampler``.
+
+    The solid CSR is uploaded once, as int32; ``width`` is the
+    partition's largest degree.  Draws are stateless: the seed of each is
+    :func:`~repro_torch.pipeline.threefry.draw_seed` of (base_seed,
+    epoch, step, rank, layer), so the draw is the reference's for any
+    prefetch worker count.  ``set_residency`` installs the ``cv`` weight
+    table ``1 + cv_boost * resident`` over VID_p.
+
+    ``device=None`` means the card; ``device="cpu"`` runs the plain
+    version.  On the card every upload, launch and copy back runs on the
+    sampler's own stream, into pinned memory, and only that stream is
+    waited for: a draw on a prefetch worker never queues behind the
+    training step on the current stream.  A lock serialises the draws of
+    several worker threads on the one stream."""
+
+    def __init__(self, part: Partition, base_seed: int = 0, rank: int = 0,
+                 policy: str = "uniform", cv_boost: float = 4.0,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.base_seed = int(base_seed)
+        self.rank = int(rank)
+        self.policy = policy
+        self.cv_boost = float(cv_boost)
+        self.num_solid = part.num_solid
+        deg = part.indptr[1:] - part.indptr[:-1]
+        self.width = max(int(deg.max()) if part.num_solid else 0, 1)
+        self._lock = threading.Lock()
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        with self._lock, self._on_stream():
+            self._indptr = self._upload(part.indptr.astype(np.int32))
+            self._indices = self._upload(part.indices.astype(np.int32))
+            n_vids = part.num_solid + part.num_halo
+            self._wtab = self._upload(np.ones(max(n_vids, 1), np.float32))
+            self._sync()
+
+    def _on_stream(self):
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self._stream is None:
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _sync(self):
+        if self._stream is not None:
+            self._stream.synchronize()
+
+    def set_residency(self, resident: np.ndarray) -> None:
+        """resident: bool [num_solid + num_halo] over VID_p, the vertices
+        with a live HEC line; ``cv`` draws prefer them by ``1 +
+        cv_boost``."""
+        w = 1.0 + self.cv_boost * np.asarray(resident, np.float32)
+        with self._lock, self._on_stream():
+            self._wtab = self._upload(w.reshape(-1))
+            self._sync()
+
+    def seed(self, epoch: int, step: int, layer: int) -> int:
+        return draw_seed(self.base_seed, epoch, step, self.rank, layer)
+
+    def draw(self, epoch: int, step: int, layer: int, cur: np.ndarray,
+             f: int, allow: Optional[np.ndarray] = None) -> np.ndarray:
+        """The draw of ``_draw_neighbors`` on the card: [len(cur), f]
+        VID_p, int64."""
+        seed = self.seed(epoch, step, layer)
+        with obs.span("kernel_sample_draw"), self._lock, self._on_stream():
+            cur_d = self._upload(np.asarray(cur).astype(np.int32))
+            allow_d = None if allow is None else self._upload(
+                np.asarray(allow, bool))
+            out = sample_draw(self._indptr, self._indices, self._wtab, cur_d,
+                              seed, allow_d, f=int(f),
+                              num_solid=self.num_solid, width=self.width,
+                              policy=self.policy)
+            if self._stream is not None:
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                out = host.copy_(out, non_blocking=True)
+            self._sync()
+        return out.numpy().astype(np.int64)
 
 
 def stack_ranks(mbs: Sequence[MinibatchBlocks]) -> Dict:

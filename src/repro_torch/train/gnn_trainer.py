@@ -30,6 +30,11 @@ without the hot tier and the fault codes):
   7. the example-weighted gradient all-reduce;
   8. Adam with a global-norm clip of 1.0, in place.
 
+With ``cfg.pipeline.sampler.device_draw`` the minibatches' fanout draw
+runs on ``device`` (kernel I on the card); under the ``cv`` policy
+``train_epochs`` refreshes each rank's HEC residency, which the draw's
+weights read, at the start of every epoch.
+
 The HEC states and the queues are updated in place where the reference
 returns new ones; ``evaluate`` therefore works on copies (``hec_clone``)
 and leaves the training state as it was.  The reference's ``sync`` and
@@ -312,13 +317,18 @@ class DistTrainer:
         config's workers).  Returns ``(state, history)``: per epoch the
         metrics' means and the host seconds of the ``sample``,
         ``host_prep``, ``stage`` and ``step`` spans (``t_<span>``) and of
-        the epoch (``t_wall``)."""
+        the epoch (``t_wall``), and the fanout draw's ``sampler_policy``."""
         cfg = self.cfg
-        plan = SamplingPlan(ps, cfg, base_seed=seed0)
+        plan = SamplingPlan(ps, cfg, base_seed=seed0, device=self.device)
         reg = obs.get().registry
         phases = ("sample", "host_prep", "stage", "step")
+        s_policy = cfg.pipeline.sampler.policy
         history = []
         for ep in range(num_epochs):
+            if s_policy == "cv" and cfg.pipeline.sampler.device_draw:
+                # control-variate sampling: the draw's weights prefer
+                # vertices with a live line in the HEC as it is now
+                plan.set_cv_residency(self._cv_residency(ps, state))
             ep_metrics = []
             ph0 = {p: reg.value("phase_seconds", phase=p) for p in phases}
             wall0 = time.perf_counter()
@@ -330,6 +340,7 @@ class DistTrainer:
                 ep_metrics.append(m)
                 self.step_log.append(m)
             mean = _epoch_mean(ep_metrics)
+            mean["sampler_policy"] = s_policy
             for p in phases:
                 mean[f"t_{p}"] = reg.value("phase_seconds", phase=p) - ph0[p]
             mean["t_wall"] = time.perf_counter() - wall0
@@ -342,6 +353,21 @@ class DistTrainer:
                       f"acc={mean['acc']:.3f} hit-rates {hl}")
         return state, history
 
+    def _cv_residency(self, ps: PartitionSet, state: dict) -> List[np.ndarray]:
+        """Per rank a bool mask over VID_p: the vertices with a live line
+        in any layer's HEC of that rank (tags hold VID_o); the reference's
+        ``_cv_residency``, one host read of the tags per epoch."""
+        V = sum(p.num_solid for p in ps.parts)
+        masks = []
+        for r, p in enumerate(ps.parts):
+            res_o = np.zeros(V, bool)
+            for layer in state["hec"]:
+                tags = layer[r].tags.cpu().numpy()
+                t = tags[tags >= 0]
+                res_o[t[t < V]] = True
+            masks.append(res_o[np.clip(p.vid_p_to_o(), 0, V - 1)])
+        return masks
+
     @torch.no_grad()
     def evaluate(self, ps: PartitionSet, data: dict, state: dict,
                  num_batches: int = 8, seed0: int = 123) -> float:
@@ -350,7 +376,8 @@ class DistTrainer:
         training state as it is — one tick + consume of the in-flight
         queue on copies of the HECs — and the training state is never
         written."""
-        plan = SamplingPlan(ps, self.cfg, base_seed=seed0)
+        plan = SamplingPlan(ps, self.cfg, base_seed=seed0,
+                            device=self.device)
         schedule = plan.eval_schedule(num_batches, seed0)
         accs, weights = [], []
         for k, host in enumerate(plan.batches(schedule,

@@ -10,8 +10,8 @@ a machine that has only the port's dependencies:
 Tolerance: the serve layer, UPDATE (forward and backward), AGG and GAT
 AGG sum float32 in another order than their plain versions, and the AGG
 and GAT AGG gradients add with atomics in a run-dependent order, so
-|kernel - plain| <= 1e-4 * max(1, |plain|); the dropout's zero pattern
-and the HEC probe + load are held bit for bit.
+|kernel - plain| <= 1e-4 * max(1, |plain|); the dropout's zero pattern,
+the HEC probe + load and the fanout draw are held bit for bit.
 """
 import numpy as np
 import pytest
@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.cache import hec
 from repro_torch.kernels import (gat_edge, hec_search, ref, sage_agg,
-                                 serve_fused, update_fused)
+                                 sample_draw, serve_fused, update_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -440,3 +440,144 @@ def test_gat_training_steps_on_card_match_cpu(dev):
             assert torch.equal(a.tags.cpu(), b.tags)
     for a, b in zip(s_gpu["inflight"], s_cpu["inflight"]):
         assert torch.equal(a["tags"].cpu(), b["tags"])
+
+
+# ---------------------------------------------------------------------------
+# AGG gradient past the last row (F), fanout draw (I)
+# ---------------------------------------------------------------------------
+def test_agg_gradient_drops_out_of_range_indices(dev):
+    """Kernel F, as its plain version, adds nothing for an index past the
+    last row; the forward (E) reads the last row for it."""
+    rng = np.random.default_rng(8)
+    N, M, f, D = 500, 64, 6, 36
+    nbr = rng.integers(-1, N + 4, (M, f)).astype(np.int32)
+    nbr[2] = N + 1                                 # only past the end
+    valid = rng.random(N) > 0.15
+    valid[N - 1] = True
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    h = t(rng.normal(size=(N, D)).astype(np.float32))
+    mean, cnt = sage_agg.sage_agg_fwd(h, t(nbr), t(valid))
+    mean_p, cnt_p = ref.sage_agg_ref(h, t(nbr), t(valid))
+    assert close(mean, mean_p) and torch.equal(cnt, cnt_p)
+    assert float(cnt[2]) == f
+    g = t(rng.normal(size=(M, D)).astype(np.float32))
+    dh = sage_agg.sage_agg_bwd(g, t(nbr), t(valid), cnt, N)
+    dh_p = ref.sage_agg_bwd_ref(g, t(nbr), t(valid), cnt_p, N)
+    torch.cuda.synchronize()
+    assert close(dh, dh_p)
+    inside = torch.as_tensor(nbr, device=dev).clone()
+    inside[inside >= N] = -1                       # what the gradient sees
+    assert close(dh, ref.sage_agg_bwd_ref(g, inside, t(valid), cnt_p, N))
+
+
+def ragged_csr(rng, S, H, max_deg):
+    """A CSR of S solids over S + H VID_p with degrees 0..max_deg, a row of
+    each of 0, 1, 3 and 4 neighbors and a row listing one vertex 5 times."""
+    deg = rng.integers(0, max_deg + 1, S)
+    deg[:5] = [0, 1, 3, 4, 9]
+    rows = [rng.integers(0, S + H, d) for d in deg]
+    rows[4] = np.array([7, S + 1, 7, 7, 12, 7, 3, 7, 30])
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    return indptr, np.concatenate(rows).astype(np.int32)
+
+
+def draw_pair(dev, indptr, indices, wtab, cur, seed, allow, f, S, policy):
+    """Kernel I and its plain version on the same inputs, on the card."""
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    width = max(int(np.diff(indptr).max()), 1)
+    args = (t(indptr), t(indices), t(wtab), t(cur.astype(np.int32)), seed,
+            None if allow is None else t(allow))
+    kw = dict(f=f, num_solid=S, width=width, policy=policy)
+    before = sample_draw.sample_draw.launches
+    got = sample_draw.sample_draw(*args, **kw)
+    want = ref.draw_neighbors(*args, **kw)
+    torch.cuda.synchronize()
+    assert sample_draw.sample_draw.launches == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("policy", ["uniform", "labor", "cv"])
+@pytest.mark.parametrize("S,H,max_deg,n,f", [
+    (40, 10, 70, 77, 3), (40, 10, 2, 77, 4), (3000, 500, 300, 16000, 10),
+    (20000, 4000, 40, 176000, 5), (500, 0, 600, 1000, 15)])
+def test_sample_draw_kernel_bitmatches_plain(dev, policy, S, H, max_deg, n,
+                                             f):
+    """-1 rows, halos, allow=False rows, deg == f and deg < f, a multi-edge
+    row, width < f (the second shape), n off a multiple of 32, rows wider
+    than a warp's 32 slots, and the seed's top bit set."""
+    rng = np.random.default_rng(S + n + f)
+    indptr, indices = ragged_csr(rng, S, H, max_deg)
+    cur = rng.integers(-1, S + H, n)
+    cur[:6] = [-1, S, 0, 1, 2, 4]
+    allow = rng.random(n) > 0.1
+    wtab = (1.0 + 4.0 * (rng.random(S + H) < 0.3)).astype(np.float32)
+    for a in (allow, None):
+        got, want = draw_pair(dev, indptr, indices, wtab, cur, 0xF00DCAFE,
+                              a, f, S, policy)
+        assert got.dtype == torch.int32 and got.shape == (n, f)
+        assert torch.equal(got, want)
+
+
+def test_device_sampler_on_card_matches_cpu(dev):
+    """``DeviceSampler`` on the card (its own stream, pinned copies) ==
+    on the CPU, with a residency, from four threads at once."""
+    import concurrent.futures
+
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.pipeline.vectorized_sampler import DeviceSampler
+    g = synthetic_graph(num_vertices=3000, avg_degree=8, seed=1)
+    part = partition_graph(g, 2, seed=0).parts[1]
+    rng = np.random.default_rng(4)
+    mask = rng.random(part.num_solid + part.num_halo) < 0.3
+    samplers = {}
+    for d in (dev, "cpu"):
+        samplers[str(d)] = DeviceSampler(part, base_seed=5, rank=1,
+                                         policy="cv", device=d)
+        samplers[str(d)].set_residency(mask)
+    curs = [rng.integers(-1, part.num_solid + part.num_halo, 3000)
+            for _ in range(8)]
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        card = list(pool.map(lambda i: samplers[str(dev)].draw(
+            0, i, 2, curs[i], 7), range(8)))
+    for i in range(8):
+        assert np.array_equal(card[i], samplers["cpu"].draw(0, i, 2, curs[i],
+                                                            7))
+
+
+def test_device_draw_minibatches_on_card_match_cpu(dev):
+    """``SamplingPlan`` with ``device_draw`` (cv, a residency installed) on
+    the card and on the CPU: every ``stack_ranks`` array equal, through 3
+    prefetch workers; 3 launches of I per rank and step."""
+    from repro_torch.configs.gnn import (PipelineConfig, SamplerConfig,
+                                         small_gnn_config)
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    g = synthetic_graph(num_vertices=4000, avg_degree=8, seed=0)
+    ps = partition_graph(g, 4, seed=0)
+    cfg = small_gnn_config(
+        "graphsage", batch_size=32, num_hidden_layers=2, fanouts=(4, 5, 6),
+        pipeline=PipelineConfig(num_workers=3, prefetch_depth=2,
+                                sampler=SamplerConfig(policy="cv",
+                                                      device_draw=True)))
+    rng = np.random.default_rng(1)
+    masks = [rng.random(p.num_solid + p.num_halo) < 0.3 for p in ps.parts]
+    out = []
+    for d in (dev, "cpu"):
+        plan = SamplingPlan(ps, cfg, 0, device=d)
+        plan.set_cv_residency(masks)
+        before = sample_draw.sample_draw.launches
+        out.append(list(plan.batches(plan.epoch_schedule(0), 0)))
+        launches = sample_draw.sample_draw.launches - before
+    card, cpu = out
+    assert len(card) == len(cpu) > 1
+    for a, b in zip(card, cpu):
+        for k in a:
+            for x, y in (zip(a[k], b[k]) if isinstance(a[k], list)
+                         else [(a[k], b[k])]):
+                assert np.array_equal(x, y), k
+    assert launches == 0                   # the CPU plan ran the plain draw
+    # ...and the card's: 3 layers x 4 ranks per step
+    plan = SamplingPlan(ps, cfg, 0, device=dev)
+    before = sample_draw.sample_draw.launches
+    plan.sample_host(0, 0, plan.epoch_schedule(0)[0])
+    assert sample_draw.sample_draw.launches - before == 12

@@ -40,7 +40,8 @@ from repro.pipeline.vectorized_sampler import \
 from repro.train import optimizer as j_opt
 from repro_torch.cache import hec
 from repro_torch.comm import HaloExchangeEngine, StackedCollective
-from repro_torch.configs.gnn import HECConfig, small_gnn_config
+from repro_torch.configs.gnn import (HECConfig, PipelineConfig,
+                                     SamplerConfig, small_gnn_config)
 from repro_torch.core import aep
 from repro_torch.graph import partition_graph, synthetic_graph
 from repro_torch.models.gnn.graphsage import GraphSAGE, init_params_np
@@ -348,6 +349,55 @@ for model, R in [(m, R) for m in sys.argv[3].split(",") for R in (1, 4)]:
     st["step"] = jnp.asarray(STEPS, jnp.int32)
     out[f"{pre}/eval_acc"] = np.asarray(tr.evaluate(ps, dd, st,
                                                     num_batches=2))
+
+# the device draw under cv: two epochs of train_epochs at R=4, per-step
+# metrics through a wrapped step function
+import dataclasses
+from repro.configs.gnn import PipelineConfig, SamplerConfig
+from repro.graph.sampling import layer_capacities
+R, pre = 4, "cv"
+cfg = small_gnn_config("graphsage", batch_size=32, feat_dim=24,
+                       num_classes=6,
+                       hec=HECConfig(cache_size=4096, ways=4, life_span=2,
+                                     push_limit=256, delay=1),
+                       pipeline=PipelineConfig(sampler=SamplerConfig(
+                           policy="cv", device_draw=True)))
+ps = partition_graph(g, R, seed=0)
+dd = build_dist_data(ps, cfg)
+mesh = Mesh(np.array(jax.devices()[:R]), ("data",))
+tr = DistTrainer(cfg=cfg, mesh=mesh, num_ranks=R, mode="aep")
+st = tr.init_state(jax.random.key(0), dd)
+for l, layer in enumerate(st["params"]["layers"]):
+    for n, v in layer.items():
+        out[f"{pre}/params0/{l}/{n}"] = np.asarray(v)
+N0 = layer_capacities(cfg.batch_size, cfg.fanouts)[0]
+inner = tr.make_step(dd, donate=False)
+log = []
+def step_fn(*a):
+    res = inner(*a)
+    i = len(log)
+    log.append({k: np.asarray(v) for k, v in res[-1].items()})
+    for k, v in log[-1].items():
+        out[f"{pre}/m/{i}/{k}"] = v
+    return res
+for i in range(8):
+    key = jax.random.fold_in(jax.random.PRNGKey(7), jnp.uint32(i))
+    out[f"{pre}/u/{i}"] = np.stack([np.asarray(jax.random.uniform(
+        jax.random.fold_in(key, jnp.int32(r)), (R, N0), minval=1e-6,
+        maxval=1.0)) for r in range(R)])
+st, hist = tr.train_epochs(ps, dd, st, 2, step_fn=step_fn)
+out[f"{pre}/steps"] = np.asarray(len(log))
+for e, h in enumerate(hist):
+    out[f"{pre}/hist/{e}/loss"] = np.asarray(h["loss"])
+    out[f"{pre}/hist/{e}/policy"] = np.asarray(h["sampler_policy"])
+for l, layer in enumerate(st["params"]["layers"]):
+    for n, v in layer.items():
+        out[f"{pre}/params/{l}/{n}"] = np.asarray(v)
+for l, h in enumerate(st["hec"]):
+    for f in ("tags", "age", "values"):
+        out[f"{pre}/{f}/{l}"] = np.asarray(getattr(h, f))
+out[f"{pre}/inflight"] = np.asarray(st["inflight"]["tags"])
+out[f"{pre}/eval_acc"] = np.asarray(tr.evaluate(ps, dd, st, num_batches=2))
 np.savez(sys.argv[1], **out)
 """
 
@@ -502,6 +552,73 @@ def test_three_steps_match_reference(reference_run, model, R):
         assert torch.equal(a.detach(), b)
 
 
+def test_device_draw_cv_two_epochs_match_reference(reference_run):
+    """``train_epochs`` with ``device_draw=True, policy="cv"`` at R=4 for
+    two epochs of two steps: epoch 1 draws with weights from the HEC as
+    epoch 0 left it.  Per step the loss within 1e-5 and the hits, halos,
+    pushes and examples exactly; at the end the parameters within 1e-4,
+    the HEC tags, ages and in-flight tags exactly, as in
+    ``test_three_steps_match_reference``; then ``evaluate``."""
+    ref = {k.removeprefix("cv/"): v for k, v in reference_run.items()
+           if k.startswith("cv/")}
+    g = synthetic_graph(num_vertices=1500, avg_degree=8, num_classes=6,
+                        feat_dim=24, seed=0)
+    cfg = small_gnn_config(
+        "graphsage", batch_size=32, feat_dim=24, num_classes=6,
+        hec=HECConfig(cache_size=4096, ways=4, life_span=2, push_limit=256,
+                      delay=1),
+        pipeline=PipelineConfig(sampler=SamplerConfig(policy="cv",
+                                                      device_draw=True)))
+    ps = partition_graph(g, 4, seed=0)
+    tr = DistTrainer(cfg, 4, device="cpu", push_uniforms=lambda s, r, sh:
+                     t(ref[f"u/{s}"][r]))
+    st = tr.init_state(params={"layers": [
+        {n: ref[f"params0/{l}/{n}"] for n in PARAM_NAMES["graphsage"]}
+        for l in range(2)]})
+    data = build_dist_data(ps, cfg, CPU)
+    st, hist = tr.train_epochs(ps, data, st, 2)
+    log = tr.step_log
+    assert len(log) == int(ref["steps"]) == 4
+    assert [h["sampler_policy"] for h in hist] == ["cv", "cv"] == \
+        [str(ref[f"hist/{e}/policy"]) for e in range(2)]
+    for i, m in enumerate(log):
+        want = float(ref[f"m/{i}/loss"])
+        assert abs(m["loss"] - want) <= 1e-5 * abs(want), (i, m["loss"])
+        for k in m:
+            if k.startswith(("hec_hits", "hec_halos", "aep_push", "exam")):
+                assert m[k] == float(ref[f"m/{i}/{k}"]), (i, k)
+    for e, h in enumerate(hist):
+        want = float(ref[f"hist/{e}/loss"])
+        assert abs(h["loss"] - want) <= 1e-5 * abs(want)
+    assert sum(m["hec_hits_l0"] for m in log[2:]) > 0
+    for l, layer in enumerate(st["model"].layers):
+        for n in PARAM_NAMES["graphsage"]:
+            np.testing.assert_allclose(getattr(layer, n).detach().numpy(),
+                                       ref[f"params/{l}/{n}"], rtol=1e-4,
+                                       atol=1e-4)
+    for l in range(cfg.num_layers):
+        np.testing.assert_array_equal(stacked(st, "tags", l),
+                                      ref[f"tags/{l}"])
+        np.testing.assert_array_equal(stacked(st, "age", l), ref[f"age/{l}"])
+        np.testing.assert_allclose(stacked(st, "values", l),
+                                   ref[f"values/{l}"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(
+        torch.stack([q["tags"] for q in st["inflight"]]).numpy(),
+        ref["inflight"])
+    acc = tr.evaluate(ps, data, st, num_batches=2)
+    assert acc == pytest.approx(float(ref["eval_acc"]), abs=1e-6)
+    # the residency moves the draw: epoch 1's first minibatch with the
+    # weights the trained HEC gives against the same with none resident
+    plan = SamplingPlan(ps, cfg, 0, device="cpu")
+    seeds = plan.epoch_schedule(1)[0]
+    flat = plan.sample_host(1, 0, seeds)
+    plan.set_cv_residency(tr._cv_residency(ps, st))
+    assert any(m.any() for m in tr._cv_residency(ps, st))
+    boosted = plan.sample_host(1, 0, seeds)
+    assert not all(np.array_equal(a, b) for a, b in zip(flat["nbr_idx"],
+                                                        boosted["nbr_idx"]))
+
+
 # ---------------------------------------------------------------------------
 # launcher, slice boundaries, device rule
 # ---------------------------------------------------------------------------
@@ -607,6 +724,13 @@ def test_port_configs_match_reference_defaults():
     p, q = t_cfg.PipelineConfig(), j_cfg.PipelineConfig()
     assert (p.num_workers, p.prefetch_depth) == (q.num_workers,
                                                  q.prefetch_depth)
+    assert (p.sampler.policy, p.sampler.device_draw, p.sampler.cv_boost) \
+        == (q.sampler.policy, q.sampler.device_draw, q.sampler.cv_boost)
+    for policy in ("uniform", "labor", "cv"):
+        a, b = (c.SamplerConfig(policy=policy, device_draw=True)
+                for c in (t_cfg, j_cfg))
+        assert (a.policy, a.device_draw, a.cv_boost) == \
+            (b.policy, b.device_draw, b.cv_boost)
     s, r = t_cfg.small_gnn_config(), j_cfg.small_gnn_config()
     assert (s.hec.cache_size, s.hec.ways, s.hec.push_limit, s.dropout,
             s.lr) == (r.hec.cache_size, r.hec.ways, r.hec.push_limit,

@@ -162,6 +162,31 @@ def test_agg_gradient_matches_jax_grad(N, M, f, D):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **GTOL)
 
 
+@pytest.mark.parametrize("valid_last", [True, False])
+def test_agg_gradient_drops_out_of_range_like_jax_grad(valid_last):
+    """An index past the last row: the forward reads the last row (jnp's
+    gather clamps), the gradient adds nothing for it (the gather's
+    gradient drops out-of-range indices), so the last row gets only its
+    in-range slots' share.  With the last row valid, row 3 (all past the
+    end) has six included slots in the forward and none in the
+    gradient."""
+    N, M, f, D = 40, 12, 6, 7
+    h, nbr, valid = agg_inputs(9, N, M, f, D)
+    valid[N - 1] = valid_last
+    nbr[2] = [N - 1, N, N + 3, -1, 5, N + 40]       # past the end, mixed
+    nbr[3] = N + 1                                  # only past the end
+    g = np.random.default_rng(4).normal(size=(M, D)).astype(np.float32)
+    want = jax.grad(j_agg_loss)(jnp.asarray(h), jnp.asarray(nbr),
+                                jnp.asarray(valid), jnp.asarray(g))
+    th = t(h).requires_grad_()
+    out = sage_agg.sage_agg(th, t(nbr), t(valid))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(
+        j_ref.sage_agg_ref(jnp.asarray(h), jnp.asarray(nbr),
+                           jnp.asarray(valid))), **TOL)
+    got, = torch.autograd.grad(out, th, grad_outputs=t(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GTOL)
+
+
 def test_agg_backward_only_where_h_needs_a_gradient():
     h, nbr, valid = agg_inputs(0, 30, 10, 4, 8)
     w = torch.ones(8, 8, requires_grad=True)
