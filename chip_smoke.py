@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together, into ``build/kernels/``), then runs seven
+source, all started together, into ``build/kernels/``), then runs eight
 phases on one card, phases 1-4 and 7 at the paper's full GraphSAGE width
-(128 -> 256 -> 256 -> 172, fanouts 5/10/15) and phases 5-6 at its full GAT
+(128 -> 256 -> 256 -> 172, fanouts 5/10/15), phases 5-6 at its full GAT
 width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172, one head at the last
-layer):
+layer) and phase 8 at both:
 
   1. kernels vs plain versions: each kernel's wrapper against its plain
      PyTorch version on the same inputs — the serve layer at the three
@@ -75,7 +75,28 @@ layer):
      each timed with its bound; (c) the minibatches of (b)'s first two
      steps and of epoch 1's first, drawn again on the card and on the CPU
      through the plain draw: every ``stack_ranks`` array equal; and the
-     host draw's share of a host-drawn ``sample_host`` of the first step.
+     host draw's share of a host-drawn ``sample_host`` of the first step;
+  8. sharded serving, the sixth and seventh main paths: (b) the
+     ``repro_torch.launch.gnn_serve_dist`` flow at its defaults (4 ranks
+     on the card, slots 32, halo slots 256, cache 65,536 x 8 per layer
+     and rank, degree pre-warm of a quarter, hot tier 2,048, dedup, round
+     batch 4, 1,024 queries with half repeats) on phase 3's graph cut
+     into 4 shards, ``--preset graphsage-papers100m`` and then
+     ``--preset gat-papers100m``, with every launch count set to 0 just
+     before and read just after: A or G R x L per round and L per offline
+     chunk of each shard, B R x L per round and R per fast-path batch, J
+     L - 1 per round; (a) the batched probe J against its plain version,
+     bit for bit, on the run's own caches with each hidden layer's last
+     request buffer (4 responders x 4 requesters x 1,024 slots, d 256 and
+     1,024) and at a ragged shape (n 77, d 172, negative vids, a dead
+     responder), B at the shard lookups' shapes and the forward kernel at
+     rank 0's layer shapes of a round, each timed with its bound; (c) the
+     flow's first two rounds, each from the state before it, once more
+     on the CPU through the plain versions (answers within tolerance,
+     every shard's cache tags and the hot-tier ages equal), and sharded
+     serving of both models on phase 2's low-degree graph with the hidden
+     layers warmed, against offline embeddings computed by the plain
+     versions on the whole graph.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
@@ -89,7 +110,9 @@ layer standing for an equal share of the training path's launches; G's
 is launch-weighted over phase 5's online and offline shapes and phase 6's
 layer shapes, H's a mean over phase 6's layer shapes, I's a mean over
 phase 7's layer shapes under cv (its ``plain_ms`` is blocking: the plain
-draw waits for the card to find its wide rows).  Cold
+draw waits for the card to find its wide rows), J's launch-weighted over
+phase 8's hidden-layer request buffers.  A's, B's and G's rows add phase
+8's launches and shapes (``launches_by_path``).  Cold
 and warm q/s, per-step spans and s/epoch are printed as indicative only:
 each window lasts seconds or less on the host clock.
 
@@ -97,7 +120,9 @@ Tolerances: the serve layer, UPDATE, AGG and GAT AGG sum in another
 float32 order than their plain versions (and the AGG and GAT AGG
 gradients add with atomics), so they are held to |kernel - plain| <= 1e-4
 * max(1, |plain|); the dropout's dropped positions, UPDATE's dZ, AGG's
-counts, the HEC probe + load and the fanout draw are held bit for bit.
+counts, the HEC probe + load (B and the batched J) and the fanout draw are
+held bit for bit.  Sharded serving on the card against the CPU (phase 8
+(c)) is held to 1e-4 * max(1, |x|), as the single-rank serving phases.
 The card-vs-CPU training step is held to 1e-4 relative (loss, gradient
 norm, and Adam's first moment of each tensor in norm):
 its sums run in other orders over up to 1,056,000 rows.  For GAT the card
@@ -159,6 +184,9 @@ KERNEL_ROWS = {
     "sample_draw": dict(
         route="cuda", source="src/repro_torch/csrc/sample_draw.cu",
         replaces="src/repro/kernels/sample_draw.py:65"),
+    "hec_probe": dict(
+        route="cuda", source="src/repro_torch/csrc/hec_search.cu",
+        replaces="src/repro/kernels/hec_search.py:54"),
 }
 KERNELS = ("serve_fused", "hec_search", "update_fused", "sage_agg",
            "gat_edge", "sample_draw")
@@ -596,7 +624,8 @@ def wrappers():
             "sage_agg_bwd": sa.sage_agg_bwd,
             "gat_edge_fwd": ge.gat_edge_fwd,
             "gat_edge_bwd": ge.gat_edge_bwd,
-            "sample_draw": sd.sample_draw}
+            "sample_draw": sd.sample_draw,
+            "hec_probe": hs.hec_probe}
 
 
 def zero_launches():
@@ -1626,6 +1655,412 @@ def phase7_check(torch, np, res):
     return compared
 
 
+# ---------------------------------------------------------------------------
+# phase 8: sharded serving, 4 ranks on the card; kernel J
+# ---------------------------------------------------------------------------
+DIST_RANKS = 4              # the sharded launcher's default
+REPLAY_ROUNDS = 2           # rounds of (b) served again on the CPU in (c)
+
+
+def record_last(owner, name, key):
+    """Wrap ``owner.name`` so that the arguments of its last call per
+    ``key(*args)`` are kept; returns (the dict, a function that unwraps)."""
+    orig = getattr(owner, name)
+    last = {}
+
+    def rec(*a, **kw):
+        last[key(*a, **kw)] = a
+        return orig(*a, **kw)
+    setattr(owner, name, rec)
+    return last, lambda: setattr(owner, name, orig)
+
+
+def snapshot(srv, values=True):
+    """Device copies of every shard cache and hot replica, and the host
+    mirrors and round counter that sampling reads."""
+    snap = {"tags": [st.tags.clone() for st in srv.cache.states],
+            "ages": [st.age.clone() for st in srv.hot.states]
+            if srv.hot is not None else []}
+    if values:
+        snap.update(
+            cache=[(st.age.clone(), st.values.clone())
+                   for st in srv.cache.states],
+            hot=[st.values.clone() for st in srv.hot.states]
+            if srv.hot is not None else [],
+            resident=[r.copy() for r in srv.cache.resident],
+            valid=[v.copy() for v in srv.hot.valid]
+            if srv.hot is not None else [],
+            mb_counter=srv._mb_counter)
+    return snap
+
+
+def record_rounds(cls):
+    """Keep the first ``REPLAY_ROUNDS`` rounds of the flow, each with the
+    state before it (device copies), its groups, and the tags and ages
+    after it."""
+    orig = cls._run_round
+    rec = []
+
+    def wrapped(self, round_groups):
+        take = len(rec) < REPLAY_ROUNDS
+        before = snapshot(self) if take else None
+        out = orig(self, round_groups)
+        if take:
+            rec.append({"groups": [list(g) for g in round_groups],
+                        "before": before,
+                        "after": snapshot(self, values=False)})
+        return out
+    cls._run_round = wrapped
+    return rec, lambda: setattr(cls, "_run_round", orig)
+
+
+def probe_case(torch, hs, name, state, vids, alive=None, timed=True):
+    """Kernel J vs plain on one input, bit for bit; returns a row."""
+    got = hs.hec_probe(state.tags, state.values, vids, alive)
+    torch.cuda.synchronize()
+    want = hs.hec_probe_ref(state.tags, state.values, vids, alive)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.equal(
+        got.view(torch.int32), want.view(torch.int32))),
+        f"{name}: hec_probe (J) not bit-exact against its plain version")
+    R, B, n = vids.shape
+    _, nsets, ways, d = state.values.shape
+    row = {"shape": f"{R} responders x vids {B}x{n}, tags {nsets}x{ways}, "
+                    f"d={d}" + (", a dead responder" if alive is not None
+                                and not bool(alive.all()) else ""),
+           "max_abs_err": 0.0, "hits": int((want[..., d] > 0.5).sum()),
+           "negative_vids": int((vids < 0).sum()), "library_ms": None}
+    del got, want
+    if timed:
+        # each probed tag row and each hit value line read once, the vids
+        # (and alive) read, the [R, B, n, d+1] response written once
+        rows, lines = 0, 0
+        for r in range(R):
+            hit, sets, way, _ = hs.hec_lookup_ref(
+                state.tags[r], state.values[r], vids[r].reshape(-1))
+            rows += sets.unique().numel()
+            lines += (sets.long() * ways + way.long())[hit].unique().numel()
+        probes = R * B * n
+        nbytes = (probes * 4 + rows * ways * 4 + lines * d * 4
+                  + probes * (d + 1) * 4 + (R if alive is not None else 0))
+        row["bound_ms"], row["bound_by"] = bound(nbytes, probes * ways)
+        row["ms"], row["call_ms"] = time_ms(torch, lambda: hs.hec_probe(
+            state.tags, state.values, vids, alive))
+        # about 65 torch ops per call (R lookups, the packing, a stack):
+        # 3 calls fit in the launch queue
+        row["plain_ms"], row["plain_call_ms"] = time_ms(
+            torch, lambda: hs.hec_probe_ref(state.tags, state.values, vids,
+                                            alive), iters=3)
+    return row
+
+
+def phase8_main_path(torch, np, args, preset, phase):
+    """(b): the sharded launcher's flow at its defaults on phase 3's graph
+    cut into 4 shards; launch counts exact.  Returns the launcher's result,
+    the launches, the rounds recorded for (c) and the last inputs of J and
+    of the shard lookups."""
+    import repro_torch.comm.engine as engine
+    from repro_torch import obs
+    from repro_torch.launch import gnn_serve_dist
+    from repro_torch.serve.gnn.distributed import DistGNNServeScheduler
+    torch.cuda.reset_peak_memory_stats()
+    largs = gnn_serve_dist.parse_args([
+        "--preset", preset, "--vertices", str(args.vertices), "--queries",
+        str(args.queries), "--device", "cuda"])
+    rec, unrec = record_rounds(DistGNNServeScheduler)
+    probes, unprobe = record_last(engine, "hec_probe",
+                                  lambda tags, *a: tags.data_ptr())
+    lookups, unlook = record_last(
+        DistGNNServeScheduler, "_lookup",
+        lambda self, state, vids: (state.tags.data_ptr(), vids.shape[1]))
+    reg = obs.configure().registry
+    zero_launches()
+    try:
+        res = gnn_serve_dist.run(largs)
+        launches = read_launches()
+    finally:
+        unrec(), unprobe(), unlook()
+    spans = {ph: reg.value("phase_seconds", phase=ph) * 1e3
+             for ph in ("serve_round", "serve_sample", "serve_step",
+                        "serve_sync_host")}
+    print(f"{phase}: launches on the sharded serving path: {launches}")
+    srv, cfg, ps = res["srv"], res["cfg"], res["ps"]
+    R, L = srv.num_ranks, cfg.num_layers
+    passes = [res[f"{p}_metrics"] for p in ("warmup", "serve", "repeat")]
+    rounds = sum(m["steps_run"] for m in passes)
+    fast = sum(m["fast_path_rounds"] for m in passes)
+    chunks = sum(-(-p.num_solid // OFFLINE_CHUNK) for p in ps.parts)
+    fwd = "serve_fused_layer" if cfg.model == "graphsage" else "gat_edge_fwd"
+    want = {n: 0 for n in launches}
+    # per round: the forward R x L, the shard lookups R x (L - 1) and the
+    # seeds' R, one J per hidden layer; R lookups per fast-path batch; the
+    # pre-warm's offline pass once per layer and chunk of each shard
+    want.update({fwd: R * L * rounds + L * chunks,
+                 "hec_lookup": R * L * rounds + R * fast,
+                 "hec_probe": (L - 1) * rounds})
+    for n in launches:
+        check(launches[n] == want[n], f"{phase}: {n} launched "
+              f"{launches[n]} times, expected {want[n]} ({rounds} rounds, "
+              f"{fast} fast-path batches, {chunks} offline chunks per "
+              f"layer)")
+    for p in ("serve", "repeat"):
+        check(all(r.done and np.isfinite(r.result).all() for r in res[p]),
+              f"{phase}: a {p} answer is missing or non-finite")
+    m = res["serve_metrics"]
+    check(m["steps_run"] > 0 and m["halo_requested"] > 0,
+          f"{phase}: the serve pass fetched no halo row")
+    check(len(rec) == REPLAY_ROUNDS,
+          f"{phase}: the flow ran {len(rec)} rounds, fewer than the "
+          f"{REPLAY_ROUNDS} that (c) replays")
+    for p in ("serve", "repeat"):
+        mp = res[f"{p}_metrics"]
+        print(f"{phase}: {p} pass {res[f'{p}_qps']:.1f} q/s (indicative), "
+              f"{mp['steps_run']} rounds of {srv.scfg.round_batch} fused "
+              f"segments, {mp['fast_path_hits']} + "
+              f"{mp.get('hot_fast_path_hits', 0)} fast-path answers (output "
+              f"cache + hot tier); halo rows seen {mp['halo_seen']}, local "
+              f"{mp['halo_local_hits']}, requested {mp['halo_requested']}, "
+              f"fetched {mp['halo_fetched']}; hot hits {mp['hot_hits']}; "
+              f"dedup merges {mp['dedup_merged']}; latency p50 "
+              f"{mp['latency_p50_ms']:.1f} ms p99 {mp['latency_p99_ms']:.1f}"
+              f" ms")
+    print(f"{phase}: host clock per round, mean over the {rounds} rounds "
+          f"(indicative): " + ", ".join(
+              f"{ph.removeprefix('serve_')} {ms / rounds:.1f} ms"
+              for ph, ms in spans.items()))
+    reg_rounds = res["serve_metrics"]["steps_run"]
+    print(f"{phase}: {R} shards of {[p.num_solid for p in ps.parts]} "
+          f"vertices, edge cut {ps.edge_cut_frac:.2%}, hot set "
+          f"{srv.hot.num_slots if srv.hot is not None else 0}; "
+          f"{rounds} rounds in all ({reg_rounds} in the serve pass), "
+          f"{fast} fast-path batches, pre-warm {res['prewarmed']} vertices "
+          f"per layer")
+    peak_line(torch, phase)
+    return res, launches, rec, probes, lookups
+
+
+def phase8_replay(torch, np, res, rec, phase):
+    """(c): the first rounds of (b), each from the state before it, served
+    again on the CPU through the plain versions: answers within
+    tolerance, every shard's cache tags and the hot-tier ages after it
+    equal."""
+    from repro_torch.models.gnn import build_model
+    from repro_torch.serve.gnn.distributed import DistGNNServeScheduler
+    from repro_torch.serve.gnn.scheduler import GNNRequest
+    srv, cfg = res["srv"], res["cfg"]
+    t0 = time.perf_counter()
+    cpu = DistGNNServeScheduler(cfg, build_model(cfg, seed=0, device="cpu"),
+                                res["ps"], srv.scfg, device="cpu")
+    worst, answers, fetched = 0.0, 0, 0
+    for i, rnd in enumerate(rec):
+        b = rnd.pop("before")
+        for st, tags, (age, values) in zip(cpu.cache.states, b["tags"],
+                                           b["cache"]):
+            st.tags.copy_(tags.cpu()), st.age.copy_(age.cpu())
+            st.values.copy_(values.cpu())
+        for st, age, values in zip(cpu.hot.states if cpu.hot else [],
+                                   b["ages"], b["hot"]):
+            st.age.copy_(age.cpu()), st.values.copy_(values.cpu())
+        cpu.cache.resident = [r.copy() for r in b["resident"]]
+        if cpu.hot is not None:
+            cpu.hot.valid = [v.copy() for v in b["valid"]]
+        cpu._mb_counter = b["mb_counter"]
+        del b
+        fresh = [[(local, [GNNRequest(rid=q.rid, vid=q.vid) for q in reqs])
+                  for local, reqs in g] for g in rnd["groups"]]
+        cpu._run_round(fresh)
+        fetched += int(np.sum(cpu.round_log[-1]["halo_fetched"]))
+        for g, f in zip(rnd["groups"], fresh):
+            for (_, reqs), (_, freqs) in zip(g, f):
+                for q, fq in zip(reqs, freqs):
+                    want = fq.result
+                    err = np.abs(q.result - want)
+                    check(bool(np.all(err <= TOL * np.maximum(
+                        1.0, np.abs(want)))), f"{phase} (c): round {i}: vid "
+                        f"{q.vid}: card and CPU answers differ by "
+                        f"{err.max():.3e}")
+                    worst = max(worst, float(err.max()))
+                    answers += 1
+        a = rnd["after"]
+        for k, (st, tags) in enumerate(zip(cpu.cache.states, a["tags"])):
+            check(bool(torch.equal(st.tags, tags.cpu())),
+                  f"{phase} (c): round {i}: layer {k + 1} cache tags differ, "
+                  f"card vs CPU")
+        for k, (st, age) in enumerate(zip(cpu.hot.states if cpu.hot else [],
+                                          a["ages"])):
+            check(bool(torch.equal(st.age, age.cpu())),
+                  f"{phase} (c): round {i}: layer {k + 1} hot-tier ages "
+                  f"differ, card vs CPU")
+    print(f"{phase} (c): the first {len(rec)} rounds of (b) ({answers} "
+          f"answers, {fetched} halo rows fetched), each from the state "
+          f"before it, again on the CPU through the plain versions: max "
+          f"|card - CPU| {worst:.3e}; every shard's cache tags and the "
+          f"hot-tier ages after each equal "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
+def phase8_kernels(torch, np, res, probes, lookups, phase, card):
+    """(a): J at the path's shapes (the last request buffer of each hidden
+    layer, on the run's own caches) and B at the shard lookups' shapes,
+    bit for bit, timed with their bounds; the forward kernel (A or G) at
+    rank 0's layer shapes of one round.  Returns (J rows, B rows, forward
+    rows)."""
+    from repro_torch.kernels import gat_edge as ge
+    from repro_torch.kernels import hec_search as hs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import serve_fused as sf
+    srv, cfg = res["srv"], res["cfg"]
+    L = cfg.num_layers
+    rows_j, rows_b, rows_f = [], [], []
+    for k, st in enumerate(srv.cache.states[:L - 1]):
+        args = probes.get(st.tags.data_ptr())
+        check(args is not None, f"{phase}: J never probed layer {k + 1}")
+        row = probe_case(torch, hs, f"{phase} J layer {k + 1}", st, args[2])
+        rows_j.append(row)
+        print(f"{phase} (a): hec_probe (J) layer {k + 1} {row['shape']} "
+              f"({row['hits']} hits): bit-exact; device ms kernel "
+              f"{row['ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}) [{card}]")
+    for (ptr, width), (_, state, vids) in sorted(lookups.items(),
+                                                 key=lambda kv: kv[0][1]):
+        live = [k for k, st in enumerate(srv.cache.states)
+                if st.tags.data_ptr() == ptr]
+        if not live or width == srv.scfg.num_slots:
+            continue                    # the warm-up's caches; fast path
+        row = hec_case(torch, hs, f"{phase} shard lookup l{live[0] + 1}",
+                       state.rank(0), vids[0].to(torch.int32).contiguous())
+        rows_b.append(row)
+        print(f"{phase} (a): hec_lookup (B) rank 0 l{live[0] + 1} "
+              f"{row['shape']} ({row['hits']} hits): bit-exact; device ms "
+              f"kernel {row['ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}) [{card}]")
+    # the forward's shapes: rank 0's part of one round of random queries
+    ps = res["ps"]
+    rng = np.random.default_rng(8)
+    cap = srv.scfg.num_slots * srv.scfg.round_batch
+    groups = [[(int(v), None) for v in rng.choice(p.num_solid, cap, False)]
+              for p in ps.parts]
+    mb = srv._sample(groups)
+    data = srv.data
+    nodes0 = mb["layer_nodes"][0][0].long()
+    valid = mb["node_mask"][0][0]
+    S0 = int(data["num_solid"][0])
+    h = torch.where((nodes0 >= S0)[:, None],
+                    data["halo_features"][0][(nodes0 - S0).clamp(
+                        0, data["halo_features"].shape[1] - 1)],
+                    data["features"][0][nodes0.clamp(
+                        0, data["features"].shape[1] - 1)]) * valid[:, None]
+    for k, layer in enumerate(srv.model.layers):
+        nbr = mb["nbr_idx"][k][0]
+        if cfg.model == "graphsage":
+            h, row = serve_layer_case(torch, sf, ref, f"{phase} A layer {k}",
+                                      h, nbr, valid,
+                                      (layer.wn, layer.ws, layer.b),
+                                      relu=k < L - 1)
+            name = "serve_fused_layer (A)"
+            row["offline"] = False
+        else:
+            z, e_u, e_v = layer.project(h)
+            h, row = gat_case(torch, ge, ref, f"{phase} G layer {k}", z, e_u,
+                              e_v, nbr, valid)
+            name = "gat_edge_fwd (G)"
+            row["path"] = "online"
+            del z, e_u, e_v
+        rows_f.append(row)
+        print_row(name, row, phase + " (a)")
+        valid = mb["node_mask"][k + 1][0]
+    return rows_j, rows_b, rows_f
+
+
+def phase8_ragged(torch, np, card):
+    """(a): J at a ragged shape: n off 32, d off 4 (172), negative vids and
+    a dead responder, on half-full caches with full sets."""
+    from repro_torch.cache import hec
+    from repro_torch.kernels import hec_search as hs
+    from repro_torch.kernels.ref import set_index
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    parts = [fill_cache(torch, hec, set_index, 4096, 8, 172, dev, rng, np)
+             for _ in range(DIST_RANKS)]
+    state = hec.HECState(*(torch.stack([getattr(p[0], f) for p in parts])
+                           for f in ("tags", "age", "values")))
+    vids = np.concatenate([np.stack([rng.choice(p[1], 40) for p in parts]),
+                           rng.integers(-3, 2_000_000, (DIST_RANKS, 268))], 1)
+    vids[:, 40:43] = [-1, -2, -2 ** 31]
+    vids = torch.as_tensor(vids.reshape(DIST_RANKS, 4, 77), dtype=torch.int32,
+                           device=dev)
+    alive = torch.tensor([True, True, False, True], device=dev)
+    row = probe_case(torch, hs, "phase 8 J ragged", state, vids, alive)
+    print(f"phase 8 (a): hec_probe (J) ragged {row['shape']} ({row['hits']} "
+          f"ok rows, {row['negative_vids']} negative vids): bit-exact; "
+          f"device ms kernel {row['ms']:.4f}, bound {row['bound_ms']:.5f} "
+          f"[{card}]")
+    return row
+
+
+def phase8_exact(torch, np):
+    """(c): sharded serving on phase 2's low-degree graph (every degree at
+    most the fanout, so sampling is exact), 4 shards, hidden layers warmed
+    from the sharded offline pass: every answer within tolerance of
+    offline embeddings computed by the plain versions on the whole graph,
+    for both models."""
+    from repro_torch.configs.gnn import GAT_PAPERS100M, GRAPHSAGE_PAPERS100M
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.kernels import ref
+    from repro_torch.models.gnn import build_model
+    from repro_torch.serve.gnn import ServeCacheConfig, full_neighbor_matrix
+    from repro_torch.serve.gnn.distributed import (DistGNNServeScheduler,
+                                                   DistServeConfig,
+                                                   layerwise_embeddings_dist)
+    dev = torch.device("cuda")
+    g = synthetic_graph(num_vertices=3000, avg_degree=2, num_classes=172,
+                        feat_dim=128, seed=3)
+    part = partition_graph(g, 1, seed=0).parts[0]
+    ps = partition_graph(g, DIST_RANKS, seed=0)
+    max_deg = int((part.indptr[1:] - part.indptr[:-1]).max())
+    S = part.num_solid
+    nbr = torch.as_tensor(full_neighbor_matrix(part), dtype=torch.int32,
+                          device=dev)
+    ones = torch.ones(S, dtype=torch.bool, device=dev)
+    vids = np.concatenate([np.arange(0, S, 5),
+                           np.random.default_rng(2).integers(0, S, 200)])
+    for base in (GRAPHSAGE_PAPERS100M, GAT_PAPERS100M):
+        cfg = dataclasses.replace(base, fanouts=(max_deg,) * 3)
+        model = build_model(cfg, seed=1, device=dev)
+        h = torch.as_tensor(part.features, device=dev)
+        for k, layer in enumerate(model.layers):
+            if cfg.model == "graphsage":
+                h = ref.serve_layer_ref(h, nbr, ones, layer.wn, layer.ws,
+                                        layer.b, relu=k < cfg.num_layers - 1)
+            else:
+                h = ref.gat_edge_ref(*layer.project(h), nbr, ones)
+        want = h.cpu().numpy()
+        srv = DistGNNServeScheduler(
+            cfg, model, ps, DistServeConfig(
+                num_slots=16, halo_slots=256, hot_size=64, dedup=True,
+                round_batch=2, cache=ServeCacheConfig(cache_size=65536,
+                                                      ways=8)), device=dev)
+        embs = layerwise_embeddings_dist(cfg, model, ps, chunk_size=512)
+        srv.cache.warm(embs, np.arange(S), layers=range(cfg.num_layers - 1))
+        srv.hot.warm(embs)
+        out = srv.serve(vids)
+        err = np.abs(out - want[vids])
+        check(bool(np.isfinite(out).all()) and bool(np.all(
+            err <= TOL * np.maximum(1.0, np.abs(want[vids])))),
+            f"phase 8 (c): {cfg.model}: sharded answers differ from the "
+            f"plain offline embeddings by {err.max():.3e}")
+        m = srv.metrics()
+        check(m["steps_run"] > 0 and m["halo_fetched"] > 0,
+              f"phase 8 (c): {cfg.model}: no compute round fetched a halo")
+        print(f"phase 8 (c): {cfg.model} on a {S}-vertex graph in "
+              f"{DIST_RANKS} shards (fanouts {max_deg}x3, exact sampling), "
+              f"hidden layers warmed: {len(vids)} answers within tolerance "
+              f"of the plain offline embeddings (max |d| {err.max():.3e}); "
+              f"{m['steps_run']} rounds, {m['halo_fetched']} halo rows "
+              f"fetched, {m['hot_hits']} from the hot tier")
+
+
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
     """One contract row: per-launch means over the timed shapes, shape i
     standing for ``weights[i]`` launches of the main paths."""
@@ -1675,6 +2110,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card} (every time below was taken on it)")
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
@@ -1758,6 +2194,45 @@ def main(argv=None) -> int:
     compared = phase7_check(torch, np, res7)
     print(f"phase 7 (c): {compared} arrays equal; done in "
           f"{time.perf_counter() - t0:.1f}s")
+    del res7, res4
+    torch.cuda.empty_cache()
+
+    p8 = {}
+    with torch.no_grad():
+        for preset in ("graphsage-papers100m", "gat-papers100m"):
+            model = preset.split("-")[0]
+            tag = f"phase 8 (b) {model}"
+            t0 = time.perf_counter()
+            res8, launches8, rec8, probes8, lookups8 = phase8_main_path(
+                torch, np, args, preset, tag)
+            print(f"{tag}: done in {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            rows_j, rows_b8, rows_f = phase8_kernels(
+                torch, np, res8, probes8, lookups8, f"phase 8 {model}", card)
+            print(f"phase 8 (a) {model}: done in "
+                  f"{time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            replay_err = phase8_replay(torch, np, res8, rec8,
+                                       f"phase 8 {model}")
+            print(f"phase 8 (c) {model}: done in "
+                  f"{time.perf_counter() - t0:.1f}s")
+            cfg8, ps8 = res8["cfg"], res8["ps"]
+            rounds8 = sum(res8[f"{p}_metrics"]["steps_run"]
+                          for p in ("warmup", "serve", "repeat"))
+            p8[model] = {
+                "launches": launches8, "rows_j": rows_j, "rows_b": rows_b8,
+                "rows_f": rows_f, "replay_err": replay_err,
+                "rounds": rounds8,
+                "online": len(ps8.parts) * cfg8.num_layers * rounds8,
+                "chunks": sum(-(-p.num_solid // OFFLINE_CHUNK)
+                              for p in ps8.parts)}
+            del res8, rec8, probes8, lookups8
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ragged_j = phase8_ragged(torch, np, card)
+        phase8_exact(torch, np)
+        print(f"phase 8 (a, c) ragged and exactness: done in "
+              f"{time.perf_counter() - t0:.1f}s")
 
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]
@@ -1765,28 +2240,43 @@ def main(argv=None) -> int:
     check(launches_online > 0 and launches_online % len(online) == 0,
           f"phase 3: {launches_online} online serve-layer launches is not "
           f"a whole number of microbatches")
+    sage8, gat8 = p8["graphsage"], p8["gat"]
     b_paths = {"serve": launches["hec_lookup"],
                "train": launches4["hec_lookup"],
                "gat_serve": launches5["hec_lookup"],
-               "gat_train": launches6["hec_lookup"]}
+               "gat_train": launches6["hec_lookup"],
+               "sharded_serve": sage8["launches"]["hec_lookup"],
+               "gat_sharded_serve": gat8["launches"]["hec_lookup"]}
     b_rows = [(rows_b, "serve"), (rows4["hec_lookup"], "train"),
-              (rows5_b, "gat_serve"), (rows6["hec_lookup"], "gat_train")]
+              (rows5_b, "gat_serve"), (rows6["hec_lookup"], "gat_train"),
+              (sage8["rows_b"], "sharded_serve"),
+              (gat8["rows_b"], "gat_sharded_serve")]
     layer_mean = ("mean over the training path's layer shapes (rank 0's "
                   "first minibatch), each layer standing for an equal "
                   "share of the launches")
+    a_sharded = sage8["launches"]["serve_fused_layer"]
     rows = [
-        summarize("serve_fused_layer", online + offline, launches,
+        summarize("serve_fused_layer", online + offline + sage8["rows_f"],
+                  {"serve_fused_layer": launches["serve_fused_layer"]
+                   + a_sharded},
                   [launches_online // len(online)] * len(online)
-                  + [launches_offline // len(offline)] * len(offline),
-                  "launch-weighted mean over the serving path: each online "
+                  + [(launches_offline + (a_sharded - sage8["online"]))
+                     / len(offline)] * len(offline)
+                  + [sage8["online"] / len(sage8["rows_f"])]
+                  * len(sage8["rows_f"]),
+                  "launch-weighted mean over the serving paths: each online "
                   "layer shape stands for its microbatch launches, each "
                   "offline shape (first chunk) for its layer's pre-warm "
-                  "chunks", max_abs_err=offline_err),
+                  "chunks, single-rank and sharded, each sharded layer shape "
+                  "(rank 0 of one round) for its rounds' launches",
+                  max_abs_err=offline_err),
         summarize("hec_lookup", [r for rs, _ in b_rows for r in rs],
                   {"hec_lookup": sum(b_paths.values())},
                   [b_paths[p] / len(rs) for rs, p in b_rows for _ in rs],
-                  "launch-weighted mean over the four paths: each path's "
+                  "launch-weighted mean over the six paths: each path's "
                   "probe or lookup shapes share its launches")]
+    rows[0]["launches_by_path"] = {
+        "serve": launches["serve_fused_layer"], "sharded_serve": a_sharded}
     rows[1]["launches_by_path"] = b_paths
     for name in ("update_fused_fwd", "update_fused_bwd", "sage_agg_fwd",
                  "sage_agg_bwd"):
@@ -1795,21 +2285,41 @@ def main(argv=None) -> int:
     g_online = [r for r in rows5_g if r["path"] == "online"]
     g_offline = [r for r in rows5_g if r["path"] == "offline"]
     g_train = launches6["gat_edge_fwd"]
+    g_sharded = gat8["launches"]["gat_edge_fwd"]
     rows.append(summarize(
-        "gat_edge_fwd", g_online + g_offline + rows6["gat_edge_fwd"],
-        {"gat_edge_fwd": launches5["gat_edge_fwd"] + g_train},
-        [microbatches5] * len(g_online) + [chunks5] * len(g_offline)
-        + [g_train / len(rows6["gat_edge_fwd"])] * len(rows6["gat_edge_fwd"]),
+        "gat_edge_fwd", g_online + g_offline + rows6["gat_edge_fwd"]
+        + gat8["rows_f"],
+        {"gat_edge_fwd": launches5["gat_edge_fwd"] + g_train + g_sharded},
+        [microbatches5] * len(g_online)
+        + [chunks5 + gat8["chunks"]] * len(g_offline)
+        + [g_train / len(rows6["gat_edge_fwd"])] * len(rows6["gat_edge_fwd"])
+        + [gat8["online"] / len(gat8["rows_f"])] * len(gat8["rows_f"]),
         "launch-weighted mean over the GAT paths: each serving layer shape "
         "stands for its microbatch launches, each offline shape (first "
-        "chunk) for its layer's pre-warm chunks, each training layer shape "
-        "for a third of the training launches", max_abs_err=offline_err5))
+        "chunk) for its layer's pre-warm chunks, single-rank and sharded, "
+        "each training layer shape for a third of the training launches, "
+        "each sharded layer shape (rank 0 of one round) for its rounds' "
+        "launches", max_abs_err=offline_err5))
     rows[-1]["launches_by_path"] = {"gat_serve": launches5["gat_edge_fwd"],
-                                    "gat_train": g_train}
+                                    "gat_train": g_train,
+                                    "gat_sharded_serve": g_sharded}
     rows.append(summarize("gat_edge_bwd", rows6["gat_edge_bwd"], launches6,
                           [1] * len(rows6["gat_edge_bwd"]), layer_mean))
     rows.append(summarize("sample_draw", rows7, launches7,
                           [1] * len(rows7), layer_mean + ", under cv"))
+    j_paths = {"sharded_serve": sage8["launches"]["hec_probe"],
+               "gat_sharded_serve": gat8["launches"]["hec_probe"]}
+    rows.append(summarize(
+        "hec_probe", sage8["rows_j"] + gat8["rows_j"] + [ragged_j],
+        {"hec_probe": sum(j_paths.values())},
+        [j_paths["sharded_serve"] / len(sage8["rows_j"])]
+        * len(sage8["rows_j"])
+        + [j_paths["gat_sharded_serve"] / len(gat8["rows_j"])]
+        * len(gat8["rows_j"]) + [0],
+        "launch-weighted mean over the sharded serving paths: each hidden "
+        "layer's last request buffer of the run stands for its layer's "
+        "launches (the ragged shape is checked, not weighted)"))
+    rows[-1]["launches_by_path"] = j_paths
     for r in rows:
         print(f"kernel {r['name']}: {r['ms']:.4f} ms per launch (device, "
               f"{r['ms_over']}), plain {r['plain_ms']:.4f} ms, bound "

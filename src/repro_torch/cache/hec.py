@@ -18,13 +18,13 @@ reference's results without copying the value tensors.  ``hec_lookup``
 on CUDA tensors is one launch of the fused probe + load kernel
 (``kernels/hec_search.py``).
 
-:class:`EmbeddingCache` is the single-rank serving cache (per-layer
-states, host residency mirror, model-version invalidation, counters).
-Training keeps one :class:`HECState` per (layer, rank) from
-:func:`hec_init` (``train/gnn_trainer.py``) and copies them with
-:func:`hec_clone` where the reference would compute on a throwaway
-state; the rank-stacked serving variant waits for the sharded-serving
-slice.
+:class:`EmbeddingCache` is the serving cache (per-layer states, host
+residency mirror, model-version invalidation, counters): single-rank, or
+with ``ps=PartitionSet`` one state per layer stacked ``[R, ...]`` over
+the shards, tagged by VID_o.  Training keeps one :class:`HECState` per
+(layer, rank) from :func:`hec_init` (``train/gnn_trainer.py``) and
+copies them with :func:`hec_clone` where the reference would compute on
+a throwaway state.
 """
 from __future__ import annotations
 
@@ -48,23 +48,33 @@ class HECState:
 
     @property
     def nsets(self) -> int:
-        return self.tags.shape[0]
+        return self.tags.shape[-2]
 
     @property
     def ways(self) -> int:
-        return self.tags.shape[1]
+        return self.tags.shape[-1]
+
+    def rank(self, r: int) -> "HECState":
+        """Rank ``r``'s cache of a rank-stacked state (``tags [R, nsets,
+        ways]``): views, so in-place updates reach the stack."""
+        return HECState(tags=self.tags[r], age=self.age[r],
+                        values=self.values[r])
 
 
-def hec_init(cache_size: int, ways: int, dim: int,
-             device: torch.device) -> HECState:
+def hec_init(cache_size: int, ways: int, dim: int, device: torch.device,
+             num_ranks: Optional[int] = None) -> HECState:
+    """An empty cache, or ``num_ranks`` of them stacked on a leading axis."""
     if cache_size % ways:
         raise ValueError(f"cache_size {cache_size} is not a multiple of "
                          f"ways {ways}")
     nsets = cache_size // ways
+    lead = () if num_ranks is None else (num_ranks,)
     return HECState(
-        tags=torch.full((nsets, ways), -1, dtype=torch.int32, device=device),
-        age=torch.zeros((nsets, ways), dtype=torch.int32, device=device),
-        values=torch.zeros((nsets, ways, dim), dtype=torch.float32,
+        tags=torch.full(lead + (nsets, ways), -1, dtype=torch.int32,
+                        device=device),
+        age=torch.zeros(lead + (nsets, ways), dtype=torch.int32,
+                        device=device),
+        values=torch.zeros(lead + (nsets, ways, dim), dtype=torch.float32,
                            device=device))
 
 
@@ -95,6 +105,7 @@ def hec_store(state: HECState, vids: torch.Tensor, embs: torch.Tensor,
     n = vids.shape[0]
     if n == 0:
         return state
+    valid = valid.to(state.tags.device)
     dev = state.tags.device
     vids = vids.to(device=dev, dtype=torch.int64)
     s = set_index(vids, nsets)                              # [n] int64
@@ -150,6 +161,7 @@ def hec_clone(state: HECState) -> HECState:
 
 
 def hec_occupancy(state: HECState) -> float:
+    """Filled share of the lines (of every rank's, for a stacked state)."""
     return float((state.tags >= 0).float().mean())
 
 
@@ -166,7 +178,19 @@ class ServeCacheConfig:
 
 
 class EmbeddingCache:
-    """Per-layer HEC states + host residency mirror + counters (one rank).
+    """Per-layer HEC states + host residency mirror + counters.
+
+    Two policies, selected by construction:
+
+      * ``ps=None`` — ONE state per layer, tags in the local vertex id
+        space (single-partition serving),
+      * ``ps=PartitionSet`` — per layer one state stacked ``[R, ...]`` on a
+        leading rank axis (``HECState.rank(r)`` is rank r's cache), tags
+        are **VID_o** so a shard caches embeddings of vertices it does
+        *not* own (fetched halos stop traveling), with per-shard
+        residency mirrors, owner-routed ``warm`` and halo counters.
+
+    Shared semantics:
 
       * no life-span ticks: entries stay valid until evicted (OCF within a
         set) or dropped by a model-version bump (``on_model_update``),
@@ -174,21 +198,34 @@ class EmbeddingCache:
         every store batch (``sync_host``), and all lookups of a microbatch
         precede all of its stores — so a sampling leaf decided from the
         mirror is always backed by a device hit,
-      * hit/miss/occupancy counters.
+      * hit/miss/occupancy (and, stacked, halo-gather) counters.
     """
 
     def __init__(self, dims: Sequence[int], num_vertices: int,
-                 cfg: Optional[ServeCacheConfig] = None,
+                 cfg: Optional[ServeCacheConfig] = None, ps=None,
                  device: DeviceLike = None):
         self.cfg = cfg or ServeCacheConfig()
         self.dims = list(dims)                 # dims of h^1 .. h^L
-        self.num_vertices = num_vertices
+        self.num_vertices = num_vertices       # tag space (global V if ps)
+        self.ps = ps
+        self.num_ranks = ps.num_parts if ps is not None else None
         self.device = resolve_device(device)
         self.model_version = 0
+        if ps is not None:
+            self._vid_p_to_o = [p.vid_p_to_o() for p in ps.parts]
         self._reset_states()
         self.hits = np.zeros(len(dims), np.int64)
         self.lookups = np.zeros(len(dims), np.int64)
         self.fast_path_hits = 0                # queries answered w/o compute
+        self.halo_seen = 0          # halo rows at hidden layers (h^k needed)
+        self.halo_local = 0         # answered from the local shard's cache
+        self.halo_fetched = 0       # answered by the owner via all_to_all
+        self.halo_requested = 0     # rows that actually traveled
+        self.halo_l0 = 0            # layer-0 rows served by the feature mirror
+
+    @property
+    def stacked(self) -> bool:
+        return self.num_ranks is not None
 
     @property
     def num_layers(self) -> int:
@@ -197,39 +234,94 @@ class EmbeddingCache:
     def init_states(self) -> List[HECState]:
         """Fresh (empty) states — also the disabled-cache baseline."""
         c = self.cfg
-        return [hec_init(c.cache_size, c.ways, d, self.device)
-                for d in self.dims]
+        return [hec_init(c.cache_size, c.ways, d, self.device,
+                         num_ranks=self.num_ranks) for d in self.dims]
 
     def _reset_states(self):
         self.states = self.init_states()
-        self.resident = [np.zeros(self.num_vertices, bool) for _ in self.dims]
+        shape = (self.num_ranks, self.num_vertices) if self.stacked \
+            else (self.num_vertices,)
+        self.resident = [np.zeros(shape, bool) for _ in self.dims]
 
-    def sync_host(self):
-        """Rebuild the host residency flags from the device tags."""
+    def sync_host(self, tags: Optional[Sequence[np.ndarray]] = None):
+        """Rebuild the host residency flags from the device tags (``tags``:
+        host copies of every layer's tags, when the caller already holds
+        them)."""
         V = self.num_vertices
-        for k, st in enumerate(self.states):
-            tags = st.tags.cpu().numpy().ravel()
-            flags = np.zeros(V, bool)
-            flags[tags[(tags >= 0) & (tags < V)]] = True
+        if tags is None:
+            tags = [st.tags.cpu().numpy() for st in self.states]
+        for k, t in enumerate(tags):
+            if self.stacked:
+                t = np.asarray(t).reshape(self.num_ranks, -1)
+                flags = np.zeros((self.num_ranks, V), bool)
+                for r in range(self.num_ranks):
+                    tr = t[r][(t[r] >= 0) & (t[r] < V)]
+                    flags[r, tr] = True
+            else:
+                t = np.asarray(t).ravel()
+                flags = np.zeros(V, bool)
+                flags[t[(t >= 0) & (t < V)]] = True
             self.resident[k] = flags
 
-    def expandable_masks(self) -> List[Optional[np.ndarray]]:
+    def expandable_masks(self, rank: Optional[int] = None) \
+            -> List[Optional[np.ndarray]]:
         """``expandable[k]`` for ``sample_blocks_vectorized``: a node at
-        layer ``k`` is a leaf iff its ``h^k`` is cache-resident."""
+        layer ``k`` is a leaf iff its ``h^k`` is cache-resident.  A stacked
+        cache takes the shard's ``rank``: its masks are over that shard's
+        VID_p space (a resident halo additionally skips the wire)."""
         if not self.cfg.enabled:
             return [None] * (self.num_layers + 1)
-        return [None] + [~r for r in self.resident]
+        if rank is None:
+            if self.stacked:
+                raise ValueError("a stacked cache needs a shard rank")
+            return [None] + [~r for r in self.resident]
+        vo = self._vid_p_to_o[rank]
+        return [None] + [~r[rank][vo] for r in self.resident]
+
+    def output_resident(self, rank: int, vid_o: int) -> bool:
+        """Router fast path: is the final-layer embedding on the shard?"""
+        if not self.stacked:
+            raise ValueError("output_resident is per shard (stacked only)")
+        return bool(self.resident[self.num_layers - 1][rank, vid_o])
 
     def warm(self, embeddings: Sequence[torch.Tensor], vids,
-             chunk: int = 4096) -> int:
-        """Store offline embeddings (``[V, d_k]`` per layer) of ``vids`` into
-        every layer, ``chunk`` vertices per store batch; returns the number
-        of vertices stored per layer."""
+             chunk: int = 4096, layers: Optional[Sequence[int]] = None) -> int:
+        """Store offline embeddings (``[V, d_k]`` per layer) of ``vids``,
+        ``chunk`` vertices per store batch; returns the number of vertices
+        stored per layer.  ``layers`` restricts which cache layers are
+        warmed (default: all).  A stacked cache routes each vertex to its
+        owner's shard, ``chunk`` per shard per batch."""
+        layer_set = set(range(len(self.dims))) if layers is None \
+            else set(layers)
         vids = np.asarray(vids, np.int64)
-        for k, emb in enumerate(embeddings):
-            for s in range(0, len(vids), chunk):
-                v = torch.as_tensor(vids[s:s + chunk], device=emb.device)
-                hec_store(self.states[k], v, emb[v])
+        if not self.stacked:
+            for k, emb in enumerate(embeddings):
+                if k not in layer_set:
+                    continue
+                for s in range(0, len(vids), chunk):
+                    v = torch.as_tensor(vids[s:s + chunk], device=emb.device)
+                    hec_store(self.states[k], v, emb[v])
+            self.sync_host()
+            return len(vids)
+        owner, _ = self.ps.route(vids) if len(vids) else (
+            np.empty(0, np.int64), np.empty(0, np.int64))
+        per_rank = [vids[owner == r] for r in range(self.num_ranks)]
+        rounds = max((len(v) for v in per_rank), default=0)
+        for s in range(0, max(rounds, 1), chunk):
+            batch = np.full((self.num_ranks, chunk), -1, np.int64)
+            for r, pv in enumerate(per_rank):
+                seg = pv[s:s + chunk]
+                batch[r, :len(seg)] = seg
+            if not (batch >= 0).any():
+                continue
+            for k, emb in enumerate(embeddings):
+                if k not in layer_set:
+                    continue
+                emb = torch.as_tensor(emb)
+                for r in range(self.num_ranks):
+                    b = torch.as_tensor(batch[r], device=emb.device)
+                    vals = emb[b.clamp(min=0)] * (b >= 0)[:, None]
+                    hec_store(self.states[k].rank(r), b, vals)
         self.sync_host()
         return len(vids)
 
@@ -240,15 +332,42 @@ class EmbeddingCache:
             obs.count("serve_cache_hits", int(hits[k]), layer=k + 1)
             obs.count("serve_cache_lookups", int(lookups[k]), layer=k + 1)
 
+    def record_halo(self, stats: dict):
+        """Accumulate a serve round's per-rank halo-gather counters."""
+        if not self.stacked:
+            raise ValueError("halo counters are per shard (stacked only)")
+        for name in ("halo_seen", "halo_local", "halo_fetched",
+                     "halo_requested", "halo_l0"):
+            n = int(np.sum(stats[name]))
+            setattr(self, name, getattr(self, name) + n)
+            obs.count(f"serve_{name}", n)
+
     def reset_counters(self):
-        """Zero hit/lookup/fast-path counters (cache contents untouched)."""
+        """Zero hit/lookup/fast-path/halo counters (cache contents
+        untouched)."""
         self.hits[:] = 0
         self.lookups[:] = 0
         self.fast_path_hits = 0
+        self.halo_seen = self.halo_local = 0
+        self.halo_fetched = self.halo_requested = self.halo_l0 = 0
+
+    def occupancy(self) -> List[float]:
+        return [hec_occupancy(st) for st in self.states]
 
     def metrics(self) -> dict:
         out = {"model_version": self.model_version,
                "fast_path_hits": self.fast_path_hits}
+        if self.stacked:
+            out.update({
+                "num_shards": self.num_ranks,
+                "halo_seen": self.halo_seen,
+                "halo_local_hits": self.halo_local,
+                "halo_fetched": self.halo_fetched,
+                "halo_requested": self.halo_requested,
+                "halo_l0_mirror": self.halo_l0,
+                "cached_halo_frac": (
+                    self.halo_local / self.halo_seen if self.halo_seen
+                    else 0.0)})
         for k in range(self.num_layers):
             layer = k + 1
             out[f"hits_l{layer}"] = int(self.hits[k])
@@ -259,7 +378,8 @@ class EmbeddingCache:
         return out
 
     def on_model_update(self) -> int:
-        """Model-version bump: every cached embedding is stale — drop all."""
+        """Model-version bump: every cached embedding (on every shard, if
+        stacked) is stale — drop all."""
         self.model_version += 1
         self._reset_states()
         return self.model_version

@@ -1,6 +1,7 @@
-"""HaloExchangeEngine: the AEP push of training (own copy of the ``aep``
-part of ``repro/comm/engine.py``; paper Algorithm 2, lines 8-9 and
-14-24).
+"""HaloExchangeEngine: every cross-rank embedding movement of the port
+(own copy of the parts of ``repro/comm/engine.py`` it runs).
+
+The AEP push of training (paper Algorithm 2, lines 8-9 and 14-24):
 
   * ``select_push`` (per rank): up to ``nc`` solid rows per remote rank,
     chosen from the static push contract (``push_mask``) by the largest
@@ -17,28 +18,55 @@ The reference draws the selection uniforms inside ``select_push`` from
 reproduce, so here they are an argument: the trainer passes the
 reference's draws in the tests and a per-(step, rank) torch generator
 otherwise.  The HEC states are updated in place.
+
+Serving:
+
+  * ``cache_fetch`` (all ranks): one request/response all_to_all pair
+    answering the halo rows a rank still needs at a hidden layer from
+    their owners' layer-k caches — per owner the lowest ``need``
+    positions up to the slot budget, the request all_to_all, the
+    responders' probe (kernel J, one launch for every responder), the
+    response all_to_all and the scatter back.
+  * ``exchange_halos_host``: one exact halo exchange of distributed
+    offline inference, through the plan's gather/scatter indices.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.cache import hec as hec_lib
 from repro_torch.comm.collective import StackedCollective
+from repro_torch.comm.plan import ExchangePlan, build_exchange_plan
 from repro_torch.core import aep
+from repro_torch.kernels.hec_search import hec_probe
 
 
 class HaloExchangeEngine:
-    """The AEP push over a collective backend."""
+    """Halo communication over a collective backend; built with
+    :meth:`from_partition` it also carries the partition's
+    :class:`ExchangePlan` (the offline exchange's indices)."""
 
-    def __init__(self, num_ranks: int, num_layers: int, push_limit: int,
-                 delay: int, comm: StackedCollective):
+    def __init__(self, num_ranks: int, num_layers: int = 1,
+                 push_limit: int = 1, delay: int = 1,
+                 comm: Optional[StackedCollective] = None,
+                 plan: Optional[ExchangePlan] = None):
         self.num_ranks = num_ranks
         self.num_layers = num_layers
-        self.push_limit = push_limit     # nc: slots per rank pair
+        self.push_limit = push_limit     # nc (push) / slots (fetch) per pair
         self.delay = delay               # d: steps between push and consume
-        self.comm = comm
+        self.comm = comm if comm is not None else StackedCollective(num_ranks)
+        self.plan = plan
+        self._plan_index = {}            # device -> offline exchange indices
+
+    @classmethod
+    def from_partition(cls, ps, num_layers: int = 1, push_limit: int = 1,
+                       delay: int = 1,
+                       comm: Optional[StackedCollective] = None):
+        return cls(ps.num_parts, num_layers, push_limit, delay, comm,
+                   plan=build_exchange_plan(ps))
 
     def inflight_init(self, dim_max: int, device) -> List[dict]:
         """One ``[d, R, L, nc(, dmax)]`` in-flight queue per rank."""
@@ -129,3 +157,108 @@ class HaloExchangeEngine:
             tl = inflight["tags"][0, :, l].reshape(-1)
             el = inflight["embs"][0, :, l, :, :dims[l]].reshape(-1, dims[l])
             hec_lib.hec_store(hec[l], tl, el)
+
+    # -- serve-side cache fetch (all ranks) -----------------------------------
+    def cache_fetch(self, state: hec_lib.HECState, vids_o: torch.Tensor,
+                    owner: torch.Tensor, need: torch.Tensor, h: torch.Tensor,
+                    slots: Optional[int] = None, rounds: int = 1,
+                    alive: Optional[torch.Tensor] = None):
+        """One request/response all_to_all pair answering every rank's
+        ``need`` rows from their owners' layer-k caches.
+
+        ``state`` is the layer's rank-stacked cache (``tags [R, nsets,
+        ways]``); per rank ``vids_o``/``owner`` ``[R, N]`` (VID_o and owner
+        rank of each row), ``need [R, N]`` bool and ``h [R, N, d]``.
+        Returns ``(h, got [R, N], requested [R])``: ``h`` with the
+        answered rows substituted, which rows were answered, and how many
+        rows each rank requested.
+
+        Per (requester, owner) the request takes the LOWEST ``need``
+        positions owned there, in ascending order, up to ``nslots =
+        min(slots * rounds, N)`` (``slots`` defaults to ``push_limit``) —
+        the rows ``lax.top_k`` of descending priorities picks in the
+        reference; rows past the budget drop.  ``rounds=N`` pools the
+        budgets of N fused serve rounds.  Pad slots carry -1 and scatter
+        to position N, where they drop.  ``alive [R]`` bool, if given,
+        suppresses requests to a dead owner and makes a dead responder
+        answer nothing; all-True computes the same as ``None``."""
+        R = self.num_ranks
+        N, d = h.shape[1], h.shape[2]
+        dev = h.device
+        nslots = min((slots or self.push_limit) * rounds, N)
+        ranks = torch.arange(R, device=dev)
+        want = need[:, None, :] & (owner[:, None, :] == ranks[None, :, None])
+        if alive is not None:
+            want = want & alive[None, :, None]
+        # slot of each wanted row: its rank among the wanted rows of its
+        # (requester, owner) pair; unwanted and over-budget rows go to a
+        # trash column (nslots) that is cut off
+        order = want.to(torch.int64).cumsum(-1) - 1
+        take = want & (order < nslots)
+        col = torch.where(take, order, nslots)
+        req = torch.full((R, R, nslots + 1), -1, dtype=torch.int32,
+                         device=dev)
+        req.scatter_(2, col, torch.where(take, vids_o[:, None, :].to(
+            torch.int32), -1))
+        pos = torch.full((R, R, nslots + 1), N, dtype=torch.int64,
+                         device=dev)
+        pos.scatter_(2, col, torch.where(
+            take, torch.arange(N, device=dev).expand(R, R, N), N))
+        req = req[..., :nslots].contiguous()             # [R_s, R_j, nslots]
+        pos = pos[..., :nslots]
+        got_req = self.comm.all_to_all(req)              # [R_j, R_s, nslots]
+        # every responder's probe in ONE launch, packed [values | ok]
+        resp = self.comm.all_to_all(
+            hec_probe(state.tags, state.values, got_req, alive))
+        r_ok = resp[..., d] > 0.5                        # [R_s, R_j, nslots]
+        r_vals = resp[..., :d] * r_ok[..., None]
+        # rows requested from distinct owners occupy distinct positions;
+        # every pad slot lands on column N, which is cut off
+        flat = pos.reshape(R, R * nslots)
+        fetched = torch.zeros((R, N + 1, d), dtype=h.dtype, device=dev)
+        fetched.scatter_(1, flat[..., None].expand(R, R * nslots, d),
+                         r_vals.reshape(R, R * nslots, d).to(h.dtype))
+        got = torch.zeros((R, N + 1), dtype=torch.bool, device=dev)
+        got.scatter_(1, flat, r_ok.reshape(R, R * nslots))
+        got = got[:, :N]
+        h = torch.where(got[..., None], fetched[:, :N], h)
+        return h, got, (req >= 0).sum(dim=(1, 2))
+
+    # -- exact offline exchange -----------------------------------------------
+    def exchange_halos_host(self, h_solid: Sequence[torch.Tensor]) \
+            -> Tuple[List[torch.Tensor], int]:
+        """One exact halo exchange: every rank receives the current-layer
+        embeddings of its halo replicas from their owners.  Pair (i, j)
+        moves exactly ``db_halo(i, j)`` rows through the plan's gather and
+        scatter indices (on the device of ``h_solid``).  Returns per-rank
+        halo rows (aligned with ``part.halo_vids``) and the bytes moved
+        (payload + 4-byte vid tags)."""
+        if self.plan is None or self.plan.send_local is None:
+            raise ValueError("needs an engine built with from_partition")
+        plan = self.plan
+        R = self.num_ranks
+        dev = h_solid[0].device
+        idx = self._plan_index.get(dev)
+        if idx is None:
+            t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+            idx = self._plan_index[dev] = (
+                [[t(a) for a in row] for row in plan.send_local],
+                [[t(a) for a in row] for row in plan.recv_pos])
+        send, recv = idx
+        dim = h_solid[0].shape[1]
+        rows_out: List[torch.Tensor] = []
+        nbytes = 0
+        with obs.span("offline_exchange"):
+            for j in range(R):
+                rows = torch.zeros((int(plan.num_halo[j]), dim),
+                                   dtype=torch.float32, device=dev)
+                for i in range(R):
+                    if i == j or not len(plan.send_local[i][j]):
+                        continue
+                    payload = h_solid[i][send[i][j]]
+                    rows[recv[i][j]] = payload
+                    nbytes += payload.numel() * payload.element_size() \
+                        + len(plan.send_local[i][j]) * 4
+                rows_out.append(rows)
+        obs.count("offline_exchange_bytes", nbytes)
+        return rows_out, nbytes

@@ -59,6 +59,19 @@ class PartitionSet:
     def num_parts(self) -> int:
         return len(self.parts)
 
+    def route(self, vids: np.ndarray):
+        """O(1) owner routing: ``(owner_rank, local_index)`` per VID_o —
+        one gather each into the ``owner`` / ``local_index`` tables;
+        ``local_index[v]`` is the solid VID_p of ``v`` inside
+        ``parts[owner[v]]``.  Out-of-range vids raise (a negative index
+        would otherwise wrap around and route to the wrong owner)."""
+        vids = np.asarray(vids)
+        if len(vids) and (vids.min() < 0 or vids.max() >= len(self.owner)):
+            raise ValueError(
+                f"vid out of range [0, {len(self.owner)}): "
+                f"{vids[(vids < 0) | (vids >= len(self.owner))][:5]}")
+        return self.owner[vids], self.local_index[vids]
+
     def db_halo(self, i: int, j: int) -> np.ndarray:
         """VID_o owned by rank i that rank j holds as halos (sorted)."""
         pj = self.parts[j]

@@ -142,6 +142,32 @@ def hec_lookup_ref(tags: torch.Tensor, values: torch.Tensor,
     return hit, s.to(torch.int32), way.to(torch.int32), emb
 
 
+def hec_probe_ref(tags: torch.Tensor, values: torch.Tensor,
+                  vids: torch.Tensor,
+                  alive: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batched HECSearch + HECLoad of R stacked responder caches, packed as
+    the response buffer of a serve-side cache fetch: ``tags [R, nsets,
+    ways]``, ``values [R, nsets, ways, d]``, ``vids [R, B, n]`` ->
+    ``[R, B, n, d + 1]`` float32.  Columns ``:d`` are responder r's
+    ``hec_lookup_ref`` row of each vid (zeros on a miss), column ``d`` is
+    1.0 where it hit and ``alive[r]`` holds (a dead responder answers
+    nothing), else 0.0: the reference's ``hec_probe`` followed by its
+    concatenate of the values and the ok flag."""
+    R, B, n = vids.shape
+    d = values.shape[-1]
+    rows = []
+    for r in range(R):
+        hit, _, _, emb = hec_lookup_ref(tags[r], values[r],
+                                        vids[r].reshape(-1))
+        ok = hit if alive is None else hit & alive[r]
+        rows.append(torch.cat([emb, ok[:, None].to(emb.dtype)], 1)
+                    .reshape(B, n, d + 1))
+    if not rows:
+        return torch.zeros((0, B, n, d + 1), dtype=values.dtype,
+                           device=values.device)
+    return torch.stack(rows)
+
+
 def _slot_blocks(M: int, f: int, width: int, limit: int = 1 << 28):
     """Slices of the fanout such that a gathered ``[M, block, width]``
     tensor holds at most ``limit`` elements (at least one slot each): few

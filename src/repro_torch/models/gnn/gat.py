@@ -174,6 +174,15 @@ class GAT(nn.Module):
         return h, valid
 
     @torch.no_grad()
+    def serve_layer(self, k: int, h: torch.Tensor, nbr_idx: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+        """Serving layer ``k`` alone (projection, then one GAT AGG
+        launch): ``h [N_src, d_k]`` -> ``[N_dst, H * dh]``, dst rows the
+        prefix of the source rows; what :meth:`forward` computes per
+        layer."""
+        return self.layers[k](h, nbr_idx, valid)
+
+    @torch.no_grad()
     def forward(self, h0: torch.Tensor, valid0: torch.Tensor,
                 blocks: dict, halo_hook: Optional[HaloHook] = None):
         """Serving forward (no gradient, no dropout), with the contract of

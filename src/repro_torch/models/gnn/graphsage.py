@@ -9,7 +9,9 @@ Two forwards, as the reference keeps its serving kernel apart from
 ``graphsage.forward``:
 
 * :meth:`GraphSAGE.forward` serves (no gradient, no dropout): one call of
-  the fused serve-layer kernel per layer (``kernels/serve_fused.py``).
+  the fused serve-layer kernel per layer (``kernels/serve_fused.py``),
+  :meth:`GraphSAGE.serve_layer`, which the sharded scheduler calls layer
+  by layer for every rank.
 * :meth:`GraphSAGE.train_forward` trains: per layer the AGG kernel
   (``kernels/sage_agg.py``) and then the UPDATE kernel with the hash
   dropout (``kernels/update_fused.py``), both differentiable, layer ``k``
@@ -125,6 +127,16 @@ class GraphSAGE(nn.Module):
         return self
 
     @torch.no_grad()
+    def serve_layer(self, k: int, h: torch.Tensor, nbr_idx: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+        """Serving layer ``k`` alone (one fused serve-layer launch): ``h
+        [N_src, d_k]`` -> ``[N_dst, d_{k+1}]``, dst rows the prefix of the
+        source rows; no ReLU on the last layer."""
+        layer = self.layers[k]
+        return serve_fused_layer(h, nbr_idx, valid, layer.wn, layer.ws,
+                                 layer.b, relu=k < self.num_layers - 1)
+
+    @torch.no_grad()
     def forward(self, h0: torch.Tensor, valid0: torch.Tensor,
                 blocks: dict, halo_hook: Optional[HaloHook] = None):
         """h0 [N_0, F] input-layer features; valid0 [N_0] bool.
@@ -137,11 +149,10 @@ class GraphSAGE(nn.Module):
         if halo_hook is not None:
             h, valid = halo_hook(0, h, valid)
         L = self.num_layers
-        for k, layer in enumerate(self.layers):
+        for k in range(L):
             nbr = blocks["nbr_idx"][k]
             last = k == L - 1
-            h_new = serve_fused_layer(h, nbr, valid, layer.wn, layer.ws,
-                                      layer.b, relu=not last)
+            h_new = self.serve_layer(k, h, nbr, valid)
             valid = valid[:nbr.shape[0]]
             if halo_hook is not None and not last:
                 h_new, valid = halo_hook(k + 1, h_new, valid)

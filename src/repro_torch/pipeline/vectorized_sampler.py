@@ -1,6 +1,7 @@
 """Vectorized CSR neighbor sampler (own numpy copy of
 ``repro/pipeline/vectorized_sampler.py``: ``_draw_neighbors``,
-``sample_blocks_vectorized``, ``DeviceSampler`` and ``stack_ranks``).
+``sample_blocks_vectorized``, ``DeviceSampler``, ``concat_blocks`` and
+``stack_ranks``).
 
 Produces the fixed-shape ``MinibatchBlocks`` contract with no per-row
 Python loops:
@@ -267,6 +268,77 @@ class DeviceSampler:
                 out = host.copy_(out, non_blocking=True)
             self._sync()
         return out.numpy().astype(np.int64)
+
+
+def _segment_perms(n_seg: int, caps: Sequence[int]) -> List[np.ndarray]:
+    """Per-layer node permutations fusing ``n_seg`` equal-capacity blocks
+    while keeping each layer's dst nodes a prefix of the finer layer.
+
+    ``perms[k][i * caps[k] + p]`` is the fused position of segment ``i``'s
+    layer-``k`` node ``p``.  Layer L (seeds) is a plain concatenation;
+    going finer, a dst node (``p < caps[k+1]``) goes wherever its coarser
+    copy went, and the extras of all segments follow after every dst
+    node."""
+    L = len(caps) - 1
+    perms: List[np.ndarray] = [None] * (L + 1)
+    perms[L] = np.arange(n_seg * caps[L])
+    for k in range(L - 1, -1, -1):
+        i = np.repeat(np.arange(n_seg), caps[k])
+        p = np.tile(np.arange(caps[k]), n_seg)
+        dst = p < caps[k + 1]
+        coarse = perms[k + 1][i * caps[k + 1] + np.minimum(p, caps[k + 1] - 1)]
+        extra = caps[k] - caps[k + 1]
+        perms[k] = np.where(
+            dst, coarse,
+            n_seg * caps[k + 1] + i * extra + (p - caps[k + 1]))
+    return perms
+
+
+def concat_blocks(mbs: Sequence[MinibatchBlocks]) -> MinibatchBlocks:
+    """Fuse N equal-shape minibatches into ONE block-diagonal minibatch
+    (round batching: N serve rounds run as one step, so each hidden
+    layer's halo fetch is one collective pair).
+
+    Per layer, node arrays are permuted so that every coarser layer is
+    still a prefix of the finer one (what the forward relies on for
+    ``h[:n_dst]``), and ``nbr_idx`` positions are remapped through the
+    same permutation: the fused forward computes, row for row, what the N
+    separate forwards would."""
+    if len(mbs) == 1:
+        return mbs[0]
+    N = len(mbs)
+    L = mbs[0].num_layers
+    caps = [len(x) for x in mbs[0].layer_nodes]         # per-segment caps
+    if not all([len(x) for x in m.layer_nodes] == caps for m in mbs):
+        raise ValueError("concat_blocks needs minibatches of equal shape")
+    perms = _segment_perms(N, caps)
+
+    layer_nodes, node_mask, nbr_idx = [], [], []
+    for k in range(L + 1):
+        ln = np.concatenate([m.layer_nodes[k] for m in mbs])
+        nm = np.concatenate([m.node_mask[k] for m in mbs])
+        out_ln = np.empty_like(ln)
+        out_nm = np.empty_like(nm)
+        out_ln[perms[k]] = ln
+        out_nm[perms[k]] = nm
+        layer_nodes.append(out_ln)
+        node_mask.append(out_nm)
+    for k in range(L):
+        # rows follow the (new) order of the coarser layer k+1; position
+        # values are segment-local -> remap through layer k's permutation
+        rows = np.concatenate(
+            [np.where(m.nbr_idx[k] >= 0,
+                      perms[k][i * caps[k]
+                               + np.maximum(m.nbr_idx[k], 0)], -1)
+             for i, m in enumerate(mbs)])
+        out = np.empty_like(rows)
+        out[perms[k + 1]] = rows
+        nbr_idx.append(out)
+    return MinibatchBlocks(
+        layer_nodes=layer_nodes, node_mask=node_mask, nbr_idx=nbr_idx,
+        seeds=np.concatenate([m.seeds for m in mbs]),
+        seed_mask=np.concatenate([m.seed_mask for m in mbs]),
+        labels=np.concatenate([m.labels for m in mbs]))
 
 
 def stack_ranks(mbs: Sequence[MinibatchBlocks]) -> Dict:

@@ -1,5 +1,5 @@
 """Cache pre-warm policies (numpy): which vertices deserve offline
-embeddings — counterpart of ``repro/serve/gnn/prewarm.py``, one rank.
+embeddings — counterpart of ``repro/serve/gnn/prewarm.py``.
 
   * **degree** — highest-degree vertices first: hubs appear in a
     disproportionate share of sampled neighborhoods, so caching them buys
@@ -55,3 +55,21 @@ def select_prewarm_vids(parts: Sequence[Partition], policy: str = "degree",
     raise ValueError(f"unknown prewarm policy {policy!r} "
                      f"(expected 'degree' or 'query_log')")
 
+
+
+def prewarm(srv, policy: str = "degree", frac: Optional[float] = None,
+            query_log: Optional[Sequence[int]] = None,
+            chunk_size: int = 2048) -> int:
+    """Distributed offline inference + policy-selected warm of a sharded
+    scheduler (``DistGNNServeScheduler``): each vid lands on its owner's
+    shard, and the hot tier's replicas take the whole hot set from the
+    same offline pass.  Returns the number of vertices warmed per
+    layer."""
+    from repro_torch.serve.gnn.distributed.offline import \
+        layerwise_embeddings_dist
+    vids = select_prewarm_vids(srv.ps.parts, policy, frac, query_log)
+    embs = layerwise_embeddings_dist(srv.cfg, srv.model, srv.ps,
+                                     chunk_size=chunk_size)
+    if srv.hot is not None:
+        srv.hot.warm(embs)
+    return srv.cache.warm(embs, vids)

@@ -28,7 +28,9 @@ version, dropping every cached embedding.
 Admission control (``max_queue_depth``: ``submit`` raises
 ``AdmissionRejected``), per-request latency p50/p99 and cross-query dedup
 (``dedup=True``: same-vid queries pending together share one slot) follow
-the reference.  The health and quality planes are not ported yet.
+the reference; :class:`ServeFrontend` holds the request lifecycle the
+sharded scheduler (``serve/gnn/distributed``) shares.  The health and
+quality planes are not ported yet.
 """
 from __future__ import annotations
 
@@ -80,7 +82,59 @@ class GNNRequest:
         return self.result is not None
 
 
-class GNNServeScheduler:
+class ServeFrontend:
+    """Request lifecycle shared by the single-rank and sharded schedulers:
+    admission control, latency stamping, served/rejected counters."""
+
+    def _init_frontend(self):
+        self._rid = 0
+        self._mb_counter = 0
+        self.latency = obs.Histogram()
+        self.reset_frontend()
+
+    def reset_frontend(self):
+        """Zero steps/served/rejected counters and the latency window
+        (request ids keep advancing; queued requests are untouched)."""
+        self.steps_run = 0
+        self.queries_served = 0
+        self.queries_rejected = 0
+        self.dedup_merged = 0          # queries answered by a shared slot
+        self.latency.reset()
+
+    def _admit(self, vid: int, queue_depth: int) -> GNNRequest:
+        """A new request, or ``AdmissionRejected`` when the queue is at
+        ``max_queue_depth``."""
+        cap = self.scfg.max_queue_depth
+        if cap is not None and queue_depth >= cap:
+            self.queries_rejected += 1
+            raise AdmissionRejected(
+                f"queue at max_queue_depth={cap}; query {int(vid)} rejected")
+        req = GNNRequest(rid=self._rid, vid=int(vid),
+                         t_submit=time.perf_counter())
+        self._rid += 1
+        return req
+
+    def _finish(self, req: GNNRequest, result: np.ndarray, served_by: str):
+        req.result = result
+        req.model_version = self.cache.model_version
+        req.served_by = served_by
+        req.t_done = time.perf_counter()
+        self.latency.observe(req.t_done - req.t_submit)
+        obs.observe("serve_latency_s", req.t_done - req.t_submit,
+                    subsystem="serve")
+        self.queries_served += 1
+
+    def _frontend_metrics(self, queue_depth: int) -> dict:
+        out = {"steps_run": self.steps_run,
+               "queries_served": self.queries_served,
+               "queries_rejected": self.queries_rejected,
+               "dedup_merged": self.dedup_merged,
+               "queue_depth": queue_depth}
+        out.update(self.latency.metrics())
+        return out
+
+
+class GNNServeScheduler(ServeFrontend):
     def __init__(self, cfg, model, part: Partition,
                  serve_cfg: Optional[GNNServeConfig] = None,
                  device: DeviceLike = None):
@@ -96,41 +150,13 @@ class GNNServeScheduler:
         self.cache = ServingCache(serve_layer_dims(cfg), part.num_solid,
                                   self.scfg.cache, device=self.device)
         self.queue: deque[GNNRequest] = deque()
-        self._rid = 0
-        self._mb_counter = 0
-        self.latency = obs.Histogram()
-        self.reset_frontend()
+        self._init_frontend()
 
     # -- request lifecycle ---------------------------------------------------
-    def reset_frontend(self):
-        """Zero steps/served/rejected counters and the latency window."""
-        self.steps_run = 0
-        self.queries_served = 0
-        self.queries_rejected = 0
-        self.dedup_merged = 0          # queries answered by a shared slot
-        self.latency.reset()
-
     def submit(self, vid: int) -> GNNRequest:
-        cap = self.scfg.max_queue_depth
-        if cap is not None and len(self.queue) >= cap:
-            self.queries_rejected += 1
-            raise AdmissionRejected(
-                f"queue at max_queue_depth={cap}; query {int(vid)} rejected")
-        req = GNNRequest(rid=self._rid, vid=int(vid),
-                         t_submit=time.perf_counter())
-        self._rid += 1
+        req = self._admit(vid, len(self.queue))
         self.queue.append(req)
         return req
-
-    def _finish(self, req: GNNRequest, result: np.ndarray, served_by: str):
-        req.result = result
-        req.model_version = self.cache.model_version
-        req.served_by = served_by
-        req.t_done = time.perf_counter()
-        self.latency.observe(req.t_done - req.t_submit)
-        obs.observe("serve_latency_s", req.t_done - req.t_submit,
-                    subsystem="serve")
-        self.queries_served += 1
 
     def pump(self) -> int:
         """Serve everything queued; returns microbatches executed."""
@@ -179,12 +205,7 @@ class GNNServeScheduler:
 
     def metrics(self) -> dict:
         out = self.cache.metrics()
-        out.update({"steps_run": self.steps_run,
-                    "queries_served": self.queries_served,
-                    "queries_rejected": self.queries_rejected,
-                    "dedup_merged": self.dedup_merged,
-                    "queue_depth": len(self.queue)})
-        out.update(self.latency.metrics())
+        out.update(self._frontend_metrics(len(self.queue)))
         return out
 
     # -- device step ---------------------------------------------------------

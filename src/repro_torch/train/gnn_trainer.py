@@ -82,7 +82,7 @@ def build_dist_data(ps: PartitionSet, cfg: GNNConfig, device) -> dict:
         "num_solid": t(np.array([p.num_solid for p in ps.parts], np.int32)),
         "vid_o": t(_pad_stack([p.vid_p_to_o().astype(np.int32)
                                for p in ps.parts], -1)),
-        **build_exchange_plan(ps).device_tables(device),
+        **build_exchange_plan(ps, host_indices=False).device_tables(device),
     }
 
 

@@ -11,7 +11,8 @@ Tolerance: the serve layer, UPDATE (forward and backward), AGG and GAT
 AGG sum float32 in another order than their plain versions, and the AGG
 and GAT AGG gradients add with atomics in a run-dependent order, so
 |kernel - plain| <= 1e-4 * max(1, |plain|); the dropout's zero pattern,
-the HEC probe + load and the fanout draw are held bit for bit.
+the HEC probe + load (single and batched) and the fanout draw are held
+bit for bit.
 """
 import numpy as np
 import pytest
@@ -100,6 +101,98 @@ def test_hec_kernel_bitmatches_plain(dev, cache_size, ways, d):
             g, w = g.view(torch.int32), w.view(torch.int32)
         assert torch.equal(g, w)
     assert bool(got[0].any()) and not bool(got[0][:4].any())
+
+
+def stacked_state(dev, seed, R, cache_size, ways, d):
+    """R filled caches stacked on a leading rank axis."""
+    parts = [filled_state(dev, seed + r, cache_size, ways, d)
+             for r in range(R)]
+    return hec.HECState(tags=torch.stack([p.tags for p in parts]),
+                        age=torch.stack([p.age for p in parts]),
+                        values=torch.stack([p.values for p in parts]))
+
+
+@pytest.mark.parametrize("R,B,n,cache_size,ways,d,dead", [
+    (4, 4, 1024, 65536, 8, 256, None), (4, 4, 1024, 65536, 8, 1024, None),
+    (4, 4, 77, 4096, 8, 172, 2), (3, 2, 33, 256, 4, 5, 0),
+    (1, 1, 1, 64, 32, 3, None)])
+def test_batched_probe_kernel_bitmatches_plain(dev, R, B, n, cache_size,
+                                               ways, d, dead):
+    """Kernel J == ``hec_probe_ref`` bit for bit: the cache fetch's shapes
+    (4 responders x 4 requesters x up to 1,024 slots at d 256 and 1,024)
+    and ragged ones (n off 32, d off 4, negative vids, a dead
+    responder)."""
+    st = stacked_state(dev, cache_size + d, R, cache_size, ways, d)
+    gen = torch.Generator(device="cpu").manual_seed(d + n)
+    vids = torch.randint(-3, 3 * cache_size, (R, B, n), generator=gen,
+                         dtype=torch.int32)
+    for r in range(R):                 # hits: each responder's own tags
+        own = st.tags[r].ravel().cpu()
+        own = own[own >= 0]
+        k = min(max(n // 2, 1), own.numel())
+        vids[r, 0, :k] = own[:k]
+    if B > 1:                          # edge vids in the last requester's
+        m = min(len(EDGE_VIDS), n)
+        vids[:, -1, :m] = torch.tensor(EDGE_VIDS[:m], dtype=torch.int32)
+    vids = vids.to(dev)
+    alive = None
+    if dead is not None:
+        alive = torch.ones(R, dtype=torch.bool, device=dev)
+        alive[dead] = False
+    before = hec_search.hec_probe.launches
+    got = hec_search.hec_probe(st.tags, st.values, vids, alive)
+    want = hec_search.hec_probe_ref(st.tags, st.values, vids, alive)
+    torch.cuda.synchronize()
+    assert hec_search.hec_probe.launches == before + 1
+    assert got.shape == want.shape == (R, B, n, d + 1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got[..., d] > 0).any())
+    if dead is not None:
+        assert not bool(got[dead, ..., d].any())
+
+
+def test_sharded_scheduler_on_card_matches_cpu(dev):
+    """The sharded serve path through the kernels (A, B, J) == the same
+    path through the plain versions, with the hot tier, dedup and round
+    batching on: answers within tolerance, counters, tags and ages
+    equal."""
+    from repro_torch.configs.gnn import small_gnn_config
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.models.gnn import build_model
+    from repro_torch.serve.gnn import ServeCacheConfig, prewarm
+    from repro_torch.serve.gnn.distributed import (DistGNNServeScheduler,
+                                                   DistServeConfig)
+    ps = partition_graph(synthetic_graph(num_vertices=1500, avg_degree=6,
+                                         num_classes=5, feat_dim=16, seed=1),
+                         4)
+    vids = np.random.default_rng(3).integers(0, 1500, 300)
+    for model in ("graphsage", "gat"):
+        cfg = small_gnn_config(model, feat_dim=16, num_classes=5,
+                               hidden_size=16, num_hidden_layers=2,
+                               fanouts=(3, 4, 5))
+        outs, servers = [], []
+        for device in (dev, torch.device("cpu")):
+            srv = DistGNNServeScheduler(
+                cfg, build_model(cfg, seed=7, device=device), ps,
+                DistServeConfig(num_slots=8, halo_slots=16, hot_size=64,
+                                dedup=True, round_batch=2,
+                                cache=ServeCacheConfig(cache_size=512,
+                                                       ways=4)),
+                device=device)
+            prewarm(srv, frac=0.1, chunk_size=256)
+            outs.append(np.concatenate([srv.serve(vids),
+                                        srv.serve(vids[::-1])]))
+            servers.append(srv)
+        assert close(torch.as_tensor(outs[0]), torch.as_tensor(outs[1]))
+        m_gpu, m_cpu = (s.metrics() for s in servers)
+        for k in m_cpu:
+            if not k.startswith("latency"):
+                assert m_gpu[k] == m_cpu[k], k
+        assert m_cpu["halo_fetched"] > 0 and m_cpu["hot_hits"] > 0
+        for a, b in zip(*(s.cache.states for s in servers)):
+            assert torch.equal(a.tags.cpu(), b.tags)
+        for a, b in zip(*(s.hot.states for s in servers)):
+            assert torch.equal(a.age.cpu(), b.age)
 
 
 def test_store_on_card_matches_cpu(dev):

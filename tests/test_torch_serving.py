@@ -398,6 +398,14 @@ def test_port_never_imports_jax_or_repro_ast():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    names = {str(f.relative_to(REPO / "src")) for f in files[:-1]}
+    assert {f"repro_torch/{m}.py" for m in (
+        "cache/hot_tier", "comm/engine", "comm/plan",
+        "pipeline/vectorized_sampler", "launch/gnn_serve_dist",
+        "serve/gnn/distributed/__init__", "serve/gnn/distributed/router",
+        "serve/gnn/distributed/sharded_cache",
+        "serve/gnn/distributed/offline",
+        "serve/gnn/distributed/scheduler")} <= names
     bad = {str(f.relative_to(REPO)): m for f in files
            for m in imported_modules(f) if forbidden(m)}
     assert not bad
