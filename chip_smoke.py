@@ -34,9 +34,12 @@ layer) and phase 8 at both:
      kernels, forward and backward (C-F), against their plain versions at
      the layer shapes of that run's minibatches and at a ragged shape, and
      the HEC probe at the training lookup shapes on the run's own caches,
-     timed with their bounds; (c) the first two steps of (b), from the
-     same state, minibatches and selection uniforms, once more on the card
-     and on the CPU through the plain versions: loss, gradients (Adam's
+     timed with their bounds, C with its 3xTF32 and FFMA bounds and a
+     float32 ``addmm`` yardstick; (c) the first two steps of (b), from
+     the same state (the reference's initial weights) and minibatches,
+     once more on the card and on the CPU through the plain versions,
+     each drawing the reference's selection uniforms (the card's draw
+     held bit-equal to the CPU's, and timed): loss, gradients (Adam's
      first moment), pushed tags and HEC tags held against each other;
   5. GAT serving, a third main path: the ``gnn_serve`` flow with ``--model
      gat --preset gat-papers100m --slots 64`` on phase 3's graph (cold
@@ -51,15 +54,18 @@ layer) and phase 8 at both:
      ``GAT_HEC_SIZE`` = 524,288 entries per layer (at 1M the epoch trains,
      but ``evaluate``'s clone of every HEC runs out of the card's memory),
      launch counts exact (per step G and H 3 per rank, per eval batch G 3
-     per rank); (a) G and H
-     against their plain versions at rank 0's three layer shapes and at a
-     ragged shape with an all-masked row, and the HEC probe at GAT's
+     per rank); (a) G and H against their plain versions at rank 0's
+     three layer shapes and at ragged shapes (an all-masked row; G's
+     column-split form at 45 rows and its chunked form at 400 slots),
+     each G row printed with the form it took, and the HEC probe at GAT's
      training widths, timed with their bounds; (c) the first two steps on
      the card and on the CPU, as phase 4 (c), at batch
      ``GAT_CHECK_BATCH`` = 256 (a CPU step at batch 1000 takes over 60
      s), and every gradient tensor against a float64 witness of the first
-     step, which alone holds layer 0's ``a_u`` and ``a_v``; with a traced
-     card step;
+     step, which alone holds layer 0's ``a_u`` and ``a_v``; the card's and
+     the CPU's ReLU branches pinned to the exact ones in both (a few
+     float32 pre-activations within rounding of zero take the other
+     branch by chance, ``ExactReluBranches``); with a traced card step;
   7. device-drawn training, the fifth main path: (b) ``DistTrainer.
      train_epochs`` for two epochs and ``evaluate`` on phase 4's graph,
      data and settings with ``SamplerConfig(device_draw=True,
@@ -129,8 +135,13 @@ its sums run in other orders over up to 1,056,000 rows.  For GAT the card
 is also held to a float64 witness of the first step, per tensor within
 1e-4, and that replaces the CPU for layer 0's attention vectors: their
 gradients cancel heavily (the softmax gradient is centred), and there the
-CPU's float32 sits 9e-5 to 1.2e-4 from the witness, the card 6e-7 to
-3e-6.  TF32 is off.
+CPU's float32 sat 9e-5 to 1.2e-4 from the witness at the numpy-seeded
+weights, the card 6e-7 to 3e-6.  At the reference's initial weights a
+few of the card's ~1e9 projection pre-activations land on the other side
+of ReLU's kink than the exact ones and move layer 0's gradient 1.1e-4
+from the witness; so for GAT both float32 runs take the exact ReLU
+branches (the flips are counted and printed), and the check compares
+arithmetic alone.  TF32 is off.
 
 Prints free-form lines, then the card's name and power limit as
 nvidia-smi gives them, a JSON ``kernels`` line, and as the last line
@@ -150,8 +161,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate.
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, TF32 on
+# them (dense), HBM3 rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL = 1e-4
 SLOTS = 64
@@ -257,9 +270,13 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3):
     return device_ms, ev[0].elapsed_time(ev[2]) / iters
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
+    """The least time for ``nbytes`` moved, ``flops`` on the CUDA cores in
+    float32 and ``tf32_flops`` on the tensor cores in TF32 (the two units
+    run side by side, so the slower of them), and which of bytes and
+    operations sets it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = max(flops / PEAK_FP32_FLOPS, tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -793,17 +810,36 @@ def update_case(torch, uf, ref, name, args, relu, dropout, seed, timed=True):
         check(bool((out[dropped] == 0).all()) and not bool(
             (differ & (dropped | (want.abs() > 1e-4))).any()),
             f"{name}: the dropout's zero pattern differs")
+    route = uf.fwd_route(N, K, torch.cuda.get_device_properties(
+        out.device).multi_processor_count)
     row = {"shape": f"N {N}, C {C}, K {K}, relu {relu}, dropout {dropout}",
-           "max_abs_err": err, "library_ms": None}
+           "route": route, "max_abs_err": err}
     if timed:
-        # agg, self, Wn, Ws, b read once, out written; two products
+        # agg, self, Wn, Ws, b read once, out written; two products of
+        # 2NCK operations, and the epilogue's 3NK.  On the CUDA cores in
+        # float32 (FFMA), or (the route taken) as three TF32 products on
+        # the tensor cores beside the epilogue on the CUDA cores
         nbytes = (2 * N * C + 2 * C * K + K + N * K) * 4
-        row["bound_ms"], row["bound_by"] = bound(nbytes,
-                                                 4.0 * N * C * K + 3 * N * K)
+        row["bound_ffma_ms"], _ = bound(nbytes, 4.0 * N * C * K + 3 * N * K)
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 3.0 * N * K, tf32_flops=3 * 4.0 * N * C * K)
         row["ms"], row["call_ms"] = time_ms(
             torch, lambda: uf.update_fused_fwd(*args, **kw))
         row["plain_ms"], row["plain_call_ms"] = time_ms(
             torch, lambda: ref.fused_update_ref(*args, **kw))
+        # the yardstick (never called by the port): one float32 addmm of
+        # the products and the bias, no ReLU and no dropout, with the
+        # concatenations made outside the timed window
+        x = torch.cat([args[0], args[1]], 1)
+        w = torch.cat([args[2], args[3]], 0)
+        lib = torch.addmm(args[4], x, w)
+        pre = args[0] @ args[2] + args[1] @ args[3] + args[4]
+        ok, _ = close_to(lib, pre)
+        check(ok, f"{name}: addmm of the concatenations is not UPDATE's "
+                  f"products")
+        row["library_ms"], _ = time_ms(
+            torch, lambda: torch.addmm(args[4], x, w))
+        del x, w, lib, pre
     return out, row
 
 
@@ -833,11 +869,15 @@ def update_bwd_case(torch, uf, ref, name, g, out, relu, dropout, seed,
 
 def print_row(kernel, row, phase="phase 4"):
     lib = row.get("library_ms")
-    print(f"{phase}: {kernel} {row['shape']}: max|d|={row['max_abs_err']:.3e}"
+    ffma = row.get("bound_ffma_ms")
+    print(f"{phase}: {kernel} {row['shape']}"
+          + (f" [{row['route']}]" if "route" in row else "")
+          + f": max|d|={row['max_abs_err']:.3e}"
           f"; device ms kernel {row['ms']:.4f}, plain {row['plain_ms']:.4f}"
           + (f", library {lib:.4f}" if lib is not None else "")
-          + f", bound {row['bound_ms']:.4f} ({row['bound_by']}); per call "
-          f"kernel {row['call_ms']:.4f}")
+          + f", bound {row['bound_ms']:.4f} ({row['bound_by']})"
+          + (f", FFMA bound {ffma:.4f}" if ffma is not None else "")
+          + f"; per call kernel {row['call_ms']:.4f}")
 
 
 def phase4_kernels(torch, np, res):
@@ -971,8 +1011,51 @@ def float64_first_moment(torch, ps, cfg, R, host):
     return [0.1 * scale * g for g in grads]
 
 
+class ExactReluBranches:
+    """While active, every GAT projection takes the ReLU branch of its
+    exact pre-activation: ``z = pre * (pre64 > 0)``, ``pre`` the float32
+    ``addmm`` the layer computes and ``pre64`` the same product in
+    float64 on the same device.  The gradient is discontinuous at ReLU's
+    kink, and a pre-activation within float32 rounding of zero takes
+    either branch by chance: at the reference's initial weights a few of
+    the card's ~1e9 pre-activations of a step at batch 256 do, and they
+    move layer 0's gradient by ~1e-4 against the float64 witness (which
+    takes the exact branch) and the CPU (which takes it there by
+    chance).  With the branches pinned, the card, the CPU and
+    the witness differ only by float32 arithmetic.  ``flips`` counts the
+    pre-activations whose float32 sign was not the exact one."""
+
+    def __init__(self, torch):
+        from repro_torch.models.gnn import gat
+        self.torch, self.cls, self.flips = torch, gat.GATLayer, 0
+
+    def __enter__(self):
+        torch, self.orig = self.torch, self.cls.project
+
+        def project(layer, h):
+            din, H, dh = layer.w.shape
+            b, w = layer.b.reshape(-1), layer.w.reshape(din, H * dh)
+            pre = torch.addmm(b, h, w)
+            with torch.no_grad():
+                keep = torch.addmm(b.double(), h.double(), w.double()) > 0
+                self.flips += int(((pre > 0) != keep).sum())
+            z = pre * keep
+            eye = torch.eye(H, dtype=z.dtype, device=z.device)[:, None, :]
+            att = torch.cat([(eye * layer.a_u[:, :, None]).reshape(H * dh, H),
+                             (eye * layer.a_v[:, :, None]).reshape(H * dh, H)],
+                            1)
+            e = z @ att
+            return (z.view(-1, H, dh), e[:, :H].contiguous(),
+                    e[:, H:].contiguous())
+        self.cls.project = project
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.project = self.orig
+
+
 def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
-              noisy_leaves=()):
+              noisy_leaves=(), exact_relu=False):
     """(c): the main path's first ``steps`` steps from the same state,
     minibatches and uniforms, on the card and on the CPU (``batch``: a
     smaller batch for the check, should the CPU be too slow at full
@@ -1027,14 +1110,33 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
     cfg = res["cfg"] if batch is None else dataclasses.replace(
         res["cfg"], batch_size=batch)
     hosts = first_steps(cfg)
+    # both trainers draw the reference's selection uniforms themselves:
+    # the card's Threefry must give the CPU's bits
     card = DistTrainer(cfg, R, device="cuda")
-    draw = card.push_uniforms
-    cpu = DistTrainer(cfg, R, device="cpu",
-                      push_uniforms=lambda s, r, sh: draw(s, r, sh).cpu())
-    runs = {"card": run(card, cfg, hosts, trace=batch is None),
-            "cpu": run(cpu, cfg, hosts, trace=False)}
+    cpu = DistTrainer(cfg, R, device="cpu")
+    shape = (R, hosts[0]["layer_nodes"][0].shape[1])
+    for r in range(R):
+        check(torch.equal(card.push_uniforms(0, r, shape).cpu(),
+                          cpu.push_uniforms(0, r, shape)),
+              f"{phase} (c): rank {r}'s push uniforms differ on the card")
+    u_ms, u_call = time_ms(torch, lambda: card.push_uniforms(1, 0, shape),
+                           iters=4, warmup=1)
+    print(f"{phase} (c): push uniforms {shape} per rank, bit-equal on the "
+          f"card and the CPU: device ms {u_ms:.4f}, per call {u_call:.4f} "
+          f"(x {R} ranks per step)")
+    if exact_relu:
+        runs = {}
+        for dev, tr in (("card", card), ("cpu", cpu)):
+            with ExactReluBranches(torch) as pin:
+                runs[dev] = run(tr, cfg, hosts, trace=False)
+            print(f"{phase} (c): {dev}: {pin.flips} pre-activations took "
+                  f"the other ReLU branch in float32; pinned to the exact "
+                  f"branch for the comparison")
+    else:
+        runs = {"card": run(card, cfg, hosts, trace=batch is None),
+                "cpu": run(cpu, cfg, hosts, trace=False)}
     traced_profile = runs["card"].get("profile")
-    if traced_profile is None:          # the check ran at another batch
+    if traced_profile is None:     # the check ran at another batch or pinned
         traced_profile = run(DistTrainer(res["cfg"], R, device="cuda"),
                              res["cfg"], first_steps(res["cfg"]),
                              trace=True)["profile"]
@@ -1054,8 +1156,7 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
           f"{fmt(float(m.norm()) for m in p['mu'])}")
     held = max((r for i, r in enumerate(rels) if i not in noisy_leaves),
                default=0.0)
-    check(held <= 1e-4, f"{phase} (c): gradient (Adam mu) differs by "
-          f"{held:.3e} relative")
+    witness = ""
     if noisy_leaves:
         t0 = time.perf_counter()
         w = float64_first_moment(torch, ps, cfg, R, hosts[0])
@@ -1063,12 +1164,15 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
         vs = {dev: [rel_norm(a.double(), b) for a, b in zip(runs[dev]["mu"],
                                                             w)]
               for dev in ("card", "cpu")}
-        print(f"{phase} (c): against the float64 witness ({secs:.1f} s on "
-              f"the CPU), per parameter: card {fmt(vs['card'])}; CPU "
-              f"float32 {fmt(vs['cpu'])}")
+        witness = (f"against the float64 witness ({secs:.1f} s on the "
+                   f"CPU), per parameter: card {fmt(vs['card'])}; CPU "
+                   f"float32 {fmt(vs['cpu'])}")
+        print(f"{phase} (c): {witness}")
         worst = max(vs["card"])
         check(worst <= 1e-4, f"{phase} (c): the card's gradient (Adam mu) "
               f"is {worst:.3e} relative from the float64 witness")
+    check(held <= 1e-4, f"{phase} (c): gradient (Adam mu) differs by "
+          f"{held:.3e} relative" + (f"; {witness}" if witness else ""))
     check(all(torch.equal(a, b) for a, b in zip(c["pushed"], p["pushed"])),
           f"{phase} (c): the pushed tags differ")
     check(all(torch.equal(a, b) for la, lb in zip(c["tags"], p["tags"])
@@ -1114,8 +1218,12 @@ def gat_case(torch, ge, ref, name, z, e_u, e_v, nbr, valid, dst_idx=None,
           f"{name}: GAT AGG max |kernel - plain| {err:.3e} over tolerance")
     N, H, dh = z.shape
     M, f = nbr.shape
+    route, cw = ge.fwd_plan(
+        M, f, H, dh, dh % 4 == 0 and z.data_ptr() % 16 == 0,
+        torch.cuda.get_device_properties(z.device).multi_processor_count)
     row = {"shape": f"z {N}x{H}x{dh}, nbr {M}x{f}"
                     + (", dst_idx" if dst_idx is not None else ""),
+           "route": route + (f", {cw} vector columns per warp" if cw else ""),
            "max_abs_err": err, "library_ms": None}
     del want
     if timed:
@@ -1389,6 +1497,20 @@ def phase6_kernels(torch, np, res):
         gat_bwd_case(torch, ge, ref, "ragged", torch.randn(
             M, H * dh, generator=gen, device=dev), z, e_u, e_v, nbr, vr,
             timed=False)
+    # G's other forms: a serving-sized M whose columns split across warps,
+    # and rows too wide for the one-pass form's shared memory (chunked)
+    for (N, M, f, H, dh) in ((700, 45, 15, 4, 256), (500, 30, 400, 4, 8)):
+        z = torch.randn(N, H, dh, generator=gen, device=dev)
+        e_u = torch.randn(N, H, generator=gen, device=dev)
+        e_v = torch.randn(M, H, generator=gen, device=dev)
+        nbr = torch.randint(-1, N + 3, (M, f), generator=gen, device=dev,
+                            dtype=torch.int32)
+        nbr[0] = -1
+        vr = torch.rand(N, generator=gen, device=dev) > 0.2
+        _, row = gat_case(torch, ge, ref, "ragged form", z, e_u, e_v, nbr, vr,
+                          timed=False)
+        print(f"phase 6 (a): G {row['shape']} [{row['route']}] within "
+              f"tolerance (max|d|={row['max_abs_err']:.3e})")
     print("phase 6 (a): ragged shapes (257 x 13 slots, 3 x 20 heads; 300 x "
           "45 slots, 2 x 6 heads; all-masked rows, dst_idx) within "
           "tolerance")
@@ -2072,7 +2194,9 @@ def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
         return sum(r[key] * n for r, n in zip(rows, weights)) / w
     worst = max(zip(rows, weights), key=lambda rn: rn[0]["bound_ms"] * rn[1])
     lib = [r.get("library_ms") for r in rows]
-    return {"name": name, **KERNEL_ROWS[name],
+    extra = {"bound_ffma_ms": mean("bound_ffma_ms")} \
+        if all("bound_ffma_ms" in r for r in rows) else {}
+    return {"name": name, **KERNEL_ROWS[name], **extra,
             "launches": launches[name],
             "max_abs_err": max([max_abs_err] + [r["max_abs_err"]
                                                 for r in rows]),
@@ -2177,7 +2301,7 @@ def main(argv=None) -> int:
     batch = None if GAT_CHECK_BATCH == int(TRAIN_ARGS[
         TRAIN_ARGS.index("--batch") + 1]) else GAT_CHECK_BATCH
     cpu_check(torch, np, "phase 6", res, batch=batch,
-              noisy_leaves=GAT_CPU_NOISY_LEAVES)
+              noisy_leaves=GAT_CPU_NOISY_LEAVES, exact_relu=True)
     peak_line(torch, "phase 6 (c)")
     print(f"phase 6 (c): done in {time.perf_counter() - t0:.1f}s")
     del res
@@ -2282,6 +2406,12 @@ def main(argv=None) -> int:
                  "sage_agg_bwd"):
         rows.append(summarize(name, rows4[name], launches4,
                               [1] * len(rows4[name]), layer_mean))
+    c_row = next(r for r in rows if r["name"] == "update_fused_fwd")
+    c_row["bound_route"] = ("3xTF32 on the tensor cores (bound_ms), beside "
+                            "FFMA on the CUDA cores (bound_ffma_ms)")
+    c_row["library_call"] = ("torch.addmm(b, cat([agg, self], 1), cat([Wn, "
+                             "Ws], 0)), float32, TF32 off: the products and "
+                             "the bias only")
     g_online = [r for r in rows5_g if r["path"] == "online"]
     g_offline = [r for r in rows5_g if r["path"] == "offline"]
     g_train = launches6["gat_edge_fwd"]

@@ -32,23 +32,47 @@
 // per element read.  H reads the same rows and g, and scatters as many
 // floats into dz as G reads.
 //
-// Design (first version, right before fast), as kernel E's: one warp per
-// dst row, up to 8 rows per block, nothing carried between blocks.  The
-// reference pre-gathers z[nbr] ([M, f, H*dh], 3.6 GB per rank at layer
-// 0); here each warp gathers its row's neighbors itself, so no such
-// tensor exists.  The fanout f is not bounded (the offline chunks use the
-// partition's maximum degree), so nothing is sized by f: the warp first
-// takes the max and the sum of the softmax per head over all slots
-// (lanes stride the slots, then a butterfly), then walks the fanout in
-// chunks of FC slots, computing the chunk's alpha[FC][H] and clamped
-// indices into its shared memory and accumulating float4 columns (scalar
-// ones where dh % 4 != 0 or a base is not 16-byte aligned) in slot order.
-// The head of column c is c / dh.  With f <= FC the chunk is computed once
-// per row; above it, once per 128 columns.  H also stores da for every
-// slot (scratch [M, f, H] from the caller) in a first pass, since the
-// softmax's gradient needs sum_j alpha da before any ds; its scatters are
-// float atomics (float4 ones on sm_90), so dz, de_u and (with dst) de_v
-// are summed in a run-dependent order and held to a tolerance.
+// Design of G.  The bound is the gather of z rows, so the design keeps
+// many of them in flight and reads everything else once:
+//  - work unit = (dst row, column part); one warp per unit, 8 per block.
+//    A row's H*dh columns are cut into parts of `cw` vector columns (a
+//    multiple of 32, one per lane per pass); the wrapper picks cw from M
+//    and H*dh so that M * parts warps fill the card (64 per SM, its most
+//    resident warps): one part per row ("row") at training shapes, down
+//    to 32 vector columns ("split") at serving shapes of 64-2,048 rows,
+//    where one warp per row would leave most SMs idle.  Every part
+//    computes its row's softmax itself (it costs f*H e_u reads against
+//    f*cw*16 bytes of z);
+//  - the softmax in one pass over e_u: the lanes take the (slot, head)
+//    pairs, each reading its e_u[i_j, h] once, all reads independent, and
+//    write the logit into the warp's shared memory; the per-head max and
+//    floored sum then come from shared memory (lanes stride the slots, a
+//    butterfly each), and alpha replaces the logit in place;
+//  - the gather walks the included slots in order (a ballot compacts
+//    them; at training layer 0 most slots are halos the HEC missed),
+//    eight at a time (then 4, 2, 1): their neighbours' float4 (or float)
+//    loads are issued before the FMAs; alpha and the clamped source come
+//    from shared memory (broadcasts).
+// The float4 form needs dh % 4 == 0 and 16-byte aligned z and out; the
+// scalar form takes the rest.  Rows whose f*H pairs do not fit the warp's
+// shared memory (fanouts in the hundreds) take the first version's
+// chunked kernel ("chunked", the same arithmetic): the softmax's max and
+// sum per head over all slots, then alpha chunk by chunk of FC slots.
+//
+// Design of H (first version, right before fast), as kernel E's: one
+// warp per dst row, up to 8 rows per block, nothing carried between
+// blocks.  The reference pre-gathers z[nbr] ([M, f, H*dh], 3.6 GB per
+// rank at layer 0); here each warp gathers its row's neighbors itself,
+// so no such tensor exists.  The fanout f is not bounded, so nothing is
+// sized by f: the warp first takes the max and the sum of the softmax per
+// head over all slots (lanes stride the slots, then a butterfly), then
+// walks the fanout in chunks of FC slots, computing the chunk's
+// alpha[FC][H] and clamped indices into its shared memory.  H stores da
+// for every slot (scratch [M, f, H] from the caller) in a first pass,
+// since the softmax's gradient needs sum_j alpha da before any ds; its
+// scatters are float atomics (float4 ones on sm_90), so dz, de_u and
+// (with dst) de_v are summed in a run-dependent order and held to a
+// tolerance.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -193,14 +217,133 @@ struct Vec<float4> {
   }
 };
 
-// Kernel G.
+// Kernel G's one-pass form.  Per warp, shared memory holds lg[f*H] (the
+// logits, then alpha), idx[f] (clamped sources, -1 when excluded), the
+// included slots in order cs[f], mx[H] and den[H]: fast_smem_floats(f, H)
+// floats.
+__host__ __device__ __forceinline__ int fast_smem_floats(int f, int H) {
+  return ((f * H + 2 * f + 2 * H) + 3) / 4 * 4;
+}
+
+// acc += the U included slots cs[n..n+U) of column q: the U neighbours'
+// loads are all issued before the first FMA.
+template <int U, typename T>
+__device__ __forceinline__ void gather_slots(T& acc, const T* __restrict__ z,
+                                             const float* lg, const int* idx,
+                                             const int* cs, int n, int H,
+                                             int h, int HDV, int q, bool on) {
+  T v[U];
+  float a[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = cs[n + u];
+    a[u] = lg[j * H + h];
+    v[u] = on ? z[(size_t)idx[j] * HDV + q] : Vec<T>::zero();
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) Vec<T>::fma(acc, a[u], v[u]);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 gat_fwd_kernel(const T* __restrict__ z, const float* __restrict__ eu,
                const float* __restrict__ ev, const int32_t* __restrict__ nbr,
                const bool* __restrict__ valid, const int32_t* __restrict__ dst,
                T* __restrict__ out, int N, int Nev, int M, int f, int H,
-               int dh, int warps) {
+               int dh, int cw, int parts) {
+  extern __shared__ float smem[];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long unit = (long long)blockIdx.x * MAX_WARPS + w;
+  if (unit >= (long long)M * parts) return;      // uniform across the warp
+  const int m = (int)(unit / parts);
+  const int part = (int)(unit - (long long)m * parts);
+  float* lg = smem + (size_t)w * fast_smem_floats(f, H);
+  int* idx = reinterpret_cast<int*>(lg + f * H);
+  int* cs = idx + f;
+  float* mx = lg + f * H + 2 * f;
+  float* den = mx + H;
+  const int d = dst ? min(max(dst[m], 0), Nev - 1) : m;
+  const int32_t* row = nbr + (size_t)m * f;
+  const float* evrow = ev + (size_t)d * H;
+
+  // the logits: one e_u read per (slot, head) pair, all independent (the
+  // loop unrolled, so that several pairs' reads are in flight at once)
+#pragma unroll 4
+  for (int p = lane; p < f * H; p += 32) {
+    const int j = p / H, h = p - j * H;
+    const int i = slot_src(row, j, N, valid);
+    lg[p] = i >= 0 ? leaky(eu[(size_t)i * H + h] + evrow[h]) : -INFINITY;
+    if (h == 0) idx[j] = i;
+  }
+  __syncwarp();
+  for (int h = 0; h < H; ++h) {
+    float mh = -INFINITY;
+    for (int j = lane; j < f; j += 32) mh = fmaxf(mh, lg[j * H + h]);
+    mh = warp_max(mh);
+    float sh = 0.f;
+    for (int j = lane; j < f; j += 32) {
+      const float l = lg[j * H + h];
+      if (l != -INFINITY) sh += expf(l - mh);
+    }
+    sh = warp_sum(sh);
+    if (lane == 0) {
+      mx[h] = mh;
+      den[h] = fmaxf(sh, 1e-20f);
+    }
+  }
+  __syncwarp();
+  for (int p = lane; p < f * H; p += 32) {
+    const int h = p % H;
+    const float l = lg[p];
+    lg[p] = l != -INFINITY ? expf(l - mx[h]) / den[h] : 0.f;
+  }
+  // the included slots, in order: the gather skips the rest (at training
+  // layer 0 most slots are halos the HEC missed)
+  int nv = 0;
+  for (int j0 = 0; j0 < f; j0 += 32) {
+    const int j = j0 + lane;
+    const bool in = j < f && idx[j] >= 0;
+    const unsigned b = __ballot_sync(0xffffffffu, in);
+    if (in) cs[nv + __popc(b & ((1u << lane) - 1u))] = j;
+    nv += __popc(b);
+  }
+  __syncwarp();
+
+  // the gather: columns [part * cw, part * cw + cw) of the row
+  const int dhv = dh / Vec<T>::W, HDV = H * dhv;
+  const int q1 = min(part * cw + cw, HDV);
+  for (int qb = part * cw; qb < q1; qb += 32) {
+    const int q = qb + lane;
+    const bool on = q < q1;
+    const int h = on ? q / dhv : 0;
+    T acc = Vec<T>::zero();
+    int n = 0;
+    for (; n + 8 <= nv; n += 8)
+      gather_slots<8>(acc, z, lg, idx, cs, n, H, h, HDV, q, on);
+    if (n + 4 <= nv) {
+      gather_slots<4>(acc, z, lg, idx, cs, n, H, h, HDV, q, on);
+      n += 4;
+    }
+    if (n + 2 <= nv) {
+      gather_slots<2>(acc, z, lg, idx, cs, n, H, h, HDV, q, on);
+      n += 2;
+    }
+    if (n < nv) gather_slots<1>(acc, z, lg, idx, cs, n, H, h, HDV, q, on);
+    if (on) out[(size_t)m * HDV + q] = acc;
+  }
+}
+
+// Kernel G's chunked form, for rows whose pairs do not fit the one-pass
+// form's shared memory.
+template <typename T>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+gat_fwd_chunked_kernel(const T* __restrict__ z, const float* __restrict__ eu,
+                       const float* __restrict__ ev,
+                       const int32_t* __restrict__ nbr,
+                       const bool* __restrict__ valid,
+                       const int32_t* __restrict__ dst, T* __restrict__ out,
+                       int N, int Nev, int M, int f, int H, int dh,
+                       int warps) {
   extern __shared__ float smem[];
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m = blockIdx.x * warps + w;
@@ -329,27 +472,54 @@ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 // Plain C entries for ctypes.  Each launches on `stream`, allocates
 // nothing, and returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue when a row's shared memory (which grows with H)
-// exceeds 48 KB.  `dst` may be null.
+// cudaErrorInvalidValue when a block's shared memory (which grows with H,
+// and with f in G's one-pass form) exceeds 48 KB or the operands do not
+// suit the form asked for.  `dst` may be null.
 
-// Kernel G.  out [M, H*dh].
+// Kernel G.  out [M, H*dh].  `cw` is the column part in vector columns
+// (float4 where `vec`, else float; a multiple of 32), or 0 for the
+// chunked form; `vec` must be 0 unless dh % 4 == 0 and z and out are
+// 16-byte aligned.
 extern "C" int gat_edge_fwd(const void* z, const void* eu, const void* ev,
                             const void* nbr, const void* valid,
                             const void* dst, void* out, int N, int Nev, int M,
-                            int f, int H, int dh, void* stream) {
+                            int f, int H, int dh, int cw, int vec,
+                            void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec && (dh % 4 != 0 || !aligned16(z) || !aligned16(out)))
+    return (int)cudaErrorInvalidValue;
+  if (cw > 0) {
+    const size_t smem = (size_t)MAX_WARPS * fast_smem_floats(f, H)
+                        * sizeof(float);
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    const int hdv = H * (vec ? dh / 4 : dh);
+    const int parts = (hdv + cw - 1) / cw;
+    const long long units = (long long)M * parts;
+    const int blocks = (int)((units + MAX_WARPS - 1) / MAX_WARPS);
+    if (vec) {
+      gat_fwd_kernel<float4><<<blocks, MAX_WARPS * 32, smem, s>>>(
+          (const float4*)z, (const float*)eu, (const float*)ev,
+          (const int32_t*)nbr, (const bool*)valid, (const int32_t*)dst,
+          (float4*)out, N, Nev, M, f, H, dh, cw, parts);
+    } else {
+      gat_fwd_kernel<float><<<blocks, MAX_WARPS * 32, smem, s>>>(
+          (const float*)z, (const float*)eu, (const float*)ev,
+          (const int32_t*)nbr, (const bool*)valid, (const int32_t*)dst,
+          (float*)out, N, Nev, M, f, H, dh, cw, parts);
+    }
+    return (int)cudaGetLastError();
+  }
   const int warps = rows_per_block(H, 0);
   if (warps == 0) return (int)cudaErrorInvalidValue;
   const int blocks = (M + warps - 1) / warps;
   const size_t smem = (size_t)warps * warp_smem_floats(H, 0) * sizeof(float);
-  const bool vec = dh % 4 == 0 && aligned16(z) && aligned16(out);
-  cudaStream_t s = (cudaStream_t)stream;
   if (vec) {
-    gat_fwd_kernel<float4><<<blocks, warps * 32, smem, s>>>(
+    gat_fwd_chunked_kernel<float4><<<blocks, warps * 32, smem, s>>>(
         (const float4*)z, (const float*)eu, (const float*)ev,
         (const int32_t*)nbr, (const bool*)valid, (const int32_t*)dst,
         (float4*)out, N, Nev, M, f, H, dh, warps);
   } else {
-    gat_fwd_kernel<float><<<blocks, warps * 32, smem, s>>>(
+    gat_fwd_chunked_kernel<float><<<blocks, warps * 32, smem, s>>>(
         (const float*)z, (const float*)eu, (const float*)ev,
         (const int32_t*)nbr, (const bool*)valid, (const int32_t*)dst,
         (float*)out, N, Nev, M, f, H, dh, warps);

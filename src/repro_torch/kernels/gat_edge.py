@@ -8,7 +8,10 @@ kernels read ``z[nbr]`` and ``e_u[nbr]`` themselves, so no ``[M, f, H *
 dh]`` tensor is made.  :func:`gat_edge_aggregate` is differentiable: a
 ``torch.autograd.Function`` whose backward launches kernel H, which
 recomputes the softmax from ``e_u``/``e_v`` (the forward keeps no
-``[M, f, H]`` tensor).
+``[M, f, H]`` tensor).  Kernel G takes one of three forms by shape
+(:func:`fwd_plan`): a warp per row ("row"), a warp per part of a row's
+columns ("split", where M rows alone cannot fill the card), or, for rows
+of hundreds of slots, the first version's chunked form ("chunked").
 
 The wrappers launch the kernels for CUDA tensors and run the plain
 versions ``gat_edge_ref``/``gat_edge_bwd_ref`` (re-exported here) for CPU
@@ -26,11 +29,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gat_edge_bwd_ref, gat_edge_ref
 
 __all__ = ["gat_edge_aggregate", "gat_edge_fwd", "gat_edge_bwd",
-           "gat_edge_ref", "gat_edge_bwd_ref"]
+           "gat_edge_ref", "gat_edge_bwd_ref", "fwd_plan"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "gat_edge_fwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "gat_edge_fwd": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "gat_edge_bwd": ([_P] * 11 + [_I] * 6 + [_P], _I),
 }
 
@@ -65,6 +68,27 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+MAX_WARPS = 8                   # warps per block of kernel G
+SMEM_LIMIT = 48 * 1024          # bytes of shared memory per block
+
+
+def fwd_plan(M: int, f: int, H: int, dh: int, vec: bool, sms: int):
+    """Kernel G's form at these shapes: ``(route, cw)``, ``cw`` the column
+    part in vector columns (float4 with ``vec``, else float), 0 for the
+    chunked form.  The one-pass form holds a row's ``f * H`` logits in
+    shared memory; it cuts a row's columns into parts of ``cw`` (a
+    multiple of 32) until ``M`` x parts warps reach 64 per SM (the most
+    an SM holds) or a part is one warp wide."""
+    per_warp = -(-(f * H + 2 * f + 2 * H) // 4) * 4
+    if MAX_WARPS * per_warp * 4 > SMEM_LIMIT:
+        return "chunked", 0
+    hdv = H * (dh // 4 if vec else dh)
+    cw = -(-hdv // 32) * 32
+    while cw > 32 and M * -(-hdv // cw) < 64 * sms:
+        cw = -(-(cw // 2) // 32) * 32
+    return ("row" if cw >= hdv else "split"), cw
+
+
 def gat_edge_fwd(z: torch.Tensor, e_u: torch.Tensor, e_v: torch.Tensor,
                  nbr_idx: torch.Tensor, src_valid: torch.Tensor,
                  dst_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -81,11 +105,14 @@ def gat_edge_fwd(z: torch.Tensor, e_u: torch.Tensor, e_v: torch.Tensor,
         return out.zero_()
     lib = _build.load("gat_edge", _SIGNATURES)
     stream = torch.cuda.current_stream(z.device).cuda_stream
+    vec = dh % 4 == 0 and z.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    _, cw = fwd_plan(M, f, H, dh, vec, torch.cuda.get_device_properties(
+        z.device).multi_processor_count)
     with torch.cuda.device(z.device):
         rc = lib.gat_edge_fwd(z.data_ptr(), e_u.data_ptr(), e_v.data_ptr(),
                               nbr_idx.data_ptr(), src_valid.data_ptr(),
                               _ptr(dst_idx), out.data_ptr(), N, Nev, M, f, H,
-                              dh, stream)
+                              dh, cw, int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"gat_edge_fwd: launch failed with CUDA error {rc}")
     gat_edge_fwd.launches += 1

@@ -3,6 +3,8 @@ kernels (``csrc/update_fused.cu``): the forward (kernel C) and the
 elementwise part of its gradient, ``dZ`` and ``db`` (kernel D).
 
 Replaces the TPU kernel ``repro/kernels/update_fused.py:fused_update``.
+Kernel C runs both products on the tensor cores, float32-accurate by the
+3xTF32 split, in one of two block tiles (:func:`fwd_tile`).
 :func:`fused_update` is differentiable: a ``torch.autograd.Function``
 whose backward launches kernel D and leaves the four matrix products of
 the gradient to ``torch.matmul``, computing only those its inputs need
@@ -23,16 +25,34 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_update_bwd_ref, fused_update_ref
 
 __all__ = ["fused_update", "update_fused_fwd", "update_fused_bwd",
-           "fused_update_ref", "fused_update_bwd_ref"]
+           "fused_update_ref", "fused_update_bwd_ref", "fwd_route",
+           "fwd_tile"]
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_uint32
 _SIGNATURES = {
-    "update_fused_fwd": ([_P] * 6 + [_I] * 4 + [_F, _F, _U, _P], _I),
+    "update_fused_fwd": ([_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P], _I),
     "update_fused_bwd": ([_P] * 5 + [_I] * 3 + [_F, _F, _U, _P], _I),
 }
 RB = 128                         # rows per stripe of kernel D's column sum
 _U32 = 0xFFFFFFFF
+TILES = {1: (128, 64), 0: (32, 64)}  # kernel C's block tiles (rows, columns)
+
+
+def fwd_tile(N: int, K: int, sms: int) -> int:
+    """Kernel C's block tile for an ``[N, K]`` output on a card of ``sms``
+    SMs: 128 x 64 (key 1) when that grid fills every SM, else 32 x 64
+    (key 0), four times the blocks."""
+    big = TILES[1]
+    blocks = -(-N // big[0]) * -(-K // big[1])
+    return 1 if blocks >= sms else 0
+
+
+def fwd_route(N: int, K: int, sms: int) -> str:
+    """The route kernel C takes at ``[N, K]``: the 3xTF32 tensor-core
+    products and the block tile."""
+    rows, cols = TILES[fwd_tile(N, K, sms)]
+    return f"3xTF32 mma.sync {rows}x{cols}"
 
 
 def _dropout_args(dropout: float, seed: int):
@@ -68,11 +88,13 @@ def update_fused_fwd(agg: torch.Tensor, self_h: torch.Tensor,
         return out
     lib = _build.load("update_fused", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    tile = fwd_tile(N, K, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     with torch.cuda.device(dev):
         rc = lib.update_fused_fwd(
             agg.data_ptr(), self_h.data_ptr(), wn.data_ptr(), ws.data_ptr(),
             b.data_ptr(), out.data_ptr(), N, C, K, int(relu), p, keep_div,
-            seed, stream)
+            seed, tile, stream)
     if rc != 0:
         raise RuntimeError(f"update_fused_fwd: launch failed with CUDA "
                            f"error {rc}")

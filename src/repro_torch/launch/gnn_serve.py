@@ -18,8 +18,9 @@ Presets: ``small`` is the reference launcher's CPU-sized model of
 with 4 heads); ``graphsage-papers100m`` and ``gat-papers100m`` are the
 paper's full widths (feat 128, hidden 256, 3 layers, 172 classes,
 fanouts 5,10,15; GAT with 4 heads of 256 and one of 172 at the last
-layer), and fix the model.  Weights are drawn from numpy seed 0 at the
-reference's scales.
+layer), and fix the model.  The weights are the reference launcher's:
+``init_model_params(jax.random.key(0), cfg)``, drawn without jax
+(``models/gnn/init.py``).
 """
 from __future__ import annotations
 

@@ -18,7 +18,7 @@ solids; the hot tier's replicas take the whole hot set) -> the query
 workload routed to owner shards and served with the per-layer halo
 fetches -> the same workload again, with the overlapping neighborhoods
 now resident.  Presets as in ``repro_torch.launch.gnn_serve``; weights
-from numpy seed 0.  The reference's plane flags (``--trace-out``,
+the reference launcher's, from ``jax.random.key(0)``.  The reference's plane flags (``--trace-out``,
 ``--metrics-out``, ``--flight-dir``, ``--slo-p99-ms``,
 ``--audit-interval``, ``--quality-budget``, ``--prom-out``) come with the
 planes (slice 6).

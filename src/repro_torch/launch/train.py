@@ -10,7 +10,10 @@ collective backend).  The flags and defaults are the reference
 launcher's, for what the port has; ``--device`` (default ``cuda``) picks
 the card or, with ``cpu``, the plain PyTorch versions of the kernels.
 ``--mode sync|drop`` raises ``NotImplementedError``; the health, quality
-and resilience flags are not offered yet.
+and resilience flags are not offered yet.  As in the reference, the
+initial weights come from ``jax.random.key(--seed)`` (drawn without jax)
+and the AEP push draws the reference's uniforms, so both launchers train
+the same model on the same pushes.
 
 Prints the graph, the partition, per-epoch loss, accuracy and HEC hit
 rates, and ``done: ... s/epoch; test_acc=...``.

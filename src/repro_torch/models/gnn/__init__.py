@@ -8,7 +8,7 @@ from typing import Optional
 
 from repro_torch.device import DeviceLike
 
-__all__ = ["build_model", "gat", "graphsage", "model_class"]
+__all__ = ["build_model", "gat", "graphsage", "init", "model_class"]
 
 
 def model_class(name: str):
@@ -23,9 +23,10 @@ def model_class(name: str):
 
 
 def build_model(cfg, seed: int = 0, device: DeviceLike = None,
-                params: Optional[dict] = None):
-    """``cfg.model``'s model at ``cfg``'s widths, with weights from numpy
-    ``seed`` or the reference's tree ``params``, on ``device`` (``None``:
-    the card; raises without one)."""
+                params: Optional[dict] = None, init: str = "reference"):
+    """``cfg.model``'s model at ``cfg``'s widths, with the reference's tree
+    ``params`` or else weights drawn from ``seed`` (``init="reference"``:
+    the reference's ``jax.random.key(seed)`` weights; ``"numpy"``: a numpy
+    seed's), on ``device`` (``None``: the card; raises without one)."""
     return model_class(cfg.model).from_config(cfg, seed=seed, device=device,
-                                              params=params)
+                                              params=params, init=init)

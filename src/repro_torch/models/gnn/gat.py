@@ -18,8 +18,12 @@ kernel (``kernels/gat_edge.py``), differentiable in ``z``, ``e_u`` and
 layer but the last, layer ``k`` drawing its mask from the u32 seed
 ``seed + k + 1``; :meth:`GAT.forward` serves (no gradient, no dropout).
 
-Parameters keep the reference's layout (``w [din, H, dh]``, ``b``,
-``a_u``, ``a_v`` ``[H, dh]``), so ``params_from_jax`` loads its
+:meth:`GAT.from_config` draws the reference's weights by default
+(``init="reference"``: ``models/gnn/init.py``, bit for bit
+``init_params(jax.random.key(seed), ...)``); ``init="numpy"`` takes
+:func:`init_params_np`'s.  Parameters keep the reference's layout
+(``w [din, H, dh]``, ``b``, ``a_u``, ``a_v`` ``[H, dh]``), so
+``params_from_jax`` loads its
 ``{"layers": [{"w", "b", "a_u", "a_v"}]}`` tree as it is;
 ``parameter_list`` orders them as that tree's leaves (per layer ``a_u``,
 ``a_v``, ``b``, ``w``).
@@ -35,7 +39,8 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.gat_edge import gat_edge_aggregate
 from repro_torch.models.gnn.common import hash_dropout
-from repro_torch.models.gnn.graphsage import HaloHook
+from repro_torch.models.gnn import init as init_lib
+from repro_torch.models.gnn.graphsage import HaloHook, pick_init
 
 LEAVES = ("a_u", "a_v", "b", "w")     # the reference tree's sorted keys
 
@@ -54,8 +59,8 @@ def layer_shapes(feat_dim: int, hidden: int, num_classes: int,
 def init_params_np(seed: int, shapes: Sequence[Shape]) -> dict:
     """Weights from a numpy seed at the reference's scales (``w`` normal x
     ``sqrt(2 / din)``, ``a_u``/``a_v`` normal x ``dh ** -0.5``, zero
-    ``b``), in its ``{"layers": [...]}`` tree; its ``jax.random`` bits
-    torch cannot reproduce."""
+    ``b``), in its ``{"layers": [...]}`` tree, other draws than its
+    (``init="numpy"``)."""
     rng = np.random.default_rng(seed)
     layers = []
     for din, H, dh in shapes:
@@ -117,17 +122,19 @@ class GAT(nn.Module):
 
     @classmethod
     def from_config(cls, cfg, seed: int = 0, device: DeviceLike = None,
-                    params: Optional[dict] = None) -> "GAT":
-        """``cfg``'s GAT with weights from numpy ``seed`` (or the
-        reference's tree ``params``), on ``device`` (``None``: the card;
-        raises without one)."""
+                    params: Optional[dict] = None,
+                    init: str = "reference") -> "GAT":
+        """``cfg``'s GAT with the reference tree ``params``, or else random
+        weights from ``seed`` (``init``: ``"reference"``, the reference's
+        ``jax.random.key(seed)`` draws, or ``"numpy"``), on ``device``
+        (``None``: the card; raises without one)."""
         device = resolve_device(device)
         shapes = layer_shapes(cfg.feat_dim, cfg.hidden_size, cfg.num_classes,
                               cfg.num_layers, cfg.num_heads)
-        model = cls(shapes)
-        model.params_from_jax(params if params is not None
-                              else init_params_np(seed, shapes))
-        return model.to(device)
+        if params is None:
+            params = pick_init(init, init_lib.gat_params,
+                               init_params_np)(seed, shapes)
+        return cls(shapes).params_from_jax(params).to(device)
 
     @property
     def num_layers(self) -> int:

@@ -18,10 +18,15 @@ Two forwards, as the reference keeps its serving kernel apart from
   drawing its mask from the u32 seed ``seed + k + 1``.
 
 Every kernel wrapper runs its plain PyTorch version for CPU tensors.
-Weights keep the reference's layout ``[D_in, D_out]``, so
-``params_from_jax`` loads the reference's ``{"layers": [{"wn", "ws",
-"b"}]}`` tree as it is; ``parameter_list`` orders them as that tree's
-leaves (per layer ``b``, ``wn``, ``ws``).
+:meth:`GraphSAGE.from_config` draws the reference's weights by default
+(``init="reference"``: ``models/gnn/init.py``, bit for bit what
+``init_params(jax.random.key(seed), ...)`` gives, as the reference's
+launchers draw them); ``init="numpy"`` takes :func:`init_params_np`'s
+weights from a numpy seed instead, at the same scales.  Weights keep the
+reference's layout ``[D_in, D_out]``, so ``params_from_jax`` loads the
+reference's ``{"layers": [{"wn", "ws", "b"}]}`` tree as it is;
+``parameter_list`` orders them as that tree's leaves (per layer ``b``,
+``wn``, ``ws``).
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.sage_agg import sage_agg
 from repro_torch.kernels.serve_fused import serve_fused_layer
 from repro_torch.kernels.update_fused import fused_update
+from repro_torch.models.gnn import init as init_lib
 
 HaloHook = Callable[[int, torch.Tensor, torch.Tensor],
                     "tuple[torch.Tensor, torch.Tensor]"]
@@ -48,9 +54,10 @@ def layer_dims(feat_dim: int, hidden: int, num_classes: int,
 
 def init_params_np(seed: int, dims: Sequence[int]) -> dict:
     """He-normal weights (scale ``sqrt(2 / d_in)``) and zero biases from a
-    numpy seed, in the reference's ``{"layers": [...]}`` tree: the same
-    scale as ``repro.models.gnn.graphsage.init_params``, whose
-    ``jax.random`` bits torch cannot reproduce."""
+    numpy seed, in the reference's ``{"layers": [...]}`` tree: the scales
+    of ``repro.models.gnn.graphsage.init_params``, other draws
+    (``init="numpy"``; :func:`~repro_torch.models.gnn.init.graphsage_params`
+    draws the reference's)."""
     rng = np.random.default_rng(seed)
     layers = []
     for din, dout in zip(dims[:-1], dims[1:]):
@@ -60,6 +67,15 @@ def init_params_np(seed: int, dims: Sequence[int]) -> dict:
             "ws": rng.standard_normal((din, dout), np.float32) * s,
             "b": np.zeros(dout, np.float32)})
     return {"layers": layers}
+
+
+def pick_init(init: str, reference, numpy):
+    """The initializer ``init`` names: ``"reference"`` or ``"numpy"``."""
+    inits = {"reference": reference, "numpy": numpy}
+    if init not in inits:
+        raise ValueError(f"unknown init {init!r}; expected one of "
+                         f"{sorted(inits)}")
+    return inits[init]
 
 
 class SAGELayer(nn.Module):
@@ -88,17 +104,19 @@ class GraphSAGE(nn.Module):
 
     @classmethod
     def from_config(cls, cfg, seed: int = 0, device: DeviceLike = None,
-                    params: Optional[dict] = None) -> "GraphSAGE":
-        """Random He-normal model of ``cfg``'s widths from a numpy seed (or
-        the reference's tree ``params``), on ``device`` (``None``: the
-        card; raises without one)."""
+                    params: Optional[dict] = None,
+                    init: str = "reference") -> "GraphSAGE":
+        """``cfg``'s GraphSAGE with the reference tree ``params``, or else
+        random weights from ``seed`` (``init``: ``"reference"``, the
+        reference's ``jax.random.key(seed)`` draws, or ``"numpy"``), on
+        ``device`` (``None``: the card; raises without one)."""
         device = resolve_device(device)
         dims = layer_dims(cfg.feat_dim, cfg.hidden_size, cfg.num_classes,
                           cfg.num_layers)
-        model = cls(dims)
-        model.params_from_jax(params if params is not None
-                              else init_params_np(seed, dims))
-        return model.to(device)
+        if params is None:
+            params = pick_init(init, init_lib.graphsage_params,
+                               init_params_np)(seed, dims)
+        return cls(dims).params_from_jax(params).to(device)
 
     @property
     def num_layers(self) -> int:

@@ -59,6 +59,7 @@ from repro_torch.configs.gnn import GNNConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.partition import PartitionSet
 from repro_torch.models.gnn import build_model
+from repro_torch.pipeline import threefry
 from repro_torch.pipeline.prefetcher import EVAL_EPOCH_TAG, SamplingPlan
 from repro_torch.train import optimizer as opt_lib
 
@@ -121,16 +122,17 @@ def _epoch_mean(ep_metrics: List[dict]) -> dict:
     return out
 
 
-def default_push_uniforms(device: torch.device) -> PushUniforms:
-    """Selection uniforms in [1e-6, 1) from a torch generator on ``device``
-    seeded per (step seed, rank) — the port's own stream; the reference's
-    ``jax.random`` draws can be passed in instead."""
+def default_push_uniforms(device: torch.device,
+                          base_seed: int = 7) -> PushUniforms:
+    """The reference's selection uniforms in [1e-6, 1), bit for bit:
+    ``jax.random.uniform(fold_in(fold_in(PRNGKey(base_seed), seed), rank),
+    shape, minval=1e-6, maxval=1.0)`` (``repro/comm/engine.py:
+    select_push``), drawn on ``device`` by the tensor Threefry of
+    ``pipeline/threefry.py``."""
     def draw(seed: int, rank: int, shape: Sequence[int]) -> torch.Tensor:
-        s = np.random.SeedSequence([7, int(seed), int(rank)])
-        g = torch.Generator(device=device)
-        g.manual_seed(int(s.generate_state(1, np.uint64)[0] >> 1))
-        u = torch.rand(tuple(shape), generator=g, device=device)
-        return u * (1.0 - 1e-6) + 1e-6
+        k = threefry.fold_in(threefry.fold_in(threefry.key(base_seed),
+                                              int(seed) & 0xFFFFFFFF), rank)
+        return threefry.uniform(k, shape, 1e-6, 1.0, device)
     return draw
 
 
@@ -178,9 +180,10 @@ class DistTrainer:
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int = 0, params: Optional[dict] = None) -> dict:
-        """Fresh state: ``cfg.model``'s model (from numpy ``seed``, or the
-        reference's ``{"layers": [...]}`` tree ``params``), Adam, one
-        empty HEC per (layer, rank) and empty in-flight queues."""
+        """Fresh state: ``cfg.model``'s model (the reference's weights
+        from ``jax.random.key(seed)``, or its ``{"layers": [...]}`` tree
+        ``params``), Adam, one empty HEC per (layer, rank) and empty
+        in-flight queues."""
         cfg, dev = self.cfg, self.device
         model = build_model(cfg, seed=seed, device=dev, params=params)
         dims = layer_dims(cfg)

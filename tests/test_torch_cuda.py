@@ -309,6 +309,43 @@ def test_update_kernels_match_plain(dev, N, C, K, relu, dropout):
         (before[0] + 1, before[1] + 1)
 
 
+# kernel C's two block tiles, 16-byte and 4-byte staging, N off every
+# tile, K = 172, C up to 1,024
+UPDATE_TILE_SHAPES = [(1000, 128, 172), (999, 256, 172), (1001, 1024, 172),
+                      (17001, 256, 256), (20000, 100, 130), (3000, 1024, 172)]
+
+
+@pytest.mark.parametrize("N,C,K", UPDATE_TILE_SHAPES)
+@pytest.mark.parametrize("relu,dropout", [(True, 0.1), (False, 0.0),
+                                          (False, 0.3)])
+def test_update_fwd_tiles_match_plain(dev, N, C, K, relu, dropout):
+    """Kernel C (3xTF32 on the tensor cores) in both tiles against the
+    plain float32 version: within 1e-4 * max(1, |x|), the dropout's
+    dropped positions exactly zero and no other zero but where the
+    pre-activation is within rounding of it."""
+    from repro_torch.models.gnn.common import hash_uniform
+    kw = update_inputs(dev, N * 7 + C + K, N, C, K)
+    seed = 12345
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert update_fused.fwd_route(N, K, sms).startswith("3xTF32")
+    out = update_fused.update_fused_fwd(relu=relu, dropout=dropout,
+                                        seed=seed, **kw)
+    want = ref.fused_update_ref(relu=relu, dropout=dropout, seed=seed, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and close(out, want)
+    dropped = hash_uniform(seed, torch.arange(N, device=dev),
+                           torch.arange(K, device=dev)) < dropout
+    assert bool((out[dropped] == 0).all())
+    differ = (out == 0) != (want == 0)
+    assert not bool((differ & (dropped | (want.abs() > 1e-4))).any())
+
+
+def test_update_fwd_takes_both_tiles(dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert {update_fused.fwd_tile(N, K, sms)
+            for N, _, K in UPDATE_TILE_SHAPES} == {0, 1}
+
+
 AGG_SHAPES = [(100, 30, 5, 32), (333, 64, 9, 64), (50, 50, 1, 128),
               (300, 37, 7, 6), (176000, 16000, 10, 256)]
 
@@ -411,7 +448,9 @@ def test_two_training_steps_on_card_match_cpu(dev):
 # ---------------------------------------------------------------------------
 GAT_SHAPES = [(80, 20, 4, 2, 8), (257, 61, 13, 3, 20), (300, 40, 7, 2, 6),
               (300, 40, 40, 4, 16), (20000, 4000, 5, 4, 256),
-              (16000, 1000, 15, 1, 172), (100000, 2048, 77, 4, 256)]
+              (16000, 1000, 15, 1, 172), (100000, 2048, 77, 4, 256),
+              (5000, 64, 15, 4, 256), (3000, 64, 15, 1, 172),
+              (500, 30, 400, 4, 8), (500, 30, 400, 3, 6)]
 
 
 def gat_inputs(dev, seed, N, M, f, H, dh, dst):
@@ -453,6 +492,19 @@ def test_gat_kernels_match_plain(dev, N, M, f, H, dh, dst):
         assert a.shape == b.shape and close(a, b)
     assert (gat_edge.gat_edge_fwd.launches, gat_edge.gat_edge_bwd.launches) \
         == (before[0] + 1, before[1] + 1)
+
+
+def test_gat_fwd_takes_every_form(dev):
+    """Kernel G's forms at GAT_SHAPES: a warp per row, a warp per column
+    part at serving-sized M (64 rows of 4 x 256 or 1 x 172), and the
+    chunked form for 400 slots of 4 heads."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    routes = {(M, f, H, dh): gat_edge.fwd_plan(M, f, H, dh, dh % 4 == 0,
+                                               sms)[0]
+              for _, M, f, H, dh in GAT_SHAPES}
+    assert routes[(64, 15, 4, 256)] == routes[(64, 15, 1, 172)] == "split"
+    assert routes[(30, 400, 4, 8)] == "chunked"
+    assert set(routes.values()) == {"row", "split", "chunked"}
 
 
 def test_gat_autograd_on_card_matches_cpu(dev):

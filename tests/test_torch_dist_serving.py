@@ -440,7 +440,8 @@ def reference():
 @pytest.fixture(scope="module")
 def world():
     """The port's side: the same graph, partitions, configs and weights
-    (numpy seed 0), and the distributed offline embeddings."""
+    (numpy seed 0, ``init="numpy"``, as the reference's side loads them),
+    and the distributed offline embeddings."""
     g = synthetic_graph(num_vertices=900, avg_degree=2, num_classes=5,
                         feat_dim=16, seed=3)
     part = partition_graph(g, 1, seed=0).parts[0]
@@ -451,7 +452,7 @@ def world():
         cfg = small_gnn_config(model, batch_size=16, feat_dim=16,
                                num_classes=5, fanouts=(max_deg, max_deg),
                                hidden_size=32)
-        net = build_model(cfg, seed=0, device="cpu")
+        net = build_model(cfg, seed=0, device="cpu", init="numpy")
         ed, st = layerwise_embeddings_dist(cfg, net, ps, chunk_size=128,
                                            with_stats=True)
         out[model] = (cfg, net, ed, st)

@@ -552,6 +552,57 @@ def test_three_steps_match_reference(reference_run, model, R):
         assert torch.equal(a.detach(), b)
 
 
+@pytest.mark.parametrize("R", [1, 4])
+def test_three_steps_match_reference_injecting_nothing(reference_run, R):
+    """The trainer as the launcher builds it: the initial weights from
+    ``init_state(seed=0)`` and the push selection's default uniforms, no
+    draw of the reference's handed in.  The weights equal the reference's
+    from ``jax.random.key(0)`` bit for bit; then three free GraphSAGE
+    steps hold the loss within 1e-5 and the hits, halos, pushes, HEC tags,
+    ages and in-flight tags exactly, as ``test_three_steps_match_reference``
+    does."""
+    pre = f"graphsage/r{R}"
+    g = synthetic_graph(num_vertices=1500, avg_degree=8, num_classes=6,
+                        feat_dim=24, seed=0)
+    cfg = small_gnn_config("graphsage", batch_size=32, feat_dim=24,
+                           num_classes=6,
+                           hec=HECConfig(cache_size=4096, ways=4,
+                                         life_span=2, push_limit=256,
+                                         delay=1))
+    ps = partition_graph(g, R, seed=0)
+    tr = DistTrainer(cfg, R, device="cpu")
+    st = tr.init_state(seed=0)
+    data = build_dist_data(ps, cfg, CPU)
+    for l, layer in enumerate(st["model"].layers):
+        for n in PARAM_NAMES["graphsage"]:
+            np.testing.assert_array_equal(
+                bits(getattr(layer, n).detach().numpy()),
+                bits(reference_run[f"{pre}/params0/{l}/{n}"]))
+    plan = SamplingPlan(ps, cfg, 0)
+    hosts = [h for ep in range(2)
+             for h in plan.batches(plan.epoch_schedule(ep), ep)][:STEPS]
+    for i, host in enumerate(hosts):
+        m = tr.train_step(st, data, minibatch_to_device(host, CPU), i)
+        want = float(reference_run[f"{pre}/m/{i}/loss"])
+        assert abs(m["loss"] - want) <= 1e-5 * abs(want), (i, m["loss"])
+        for k in m:
+            if k.startswith(("hec_hits", "hec_halos", "aep_push", "exam")):
+                assert m[k] == float(reference_run[f"{pre}/m/{i}/{k}"]), \
+                    (i, k)
+        for l in range(cfg.num_layers):
+            for f in ("tags", "age"):
+                np.testing.assert_array_equal(
+                    stacked(st, f, l), reference_run[f"{pre}/{f}/{i}/{l}"])
+            np.testing.assert_allclose(stacked(st, "values", l),
+                                       reference_run[f"{pre}/values/{i}/{l}"],
+                                       rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(
+            torch.stack([q["tags"] for q in st["inflight"]]).numpy(),
+            reference_run[f"{pre}/inflight/{i}"])
+    if R == 4:
+        assert m["hec_hits_l0"] > 0 and m["aep_push_rows"] > 0
+
+
 def test_device_draw_cv_two_epochs_match_reference(reference_run):
     """``train_epochs`` with ``device_draw=True, policy="cv"`` at R=4 for
     two epochs of two steps: epoch 1 draws with weights from the HEC as
