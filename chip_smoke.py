@@ -16,7 +16,9 @@ layer) and phase 8 at both:
      pre-warm chunk shapes of the main path's graph (2048 dst rows with
      ``self_idx``, full neighbor lists) and at a ragged shape, the HEC
      probe + load on a half-full cache with hits, misses, negative vids
-     and full sets — and the time of each, with its bound;
+     and full sets — and the time of each, with its bound (the serve
+     layer's with the form it took, its 3xTF32 and FFMA bounds and a
+     float32 ``addmm`` yardstick of its products);
   2. exactness: sampled serving on a low-degree graph with fanouts >= its
      max degree (sampling is then exact) against offline embeddings
      computed by the plain versions on the card, cold and pre-warmed;
@@ -35,7 +37,8 @@ layer) and phase 8 at both:
      the layer shapes of that run's minibatches and at a ragged shape, and
      the HEC probe at the training lookup shapes on the run's own caches,
      timed with their bounds, C with its 3xTF32 and FFMA bounds and a
-     float32 ``addmm`` yardstick; (c) the first two steps of (b), from
+     float32 ``addmm`` yardstick, D's ``db`` bit-equal over two calls,
+     and C bit-equal to its pinned outputs (``C_PINNED``); (c) the first two steps of (b), from
      the same state (the reference's initial weights) and minibatches,
      once more on the card and on the CPU through the plain versions,
      each drawing the reference's selection uniforms (the card's draw
@@ -203,6 +206,16 @@ KERNEL_ROWS = {
 }
 KERNELS = ("serve_fused", "hec_search", "update_fused", "sage_agg",
            "gat_edge", "sample_draw")
+# kernel C's output on pinned inputs (SHA-256 of its float32 bytes) as it
+# was before its 3xTF32 helpers moved into csrc/tf32x3.cuh; the same
+# digests pin tests/test_torch_cuda.py::test_update_fwd_bitmatches_pinned_output
+C_PINNED = [
+    ((17001, 256, 256, True, 0.1),
+     "35930f6aed084ade7e76f20625e439c7346f73fbb7930c19ebf333002f8f0807"),
+    ((1000, 256, 172, False, 0.0),
+     "7266dfd4337d180bee09fc7814a2fe422cfee76751e6f36e861c8a325dd7715d"),
+    ((1001, 100, 130, False, 0.3),
+     "a93244ebe3a2f34929c9ac9dbcac155c3f551b94434c17412afdf9e06d50035c")]
 TRAIN_VERTICES = 400_000
 TRAIN_ARGS = ["gnn", "--ranks", "4", "--degree", "10", "--classes", "172",
               "--feat-dim", "128", "--hidden", "256", "--layers", "3",
@@ -303,11 +316,16 @@ def serve_layer_case(torch, sf, ref, name, h, nbr, valid, p, relu,
     K = wn.shape[1]
     row = {"shape": f"h {N}x{D}, nbr {M}x{f}, W {D}x{K}"
                     + (", self_idx" if self_idx is not None else ""),
+           "route": sf.serve_form(M, K, D, torch.cuda.get_device_properties(
+               h.device).multi_processor_count),
            "max_abs_err": float(err.max()) if err.numel() else 0.0}
     if timed:
         # what this input needs: each h row gathered once (valid neighbors
         # and self rows), the valid flag of each neighbor slot, nbr, W, b,
-        # out; two products plus one add per gathered element
+        # out; one add per gathered element, and the two products: on the
+        # CUDA cores in float32 (FFMA), or (the route taken) as three TF32
+        # products on the tensor cores beside the adds, the mean's
+        # division and the epilogue on the CUDA cores
         idx = nbr.long()
         used = (idx >= 0) & valid[idx.clamp_min(0)]
         self_rows = (torch.arange(M, device=h.device) if self_idx is None
@@ -315,23 +333,41 @@ def serve_layer_case(torch, sf, ref, name, h, nbr, valid, p, relu,
         rows = torch.cat([idx[used], self_rows]).unique().numel()
         nbytes = (rows * D * 4 + int((idx >= 0).sum()) + M * f * 4
                   + 2 * D * K * 4 + K * 4 + M * K * 4)
-        flops = 4.0 * M * D * K + int(used.sum()) * D
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+        adds = int(used.sum()) * D
+        row["bound_ffma_ms"], _ = bound(nbytes, 4.0 * M * D * K + adds)
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, adds + M * D + 2.0 * M * K, tf32_flops=12.0 * M * D * K)
         row["ms"], row["call_ms"] = time_ms(
             torch, lambda: sf.serve_fused_layer(
                 h, nbr, valid, wn, ws, b, relu=relu, self_idx=self_idx))
         row["plain_ms"], row["plain_call_ms"] = time_ms(
             torch, lambda: ref.serve_layer_ref(
                 h, nbr, valid, wn, ws, b, relu=relu, self_idx=self_idx))
+        # the yardstick (never called by the port): one float32 addmm of
+        # the products and the bias, on the neighbor means and self rows
+        # gathered outside the timed window, no ReLU
+        from repro_torch.models.gnn.common import (gather_neighbors,
+                                                   masked_mean)
+        agg = masked_mean(*gather_neighbors(h, nbr, valid))
+        x = torch.cat([agg, h[self_rows]], 1)
+        w = torch.cat([wn, ws], 0)
+        ok, _ = close_to(torch.addmm(b, x, w), agg @ wn + h[self_rows] @ ws
+                         + b)
+        check(ok, f"{name}: addmm of the concatenations is not the serve "
+                  f"layer's products")
+        row["library_ms"], _ = time_ms(torch, lambda: torch.addmm(b, x, w))
+        del agg, x, w
     return want, row
 
 
 def print_serve_row(row):
-    print(f"phase 1: serve_fused_layer {row['shape']}: max|d|="
-          f"{row['max_abs_err']:.3e}; device ms kernel {row['ms']:.4f}, "
-          f"plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
-          f"({row['bound_by']}); per call kernel {row['call_ms']:.4f}, "
-          f"plain {row['plain_call_ms']:.4f}")
+    print(f"phase 1: serve_fused_layer {row['shape']} [{row['route']}]: "
+          f"max|d|={row['max_abs_err']:.3e}; device ms kernel "
+          f"{row['ms']:.4f}, plain {row['plain_ms']:.4f}, library "
+          f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']}), FFMA bound {row['bound_ffma_ms']:.4f}; per "
+          f"call kernel {row['call_ms']:.4f}, plain "
+          f"{row['plain_call_ms']:.4f}")
 
 
 def plain_offline_layer(torch, ref, h, nbr_full, layer, relu):
@@ -847,14 +883,20 @@ def update_bwd_case(torch, uf, ref, name, g, out, relu, dropout, seed,
                     timed=True):
     kw = dict(relu=relu, dropout=dropout, seed=seed)
     dz, db = uf.update_fused_bwd(g, out, **kw)
+    _, db2 = uf.update_fused_bwd(g, out, **kw)
     torch.cuda.synchronize()
     dz_p, db_p = ref.fused_update_bwd_ref(g, out, **kw)
     ok, err = close_to(db, db_p)
     check(torch.equal(dz, dz_p), f"{name}: UPDATE dZ is not bit-exact")
     check(bool(torch.isfinite(db).all()) and ok,
           f"{name}: UPDATE db max |kernel - plain| {err:.3e} over tolerance")
+    check(torch.equal(db.view(torch.int32), db2.view(torch.int32)),
+          f"{name}: UPDATE db differs between two calls")
     N, K = g.shape
+    stripes = uf.bwd_stripes(N, torch.cuda.get_device_properties(
+        g.device).multi_processor_count)
     row = {"shape": f"N {N}, K {K}, relu {relu}, dropout {dropout}",
+           "route": f"one launch, {stripes} stripes, db by the last block",
            "max_abs_err": err, "library_ms": None}
     if timed:
         # g (and out, with ReLU) read once, dZ and db written
@@ -970,6 +1012,18 @@ def phase4_kernels(torch, np, res):
                 2 ** 32 - 1, timed=False)
     print("phase 4: ragged shapes (AGG 37x7 D=6, 257x13 D=100; UPDATE "
           "257x24->47, 1000x100->130) within tolerance")
+    import hashlib
+    for (N, C, K, relu, drop), digest in C_PINNED:
+        prng = np.random.default_rng(N + C + K)
+        t = lambda *s: torch.as_tensor(  # noqa: E731
+            prng.normal(size=s).astype(np.float32), device=dev)
+        args = [t(N, C), t(N, C), t(C, K) * 0.1, t(C, K) * 0.1, t(K) * 0.1]
+        out = uf.update_fused_fwd(*args, relu=relu, dropout=drop, seed=12345)
+        check(hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+              == digest, f"phase 4: UPDATE {N}x{C}->{K} differs from C's "
+                         f"pinned output")
+    print(f"phase 4: UPDATE (C) bit-equal to its pinned output at "
+          f"{len(C_PINNED)} shapes")
     return rows
 
 
@@ -2401,11 +2455,19 @@ def main(argv=None) -> int:
                   "probe or lookup shapes share its launches")]
     rows[0]["launches_by_path"] = {
         "serve": launches["serve_fused_layer"], "sharded_serve": a_sharded}
+    rows[0]["bound_route"] = ("3xTF32 on the tensor cores (bound_ms), beside "
+                              "FFMA on the CUDA cores (bound_ffma_ms)")
+    rows[0]["library_call"] = ("torch.addmm(b, cat([mean, self], 1), cat([Wn, "
+                               "Ws], 0)), float32, TF32 off, the gather "
+                               "outside: the products and the bias only")
     rows[1]["launches_by_path"] = b_paths
     for name in ("update_fused_fwd", "update_fused_bwd", "sage_agg_fwd",
                  "sage_agg_bwd"):
         rows.append(summarize(name, rows4[name], launches4,
                               [1] * len(rows4[name]), layer_mean))
+    d_row = next(r for r in rows if r["name"] == "update_fused_bwd")
+    d_row["launch_scheme"] = ("one CUDA launch per call: the last block to "
+                              "finish sums the stripes' column sums")
     c_row = next(r for r in rows if r["name"] == "update_fused_fwd")
     c_row["bound_route"] = ("3xTF32 on the tensor cores (bound_ms), beside "
                             "FFMA on the CUDA cores (bound_ffma_ms)")

@@ -32,7 +32,8 @@
 // not used: the reference is float32.  D moves g, out and dZ (3*N*K
 // floats) and computes next to nothing: bound by bytes.
 //
-// Design of C (3xTF32 on mma.sync):
+// Design of C (3xTF32 on mma.sync; the split, the mma and the staging
+// helpers are in tf32x3.cuh, shared with kernel A):
 //  - a block computes a BM x 64 output tile with warps of 32 x 32 each
 //    (2 x 4 m16n8k8 tiles): 128 x 64 with 8 warps, or 32 x 64 with 2 warps
 //    where the large tile would leave SMs idle (the last layer, N ~ 1,000,
@@ -60,10 +61,17 @@
 //    (accn + accs + b), then ReLU and the dropout in registers before one
 //    store (two floats at a time where K is even); a kept value is
 //    multiplied by 1 / (1 - p) rather than divided (within an ulp).
-//  D: pass 1, one thread per column and a block per 128-row stripe,
-//     writes dZ and the stripe's column sums (coalesced along the row);
-//     pass 2, one block per column, sums the stripes in a fixed order and
-//     a fixed shared-memory tree: db is deterministic, no atomics.
+//  D, one launch: the wrapper picks a stripe count from N and the SM
+//     count (update_fused.bwd_stripes: two blocks per SM at large N, all
+//     resident at once, so no ragged last wave).  A block's threads own
+//     float4 column units (scalar ones where K % 4 != 0 or a base is not
+//     16-byte aligned), several threads per unit striding the stripe's
+//     rows with 8 rows' loads in flight; dZ is written as it is made and
+//     its column sums go to partial[stripe].  The last block to finish
+//     (a ticket taken after __threadfence) sums the partials in stripe
+//     order and re-zeroes the ticket, which the wrapper keeps per device
+//     and stream: db is deterministic, no float atomics and no second
+//     launch.
 // What paces C is the instruction stream around the products (the
 // splits, the staging, the epilogue), not the tensor cores: a trial with
 // wgmma (A split in registers, W split into K-major hi/lo planes in
@@ -71,11 +79,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int RB = 128;           // rows per stripe in the backward
 constexpr int THREADS = 256;      // threads of a backward stripe block
-constexpr int RED = 256;          // threads of the column reduction
+constexpr int ROWS_IN_FLIGHT = 8; // rows a backward thread loads at once
+constexpr int SUMS_IN_FLIGHT = 16;  // stripe partials the last block loads
 
 // kernel C's tiling
 constexpr int BK = 32;            // depth of one staged step
@@ -94,54 +104,6 @@ __device__ __forceinline__ float hash_u01(uint32_t row, uint32_t col,
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
   return (float)(h >> 8) / 16777216.0f;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// cp.async of `bytes` (4 or 16) bytes, or that many zeros when !pred.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool pred) {
-  if (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(pred ? 16 : 0));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(pred ? 4 : 0));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away: add half
-// of the 13 dropped bits, then drop them), lo the exact remainder, whose
-// own low 13 bits the tensor cores ignore.  Two integer ops and a
-// subtract: cvt.rna.tf32.f32 issues at the conversion rate, and the split
-// runs for every fragment element.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Stage step s: A[m0:m0+BM, k0:k0+BK] and B[k0:k0+BK, n0:n0+BN] of the
@@ -168,61 +130,6 @@ __device__ __forceinline__ void load_step(
     const int k = k0 + r, n = n0 + c;
     const bool p = k < C && n < K;
     cp_async<VW * 4>(Bs + r * B_LD + c, p ? B + (size_t)k * K + n : B, p);
-  }
-}
-
-// acc += the warp's [WM, WN] tile of As @ Bs over one staged step.  The
-// tensor cores add into their float32 accumulator by truncation, so over
-// a long sum (3 * C / 8 mma) the error grows with the number of adds; the
-// step's products are summed in a fresh accumulator and added to acc on
-// the CUDA cores, rounded to nearest.
-__device__ __forceinline__ void mma_step(const float* As, const float* Bs,
-                                         float (&acc)[MT][NT][4], int wm,
-                                         int wn, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  float part[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 8) {
-    uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const float* a = As + (wm + 16 * i + g) * A_LD + kk + t;
-      split_tf32(a[0], ah[i][0], al[i][0]);
-      split_tf32(a[8 * A_LD], ah[i][1], al[i][1]);
-      split_tf32(a[4], ah[i][2], al[i][2]);
-      split_tf32(a[8 * A_LD + 4], ah[i][3], al[i][3]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float* b = Bs + (kk + t) * B_LD + wn + 8 * j + g;
-      split_tf32(b[0], bh[j][0], bl[j][0]);
-      split_tf32(b[4 * B_LD], bh[j][1], bl[j][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        mma_tf32(part[i][j], al[i], bh[j]);
-        mma_tf32(part[i][j], ah[i], bl[j]);
-        mma_tf32(part[i][j], ah[i], bh[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
-    }
   }
 }
 
@@ -279,7 +186,8 @@ update_fwd_kernel(const float* __restrict__ agg,
     }
     cp_async_commit();
     const float* As = smem + (s % STAGES) * STAGE;
-    mma_step(As, As + BM * A_LD, acc, wm, wn_, lane);
+    mma_step<MT, NT, BK>(As, A_LD, As + BM * A_LD, B_LD, acc, wm, wn_,
+                         lane);
     if (s == KT - 1) {            // agg @ Wn done: stash it, start self @ Ws
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -380,48 +288,173 @@ int launch_fwd(const float* agg, const float* self_h, const float* wn,
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
-__global__ void __launch_bounds__(THREADS)
-update_bwd_stripes_kernel(const float* __restrict__ g,
-                          const float* __restrict__ out,
-                          float* __restrict__ dz, float* __restrict__ partial,
-                          int N, int K, int relu, float p, float keep_div,
-                          uint32_t seed) {
-  const int n = blockIdx.y * THREADS + threadIdx.x;
-  if (n >= K) return;
-  const int r0 = blockIdx.x * RB;
-  const int r1 = min(r0 + RB, N);
-  float colsum = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const size_t at = (size_t)r * K + n;
-    const float gv = g[at];
-    float d;
-    if (relu) {
-      d = out[at] > 0.f ? (p > 0.f ? gv / keep_div : gv) : 0.f;
-    } else if (p > 0.f) {
-      d = hash_u01((uint32_t)r, (uint32_t)n, seed) >= p ? gv / keep_div : 0.f;
-    } else {
-      d = gv;
-    }
-    dz[at] = d;
-    colsum += d;
+// The columns a backward thread owns: units of VW floats, CU of them per
+// pass of the block (VW = 4 where K % 4 == 0 and the tensors are 16-byte
+// aligned), and TR threads per unit striding the rows.
+template <int VW>
+struct Units {
+  int U, CU, TR, cu, tr;
+  __device__ __forceinline__ Units(int K) {
+    U = K / VW;
+    CU = min(U, THREADS);
+    TR = THREADS / CU;
+    cu = threadIdx.x % CU;
+    tr = threadIdx.x / CU;
   }
-  partial[(size_t)blockIdx.x * K + n] = colsum;
+};
+
+template <int VW> struct Vec;
+template <> struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T ld(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ T ldcg(const float* p) {
+    return __ldcg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void st(float* p, T v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+  static __device__ __forceinline__ T zero() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  static __device__ __forceinline__ float& at(T& v, int e) {
+    return (&v.x)[e];
+  }
+  static __device__ __forceinline__ void add(T& a, const T& b) {
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+};
+template <> struct Vec<1> {
+  using T = float;
+  static __device__ __forceinline__ T ld(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ T ldcg(const float* p) {
+    return __ldcg(p);
+  }
+  static __device__ __forceinline__ void st(float* p, T v) { *p = v; }
+  static __device__ __forceinline__ T zero() { return 0.f; }
+  static __device__ __forceinline__ float& at(T& v, int) { return v; }
+  static __device__ __forceinline__ void add(T& a, const T& b) { a += b; }
+};
+
+// dZ of one element: the true division g / keep_div, as the plain version
+// divides (a reciprocal would differ in the last bit).
+__device__ __forceinline__ float dz_of(float gv, float ov, uint32_t r,
+                                       uint32_t c, int relu, float p,
+                                       float keep_div, uint32_t seed) {
+  if (relu) return ov > 0.f ? (p > 0.f ? gv / keep_div : gv) : 0.f;
+  if (p > 0.f) return hash_u01(r, c, seed) >= p ? gv / keep_div : 0.f;
+  return gv;
 }
 
-__global__ void __launch_bounds__(RED)
-column_sum_kernel(const float* __restrict__ partial, float* __restrict__ db,
-                  int stripes, int K) {
-  __shared__ float s[RED];
-  const int n = blockIdx.x;
-  float v = 0.f;
-  for (int i = threadIdx.x; i < stripes; i += RED) v += partial[(size_t)i * K + n];
-  s[threadIdx.x] = v;
-  __syncthreads();
-  for (int w = RED / 2; w > 0; w /= 2) {
-    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+// Kernel D.  Block b owns rows [b * rows, (b + 1) * rows): it writes their
+// dZ and its column sums into partial[b]; the last block to finish (a
+// ticket taken after __threadfence) sums the stripes' partials in stripe
+// order into db and sets the ticket back to 0 for the next launch.  Every
+// sum is taken in an order fixed by N, K and the grid: db is
+// deterministic, with no float atomics.
+template <int VW>
+__global__ void __launch_bounds__(THREADS)
+update_bwd_kernel(const float* __restrict__ g, const float* __restrict__ out,
+                  float* __restrict__ dz, float* __restrict__ db,
+                  float* __restrict__ partial, unsigned* __restrict__ ticket,
+                  int N, int K, int rows, int relu, float p, float keep_div,
+                  uint32_t seed) {
+  using V = Vec<VW>;
+  using T = typename V::T;
+  __shared__ T red[THREADS];
+  __shared__ bool last;
+  const Units<VW> u(K);
+  const bool on = u.tr < u.TR;
+  const int r0 = blockIdx.x * rows;
+  const int r1 = min(r0 + rows, N);
+  const int step = u.TR * ROWS_IN_FLIGHT;
+  for (int c0 = 0; c0 < u.U; c0 += u.CU) {
+    const int c = c0 + u.cu;
+    const bool col = on && c < u.U;
+    T sum = V::zero();
+    if (col) {
+      for (int rb = r0 + u.tr; rb < r1; rb += step) {
+        T gv[ROWS_IN_FLIGHT], ov[ROWS_IN_FLIGHT];
+#pragma unroll
+        for (int k = 0; k < ROWS_IN_FLIGHT; ++k) {
+          const int r = rb + k * u.TR;
+          if (r < r1) {
+            const size_t at = (size_t)r * K + (size_t)c * VW;
+            gv[k] = V::ld(g + at);
+            ov[k] = relu ? V::ld(out + at) : V::zero();
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < ROWS_IN_FLIGHT; ++k) {
+          const int r = rb + k * u.TR;
+          if (r < r1) {
+            T d;
+#pragma unroll
+            for (int e = 0; e < VW; ++e) {
+              V::at(d, e) = dz_of(V::at(gv[k], e), V::at(ov[k], e),
+                                  (uint32_t)r, (uint32_t)(c * VW + e), relu,
+                                  p, keep_div, seed);
+            }
+            V::st(dz + (size_t)r * K + (size_t)c * VW, d);
+            V::add(sum, d);
+          }
+        }
+      }
+    }
+    // the stripe's column sums: the TR row lanes of a unit, in order
+    red[threadIdx.x] = sum;
+    __syncthreads();
+    if (col && u.tr == 0) {
+      T s = red[u.cu];
+      for (int i = 1; i < u.TR; ++i) V::add(s, red[i * u.CU + u.cu]);
+      V::st(partial + (size_t)blockIdx.x * K + (size_t)c * VW, s);
+    }
     __syncthreads();
   }
-  if (threadIdx.x == 0) db[n] = s[0];
+
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: db = the stripes' partials summed in stripe order,
+  // lane tr of a unit taking stripes tr, tr + TR, ... (SUMS_IN_FLIGHT
+  // loads at once), then the lanes in order
+  const int S = gridDim.x;
+  for (int c0 = 0; c0 < u.U; c0 += u.CU) {
+    const int c = c0 + u.cu;
+    const bool col = on && c < u.U;
+    T sum = V::zero();
+    if (col) {
+      for (int sb = u.tr; sb < S; sb += u.TR * SUMS_IN_FLIGHT) {
+        T v[SUMS_IN_FLIGHT];
+#pragma unroll
+        for (int k = 0; k < SUMS_IN_FLIGHT; ++k) {
+          const int st = sb + k * u.TR;
+          v[k] = st < S ? V::ldcg(partial + (size_t)st * K + (size_t)c * VW)
+                        : V::zero();
+        }
+#pragma unroll
+        for (int k = 0; k < SUMS_IN_FLIGHT; ++k) {
+          if (sb + k * u.TR < S) V::add(sum, v[k]);
+        }
+      }
+    }
+    red[threadIdx.x] = sum;
+    __syncthreads();
+    if (col && u.tr == 0) {
+      T s = red[u.cu];
+      for (int i = 1; i < u.TR; ++i) V::add(s, red[i * u.CU + u.cu]);
+      V::st(db + (size_t)c * VW, s);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 }  // namespace
@@ -455,20 +488,29 @@ extern "C" int update_fused_fwd(const void* agg, const void* self_h,
                                     keep_div, seed, st);
 }
 
-// Kernel D.  `partial` is scratch of ceil(N / 128) * K floats; `out` is
-// read only with relu (may be null without).
+// Kernel D, one launch.  `partial` is scratch of `stripes` * K floats;
+// `ticket` one unsigned that is 0 before the launch (the launch leaves it
+// 0); `out` is read only with relu (may be null without).
 extern "C" int update_fused_bwd(const void* g, const void* out, void* dz,
-                                void* db, void* partial, int N, int K,
-                                int relu, float p, float keep_div,
-                                uint32_t seed, void* stream) {
-  const int stripes = (N + RB - 1) / RB;
-  const dim3 grid(stripes, (K + THREADS - 1) / THREADS);
-  update_bwd_stripes_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)out, (float*)dz, (float*)partial, N, K,
-      relu, p, keep_div, seed);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  column_sum_kernel<<<K, RED, 0, (cudaStream_t)stream>>>(
-      (const float*)partial, (float*)db, stripes, K);
+                                void* db, void* partial, void* ticket, int N,
+                                int K, int relu, float p, float keep_div,
+                                uint32_t seed, int stripes, void* stream) {
+  const bool vec = K % 4 == 0 && aligned16(g) && aligned16(dz)
+                   && aligned16(partial) && aligned16(db)
+                   && (!relu || aligned16(out));
+  const int rows = (N + stripes - 1) / stripes;
+  const int grid = (N + rows - 1) / rows;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec) {
+    update_bwd_kernel<4><<<grid, THREADS, 0, st>>>(
+        (const float*)g, (const float*)out, (float*)dz, (float*)db,
+        (float*)partial, (unsigned*)ticket, N, K, rows, relu, p, keep_div,
+        seed);
+  } else {
+    update_bwd_kernel<1><<<grid, THREADS, 0, st>>>(
+        (const float*)g, (const float*)out, (float*)dz, (float*)db,
+        (float*)partial, (unsigned*)ticket, N, K, rows, relu, p, keep_div,
+        seed);
+  }
   return (int)cudaGetLastError();
 }

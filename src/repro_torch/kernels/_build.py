@@ -4,10 +4,12 @@ operands handed to them.
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into
 ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout, the
-digest covering the source and the flags, so an edited source is never
-served from a stale library.  Kernels are built and loaded only inside
-the calls that launch them, never when a module is imported; a failed
-build raises, with nvcc's output.
+digest covering the source, every ``csrc/`` header it includes (``#include
+"x.cuh"``, followed through the headers' own includes) and the flags, so
+an edited source or header is never served from a stale library.
+Kernels are built and loaded only inside the calls that launch them,
+never when a module is imported; a failed build raises, with nvcc's
+output.
 
 ``build(names)`` compiles several sources at once, one nvcc each, all
 started together (``chip_smoke.py`` uses it before its first launch).
@@ -17,11 +19,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -29,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 Signature = Tuple[Sequence, object]          # (argtypes, restype)
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -49,11 +53,28 @@ def nvcc_path() -> str:
         "kernels can only be built where the CUDA toolkit is installed")
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes from ``csrc/``,
+    each once, in the order they are first included."""
+    order: List[Path] = []
+
+    def visit(path: Path):
+        if path in order:
+            return
+        order.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            visit(CSRC / inc.decode())
+
+    visit(CSRC / f"{name}.cu")
+    return order
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> None:

@@ -9,6 +9,8 @@ Kernel C runs both products on the tensor cores, float32-accurate by the
 whose backward launches kernel D and leaves the four matrix products of
 the gradient to ``torch.matmul``, computing only those its inputs need
 (layer 0 needs no ``dagg``/``dself``: its inputs are the features).
+Kernel D is one launch over :func:`bwd_stripes` row stripes, its column
+sums finished by the last block in a fixed order.
 
 The wrappers launch the kernels for CUDA tensors and run the plain
 versions ``fused_update_ref``/``fused_update_bwd_ref`` (re-exported here)
@@ -26,15 +28,14 @@ from repro_torch.kernels.ref import fused_update_bwd_ref, fused_update_ref
 
 __all__ = ["fused_update", "update_fused_fwd", "update_fused_bwd",
            "fused_update_ref", "fused_update_bwd_ref", "fwd_route",
-           "fwd_tile"]
+           "fwd_tile", "bwd_stripes"]
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_uint32
 _SIGNATURES = {
     "update_fused_fwd": ([_P] * 6 + [_I] * 4 + [_F, _F, _U, _I, _P], _I),
-    "update_fused_bwd": ([_P] * 5 + [_I] * 3 + [_F, _F, _U, _P], _I),
+    "update_fused_bwd": ([_P] * 6 + [_I] * 3 + [_F, _F, _U, _I, _P], _I),
 }
-RB = 128                         # rows per stripe of kernel D's column sum
 _U32 = 0xFFFFFFFF
 TILES = {1: (128, 64), 0: (32, 64)}  # kernel C's block tiles (rows, columns)
 
@@ -46,6 +47,30 @@ def fwd_tile(N: int, K: int, sms: int) -> int:
     big = TILES[1]
     blocks = -(-N // big[0]) * -(-K // big[1])
     return 1 if blocks >= sms else 0
+
+
+BWD_ROWS_MIN = 32                # fewest rows in one of kernel D's stripes
+BWD_BLOCKS_PER_SM = 2            # kernel D's stripes per SM at large N
+
+
+def bwd_stripes(N: int, sms: int) -> int:
+    """Kernel D's row stripes (one block each) for ``N`` rows on a card
+    of ``sms`` SMs: two per SM, all resident at once, unless that leaves
+    a stripe under 32 rows."""
+    return max(1, min(N // BWD_ROWS_MIN, BWD_BLOCKS_PER_SM * sms))
+
+
+# kernel D's ticket, one zeroed counter per (device, stream): each launch
+# leaves it 0 again, and launches on one stream never overlap
+_tickets = {}
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
 
 
 def fwd_route(N: int, K: int, sms: int) -> str:
@@ -125,13 +150,16 @@ def update_fused_bwd(g: torch.Tensor, out: torch.Tensor, *, relu: bool = True,
     if N == 0 or K == 0:
         return dz, torch.zeros(K, dtype=torch.float32, device=dev)
     db = torch.empty(K, dtype=torch.float32, device=dev)
-    partial = torch.empty((-(-N // RB), K), dtype=torch.float32, device=dev)
+    stripes = bwd_stripes(N, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    partial = torch.empty((stripes, K), dtype=torch.float32, device=dev)
     lib = _build.load("update_fused", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.update_fused_bwd(
             g.data_ptr(), out.data_ptr(), dz.data_ptr(), db.data_ptr(),
-            partial.data_ptr(), N, K, int(relu), p, keep_div, seed, stream)
+            partial.data_ptr(), _ticket(dev, stream).data_ptr(), N, K,
+            int(relu), p, keep_div, seed, stripes, stream)
     if rc != 0:
         raise RuntimeError(f"update_fused_bwd: launch failed with CUDA "
                            f"error {rc}")

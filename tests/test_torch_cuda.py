@@ -11,15 +11,18 @@ Tolerance: the serve layer, UPDATE (forward and backward), AGG and GAT
 AGG sum float32 in another order than their plain versions, and the AGG
 and GAT AGG gradients add with atomics in a run-dependent order, so
 |kernel - plain| <= 1e-4 * max(1, |plain|); the dropout's zero pattern,
-the HEC probe + load (single and batched) and the fanout draw are held
-bit for bit.
+UPDATE's dZ (and its db from one call to the next), the HEC probe + load
+(single and batched) and the fanout draw are held bit for bit, and
+UPDATE's forward bit for bit to its pinned outputs.
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.cache import hec
-from repro_torch.kernels import (gat_edge, hec_search, ref, sage_agg,
+from repro_torch.kernels import (_build, gat_edge, hec_search, ref, sage_agg,
                                  sample_draw, serve_fused, update_fused)
 
 pytestmark = pytest.mark.cuda
@@ -52,10 +55,21 @@ def serve_inputs(dev, seed, N, M, f, D, K, self_idx):
         if self_idx else None)
 
 
-@pytest.mark.parametrize("N,M,f,D,K", [
+# kernel A: every form serve_tile picks on an H100 (64, 32 or 16 rows, all
+# column tiles or one), with float4 and scalar gathers (D or K off 4),
+# D = 400, ragged K and M, f from 3 to 77, the serving paths' shapes
+SERVE_SHAPES = [
     (64, 16, 5, 32, 32), (300, 37, 7, 24, 47), (257, 64, 3, 16, 130),
     (40, 40, 9, 8, 5), (2000, 512, 10, 256, 172), (1200, 100, 4, 400, 300),
-    (100000, 2048, 77, 128, 256)])
+    (100000, 2048, 77, 128, 256), (1024, 64, 15, 256, 172),
+    (100000, 2048, 77, 256, 256), (500, 100, 5, 6, 128),
+    (67584, 11264, 5, 128, 256), (5000, 2048, 9, 128, 320),
+    (30000, 4224, 6, 100, 66), (20000, 11264, 5, 130, 256),
+    (30000, 4224, 6, 128, 64), (5000, 2048, 9, 130, 320),
+    (10000, 2048, 12, 128, 130)]
+
+
+@pytest.mark.parametrize("N,M,f,D,K", SERVE_SHAPES)
 @pytest.mark.parametrize("self_idx", [False, True])
 @pytest.mark.parametrize("relu", [True, False])
 def test_serve_kernel_matches_plain(dev, N, M, f, D, K, self_idx, relu):
@@ -65,6 +79,43 @@ def test_serve_kernel_matches_plain(dev, N, M, f, D, K, self_idx, relu):
     torch.cuda.synchronize()
     assert serve_fused.serve_fused_layer.launches == before + 1
     assert close(got, ref.serve_layer_ref(relu=relu, **kw))
+
+
+def test_serve_takes_every_form(dev):
+    """SERVE_SHAPES reach every (rows, column tiles) form of kernel A, each
+    with the float4 gather and the scalar one."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    forms = set()
+    for _, M, _, D, K in SERVE_SHAPES:
+        bm, tiles = serve_fused.serve_tile(M, K, D, sms)
+        forms.add((bm, tiles == -(-K // 64), D % 4 == 0 and K % 4 == 0))
+    assert forms == {(bm, every, vec) for bm in serve_fused.BMS
+                     for every in (True, False) for vec in (True, False)}
+
+
+@pytest.mark.parametrize("N,M,f,D,K", [(67584, 11264, 5, 128, 256),
+                                       (100000, 2048, 77, 256, 256),
+                                       (1024, 64, 15, 256, 172)])
+def test_serve_kernel_takes_unaligned_h(dev, N, M, f, D, K):
+    """An h view 4 bytes off a 16-byte boundary takes the scalar gather
+    and gives what the aligned copy gives, within tolerance."""
+    kw = serve_inputs(dev, N + D, N, M, f, D, K, True)
+    base = torch.empty(N * D + 1, device=dev)
+    h = base[1:].view(N, D)
+    h.copy_(kw["h_src"])
+    assert h.data_ptr() % 16 == 4 and h.is_contiguous()
+    got = serve_fused.serve_fused_layer(**{**kw, "h_src": h})
+    want = serve_fused.serve_fused_layer(**kw)
+    torch.cuda.synchronize()
+    assert close(got, ref.serve_layer_ref(**kw)) and close(got, want)
+
+
+def test_serve_smem_matches_the_source(dev):
+    """The wrapper's shared-memory sizes are the kernel's own."""
+    lib = _build.load("serve_fused", serve_fused._SIGNATURES)
+    for bm in serve_fused.BMS:
+        for D in (5, 6, 128, 172, 256, 400, 1000):
+            assert lib.serve_fused_smem(bm, D) == serve_fused.smem_bytes(bm, D)
 
 
 def filled_state(dev, seed, cache_size, ways, d):
@@ -344,6 +395,69 @@ def test_update_fwd_takes_both_tiles(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert {update_fused.fwd_tile(N, K, sms)
             for N, _, K in UPDATE_TILE_SHAPES} == {0, 1}
+
+
+# kernel C's output on pinned inputs, as the kernel gave it on an H100
+# before its 3xTF32 helpers moved into csrc/tf32x3.cuh (SHA-256 of the
+# float32 bytes): both tiles, both copy widths, with and without dropout
+C_PINNED = [
+    ((17001, 256, 256, True, 0.1),
+     "35930f6aed084ade7e76f20625e439c7346f73fbb7930c19ebf333002f8f0807"),
+    ((1000, 256, 172, False, 0.0),
+     "7266dfd4337d180bee09fc7814a2fe422cfee76751e6f36e861c8a325dd7715d"),
+    ((1001, 100, 130, False, 0.3),
+     "a93244ebe3a2f34929c9ac9dbcac155c3f551b94434c17412afdf9e06d50035c")]
+
+
+@pytest.mark.parametrize("shape,digest", C_PINNED)
+def test_update_fwd_bitmatches_pinned_output(dev, shape, digest):
+    N, C, K, relu, dropout = shape
+    rng = np.random.default_rng(N + C + K)
+    t = lambda *s: torch.as_tensor(  # noqa: E731
+        rng.normal(size=s).astype(np.float32), device=dev)
+    args = [t(N, C), t(N, C), t(C, K) * 0.1, t(C, K) * 0.1, t(K) * 0.1]
+    out = update_fused.update_fused_fwd(*args, relu=relu, dropout=dropout,
+                                        seed=12345)
+    got = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    assert got == digest
+
+
+@pytest.mark.parametrize("N", [1000, 16000, 17001])
+@pytest.mark.parametrize("K", [172, 256, 130])
+@pytest.mark.parametrize("relu,dropout", [(True, 0.1), (True, 0.0),
+                                          (False, 0.3), (False, 0.0)])
+def test_update_bwd_matches_plain_and_repeats(dev, N, K, relu, dropout):
+    """Kernel D: dZ bit for bit the plain version's, db within tolerance
+    of it and bit for bit the same over two calls (a fixed order, no
+    float atomics); one wrapper call per launch count."""
+    gen = torch.Generator(device=dev).manual_seed(N + K)
+    g = torch.randn(N, K, generator=gen, device=dev)
+    out = torch.randn(N, K, generator=gen, device=dev)
+    if relu:
+        out = torch.relu(out)
+    kw = dict(relu=relu, dropout=dropout, seed=2 ** 32 - 5)
+    before = update_fused.update_fused_bwd.launches
+    dz, db = update_fused.update_fused_bwd(g, out, **kw)
+    dz2, db2 = update_fused.update_fused_bwd(g, out, **kw)
+    dz_p, db_p = ref.fused_update_bwd_ref(g, out, **kw)
+    torch.cuda.synchronize()
+    assert update_fused.update_fused_bwd.launches == before + 2
+    assert torch.equal(dz, dz_p) and torch.equal(dz2, dz_p)
+    assert close(db, db_p)
+    assert torch.equal(db.view(torch.int32), db2.view(torch.int32))
+
+
+def test_update_bwd_takes_unaligned_g(dev):
+    """A g view off a 16-byte boundary takes the scalar path: dZ still bit
+    for bit the plain version's."""
+    N, K = 16000, 256
+    base = torch.randn(N * K + 1, device=dev)
+    g = base[1:].view(N, K)
+    out = torch.relu(torch.randn(N, K, device=dev))
+    dz, db = update_fused.update_fused_bwd(g, out, dropout=0.1, seed=3)
+    dz_p, db_p = ref.fused_update_bwd_ref(g, out, dropout=0.1, seed=3)
+    torch.cuda.synchronize()
+    assert torch.equal(dz, dz_p) and close(db, db_p)
 
 
 AGG_SHAPES = [(100, 30, 5, 32), (333, 64, 9, 64), (50, 50, 1, 128),
