@@ -37,8 +37,12 @@ layer) and phase 8 at both:
      the layer shapes of that run's minibatches and at a ragged shape, and
      the HEC probe at the training lookup shapes on the run's own caches,
      timed with their bounds, C with its 3xTF32 and FFMA bounds and a
-     float32 ``addmm`` yardstick, D's ``db`` bit-equal over two calls,
-     and C bit-equal to its pinned outputs (``C_PINNED``); (c) the first two steps of (b), from
+     float32 ``addmm`` yardstick, E with the form it took (rows and
+     column slice a warp) and an ``embedding_bag`` yardstick, D's ``db``
+     bit-equal over two calls, C bit-equal to its pinned outputs
+     (``C_PINNED``) and E to its first design's (``E_PINNED``: layer 0,
+     the offline width of 77 slots at D 256, and a ragged D = 6 on the
+     scalar path); (c) the first two steps of (b), from
      the same state (the reference's initial weights) and minibatches,
      once more on the card and on the CPU through the plain versions,
      each drawing the reference's selection uniforms (the card's draw
@@ -81,7 +85,9 @@ layer) and phase 8 at both:
      minibatch on rank 0's partition under all three policies and at
      ragged shapes (-1 rows, halos, ``allow=False``, ``deg == f`` and
      ``deg < f``, a multi-edge row, width < f, n off a multiple of 32),
-     each timed with its bound; (c) the minibatches of (b)'s first two
+     each timed with its bound and printed with its tile size, each layer
+     shape also with only its take-all (and empty) rows allowed and with
+     only its selection rows allowed; (c) the minibatches of (b)'s first two
      steps and of epoch 1's first, drawn again on the card and on the CPU
      through the plain draw: every ``stack_ranks`` array equal; and the
      host draw's share of a host-drawn ``sample_host`` of the first step;
@@ -216,6 +222,17 @@ C_PINNED = [
      "7266dfd4337d180bee09fc7814a2fe422cfee76751e6f36e861c8a325dd7715d"),
     ((1001, 100, 130, False, 0.3),
      "a93244ebe3a2f34929c9ac9dbcac155c3f551b94434c17412afdf9e06d50035c")]
+# kernel E's mean and count on pinned inputs (SHA-256 of the float32 bytes
+# of mean, then of cnt; inputs from pinned_agg_inputs) as its first design
+# (one warp per dst row) gave them: layer 0 of the training path, the
+# offline width (77 slots) at D 256, and a ragged D = 6 (the scalar path)
+E_PINNED = [
+    ((1_056_000, 176_000, 5, 128),
+     "df3bca4fa4492d9f49d328fdb7ae6f8f1e5f3a72ec6ddac34e29faff92a08767"),
+    ((100_000, 2048, 77, 256),
+     "013b582a8d3ac5b0b19c72b7ae6157633075f9f87fed49a54d936abcea4bcfa4"),
+    ((300, 37, 7, 6),
+     "0d886f3041398c35957efb879347c7391cc98204923e53999ac6f0f7fb810d59")]
 TRAIN_VERTICES = 400_000
 TRAIN_ARGS = ["gnn", "--ranks", "4", "--degree", "10", "--classes", "172",
               "--feat-dim", "128", "--hidden", "256", "--layers", "3",
@@ -764,6 +781,33 @@ def close_to(got, want):
         float(err.max()) if err.numel() else 0.0
 
 
+def pinned_agg_inputs(np, N, M, f, D):
+    """Kernel E's pinned inputs (``E_PINNED``): normals, indices in [-1, N
+    + 2) (past the last row they clamp to it), 85% of the rows valid, row
+    0 all -1."""
+    rng = np.random.default_rng(N + M + f + D)
+    h = rng.normal(size=(N, D)).astype(np.float32)
+    nbr = rng.integers(-1, N + 2, (M, f)).astype(np.int32)
+    nbr[0] = -1
+    return h, nbr, rng.random(N) > 0.15
+
+
+def agg_digest(mean, cnt) -> str:
+    import hashlib
+    return hashlib.sha256(mean.cpu().numpy().tobytes()
+                          + cnt.cpu().numpy().tobytes()).hexdigest()
+
+
+def agg_route(torch, sa, h, nbr):
+    """The form kernel E takes for these operands, as printed."""
+    rows, slice_ = sa.agg_form(*nbr.shape, h.shape[1],
+                               torch.cuda.get_device_properties(
+                                   h.device).multi_processor_count)
+    vec = h.shape[1] % 4 == 0 and h.data_ptr() % 16 == 0
+    return (f"{rows} rows x {slice_} columns a warp, "
+            f"{'float4' if vec else 'float'}")
+
+
 def agg_case(torch, sa, ref, name, h, nbr, valid, timed=True):
     mean, cnt = sa.sage_agg_fwd(h, nbr, valid)
     torch.cuda.synchronize()
@@ -774,7 +818,8 @@ def agg_case(torch, sa, ref, name, h, nbr, valid, timed=True):
     check(torch.equal(cnt, want_cnt), f"{name}: AGG counts differ")
     N, D = h.shape
     M, f = nbr.shape
-    row = {"shape": f"h {N}x{D}, nbr {M}x{f}", "max_abs_err": err}
+    row = {"shape": f"h {N}x{D}, nbr {M}x{f}", "max_abs_err": err,
+           "route": agg_route(torch, sa, h, nbr)}
     if timed:
         # each included row of h read once, the valid flag of each slot,
         # nbr, the mean and count written; one add per included element
@@ -1024,6 +1069,17 @@ def phase4_kernels(torch, np, res):
                          f"pinned output")
     print(f"phase 4: UPDATE (C) bit-equal to its pinned output at "
           f"{len(C_PINNED)} shapes")
+    for shape, digest in E_PINNED:
+        hn, nn, vn = pinned_agg_inputs(np, *shape)
+        h, nbr = (torch.as_tensor(a, device=dev) for a in (hn, nn))
+        mean, cnt = sa.sage_agg_fwd(h, nbr, torch.as_tensor(vn, device=dev))
+        check(agg_digest(mean, cnt) == digest,
+              f"phase 4: AGG (E) at (N, M, f, D) = {shape} differs from its "
+              f"pinned output")
+        print(f"phase 4: AGG (E) (N, M, f, D) = {shape} "
+              f"[{agg_route(torch, sa, h, nbr)}]: bit-equal to its pinned "
+              f"output")
+        del h, nbr, mean, cnt
     return rows
 
 
@@ -1607,8 +1663,10 @@ def card_csr(torch, np, indptr, indices, weights, num_solid):
 
 
 def draw_case(torch, np, sd, ref, name, csr, cur, f, policy, seed,
-              allow=None, timed=True):
-    """Kernel I vs its plain version on one input, bit for bit; a row."""
+              allow=None, timed=True, split=False):
+    """Kernel I vs its plain version on one input, bit for bit; a row.
+    ``split`` also times the kernel with only the take-all (and empty)
+    rows allowed and with only the selection rows allowed."""
     dev = torch.device("cuda")
     cur_t = torch.as_tensor(np.asarray(cur).astype(np.int32), device=dev)
     allow_t = None if allow is None else torch.as_tensor(allow, device=dev)
@@ -1622,8 +1680,11 @@ def draw_case(torch, np, sd, ref, name, csr, cur, f, policy, seed,
           f"{name} ({policy}): kernel I differs from the plain draw in "
           f"{int((got != want).sum())} of {want.numel()} entries")
     n = cur_t.shape[0]
+    group = sd.draw_group(n, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     row = {"shape": f"cur {n}, f {f}, {policy}", "policy": policy,
-           "max_abs_err": 0.0, "library_ms": None}
+           "route": f"tiles of {group} rows", "max_abs_err": 0.0,
+           "library_ms": None}
     if timed:
         # what this input needs: cur (and allow) and the output per row,
         # two indptr words per valid row, each candidate's index once, and
@@ -1645,6 +1706,11 @@ def draw_case(torch, np, sd, ref, name, csr, cur, f, policy, seed,
             torch, lambda: sd.sample_draw(*args, **kw))
         row["plain_ms"] = time_blocking_ms(
             torch, lambda: ref.draw_neighbors(*args, **kw))
+        if split:
+            for half, a in (("take_all_ms", deg <= f), ("selection_ms",
+                                                        deg > f)):
+                row[half], _ = time_ms(torch, lambda: sd.sample_draw(
+                    *args[:5], a.contiguous(), **kw))
     return row
 
 
@@ -1742,13 +1808,16 @@ def phase7_kernels(torch, np, res):
         for k in range(cfg.num_layers - 1, -1, -1):
             cur = host["layer_nodes"][k + 1][0]
             row = draw_case(torch, np, sd, ref, f"layer {k}", csr, cur,
-                            cfg.fanouts[k], policy, draw_seed(0, 0, 0, 0, k))
+                            cfg.fanouts[k], policy, draw_seed(0, 0, 0, 0, k),
+                            split=True)
             print(f"phase 7 (a): sample_draw (I) layer {k} {row['shape']} "
-                  f"({row['candidates']} candidates): bit-exact; device ms "
-                  f"kernel {row['ms']:.4f}, plain {row['plain_ms']:.4f} "
-                  f"(blocking), bound {row['bound_ms']:.5f} "
-                  f"({row['bound_by']}); per call kernel "
-                  f"{row['call_ms']:.4f}")
+                  f"[{row['route']}] ({row['candidates']} candidates): "
+                  f"bit-exact; device ms kernel {row['ms']:.4f} (take-all "
+                  f"rows alone {row['take_all_ms']:.4f}, selection rows "
+                  f"alone {row['selection_ms']:.4f}), plain "
+                  f"{row['plain_ms']:.4f} (blocking), bound "
+                  f"{row['bound_ms']:.5f} ({row['bound_by']}); per call "
+                  f"kernel {row['call_ms']:.4f}")
             if policy == "cv":
                 rows.append(row)
     # ragged: -1 rows, halos, allow=False, deg == f and deg < f, a
@@ -1767,8 +1836,8 @@ def phase7_kernels(torch, np, res):
                 row = draw_case(torch, np, sd, ref, f"ragged {S}x{max_deg}",
                                 small, cur, f, policy, 0xF00DCAFE, a)
                 print(f"phase 7 (a): sample_draw (I) ragged S {S}, degree "
-                      f"<= {max_deg}, {row['shape']}, allow "
-                      f"{a is not None}: bit-exact; device ms kernel "
+                      f"<= {max_deg}, {row['shape']} [{row['route']}], "
+                      f"allow {a is not None}: bit-exact; device ms kernel "
                       f"{row['ms']:.4f}, bound {row['bound_ms']:.5f}")
     return rows
 

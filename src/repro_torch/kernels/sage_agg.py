@@ -3,6 +3,8 @@ CUDA kernels (``csrc/sage_agg.cu``): the forward (kernel E) and its
 gradient with respect to ``h_src`` (kernel F).
 
 Replaces the TPU kernel ``repro/kernels/sage_agg.py:sage_agg``.
+:func:`agg_form` is the host's one choice for E: the dst rows and the
+column slice a warp owns, from the shape and the card's SM count.
 :func:`sage_agg` is differentiable in ``h_src``: a
 ``torch.autograd.Function`` that keeps E's neighbor count for the
 backward.  Autograd calls the backward only where ``h_src`` needs a
@@ -22,14 +24,35 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sage_agg_bwd_ref, sage_agg_ref
 
-__all__ = ["sage_agg", "sage_agg_fwd", "sage_agg_bwd", "sage_agg_ref",
-           "sage_agg_bwd_ref"]
+__all__ = ["sage_agg", "sage_agg_fwd", "sage_agg_bwd", "agg_form",
+           "sage_agg_ref", "sage_agg_bwd_ref"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "sage_agg_fwd": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    "sage_agg_fwd": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "sage_agg_bwd": ([_P] * 5 + [_I] * 4 + [_P], _I),
 }
+SLICE = 128                      # E's column slices are multiples of this
+WAVE_WARPS_PER_SM = 32           # warps per SM of one wave, by design
+
+
+def agg_form(M: int, f: int, D: int, sms: int):
+    """``(rows, slice)`` of kernel E: the dst rows and the columns (a
+    multiple of ``SLICE``) one warp owns.  Rows enough that their index
+    lists fill one 32-slot chunk; where those warps would not make one
+    wave of ``WAVE_WARPS_PER_SM`` a SM on ``sms`` SMs, fewer rows a warp,
+    down to one, and then the columns split into more slices, down to
+    ``SLICE`` wide."""
+    rows = max(1, 32 // max(f, 1))
+    slices, most = 1, max(1, -(-D // SLICE))
+    while -(-M // rows) * slices < sms * WAVE_WARPS_PER_SM:
+        if rows > 1:
+            rows //= 2
+        elif slices < most:
+            slices += 1
+        else:
+            break
+    return rows, max(1, -(-D // (slices * SLICE))) * SLICE
 
 
 def _check(h_or_g, nbr_idx, src_valid, num_src, dev):
@@ -59,10 +82,13 @@ def sage_agg_fwd(h_src: torch.Tensor, nbr_idx: torch.Tensor,
         return mean, cnt
     lib = _build.load("sage_agg", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    rows, slice_ = agg_form(M, f, D, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     with torch.cuda.device(dev):
         rc = lib.sage_agg_fwd(h_src.data_ptr(), nbr_idx.data_ptr(),
                               src_valid.data_ptr(), mean.data_ptr(),
-                              cnt.data_ptr(), N, M, f, D, stream)
+                              cnt.data_ptr(), N, M, f, D, rows, slice_,
+                              stream)
     if rc != 0:
         raise RuntimeError(f"sage_agg_fwd: launch failed with CUDA error {rc}")
     sage_agg_fwd.launches += 1

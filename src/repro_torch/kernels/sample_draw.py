@@ -5,7 +5,8 @@ Replaces the TPU kernel ``repro/kernels/sample_draw.py:sample_keys_kernel``
 and the XLA around it in ``draw_neighbors_device``: the CSR expansion,
 the selection keys (``uniform``, ``labor`` or ``cv``), the take-all rows
 and the ``lax.top_k`` selection, in one launch that writes only the
-``[n, f]`` draw.
+``[n, f]`` draw.  :func:`draw_group` is the host's one choice for it: the
+rows of a warp's tile, from ``n`` and the card's SM count.
 
 :func:`sample_draw` launches the kernel for CUDA tensors and runs the
 plain version ``draw_neighbors`` (re-exported here) for CPU tensors;
@@ -23,12 +24,27 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (SAMPLE_POLICIES, draw_neighbors,
                                      sample_keys)
 
-__all__ = ["sample_draw", "draw_neighbors", "sample_keys"]
+__all__ = ["sample_draw", "draw_group", "draw_neighbors", "sample_keys"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "sample_draw": ([_P] * 6 + [_I] * 4 + [ctypes.c_uint32, _I, _P], _I),
+    "sample_draw": ([_P] * 6 + [_I] * 4 + [ctypes.c_uint32, _I, _I, _P], _I),
 }
+GROUPS = (1, 2, 4, 8, 16, 32)     # rows per tile the kernel takes
+TILES_PER_SM = 96                 # the most tiles per SM draw_group plans
+
+
+def draw_group(n: int, sms: int) -> int:
+    """Rows of a warp's tile in kernel I for ``n`` frontier rows on
+    ``sms`` SMs: the fewest at which the tiles number ``TILES_PER_SM`` a
+    SM at most, up to 32 (a warp's lanes).  Smaller tiles spread the
+    selection rows over more warps; but every tile is a warp to dispatch,
+    and at one row a tile the 176,000 rows of training layer 0 took 3.4x
+    as long as at 16 (PERF.md)."""
+    for g in GROUPS:
+        if -(-n // g) <= sms * TILES_PER_SM:
+            return g
+    return GROUPS[-1]
 
 
 def sample_draw(indptr: torch.Tensor, indices: torch.Tensor,
@@ -70,13 +86,15 @@ def sample_draw(indptr: torch.Tensor, indices: torch.Tensor,
         return out
     lib = _build.load("sample_draw", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    group = draw_group(n, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     with torch.cuda.device(dev):
         rc = lib.sample_draw(indptr.data_ptr(), indices.data_ptr(),
                              wtab.data_ptr(), cur.data_ptr(),
                              None if allow is None else allow.data_ptr(),
                              out.data_ptr(), n, f, num_solid, wtab.shape[0],
                              int(seed), SAMPLE_POLICIES.index(policy),
-                             stream)
+                             group, stream)
     if rc != 0:
         raise RuntimeError(f"sample_draw: launch failed with CUDA error {rc}")
     sample_draw.launches += 1

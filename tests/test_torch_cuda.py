@@ -12,8 +12,9 @@ AGG sum float32 in another order than their plain versions, and the AGG
 and GAT AGG gradients add with atomics in a run-dependent order, so
 |kernel - plain| <= 1e-4 * max(1, |plain|); the dropout's zero pattern,
 UPDATE's dZ (and its db from one call to the next), the HEC probe + load
-(single and batched) and the fanout draw are held bit for bit, and
-UPDATE's forward bit for bit to its pinned outputs.
+(single and batched) and the fanout draw are held bit for bit, UPDATE's
+forward bit for bit to its pinned outputs, and AGG's forward (mean and
+count) bit for bit to its first design's pinned outputs.
 """
 import hashlib
 
@@ -488,6 +489,78 @@ def test_agg_kernels_match_plain(dev, N, M, f, D):
         == (before[0] + 1, before[1] + 1)
 
 
+# kernel E's mean and count on pinned inputs, as its first design (one
+# warp per dst row) gave them on an H100 (SHA-256 of the float32 bytes of
+# mean, then of cnt): D 128, 256, 100 and 6 (the scalar path), f 1, 5, 15
+# and 77, M = 1 and 3; tools/draw_agg_compare.py prints them
+E_PINNED = [
+    ((5000, 1000, 5, 128),
+     "db9fa39a2d47e051be0849485c44e8cdc0841f71ad53f532b2993ce432ec5d41"),
+    ((3000, 1000, 15, 256),
+     "2adf8fe789319ddbc7cdff7c596a7df14ec3718a5e34c16860f211bc0c21bafc"),
+    ((1000, 257, 77, 100),
+     "decb540a9d77c59ddc26a4f9abb85c52700909f8792022c80b4a0a14a90920c6"),
+    ((300, 37, 7, 6),
+     "0d886f3041398c35957efb879347c7391cc98204923e53999ac6f0f7fb810d59"),
+    ((100, 1, 1, 128),
+     "6fccf64883a8a1239c04e92532142750460e412d3e8d93bbe5f2d83b82f5e145"),
+    ((200, 3, 15, 256),
+     "eacc8862669941398839226fef97f6e8fc061fcd246ddf3805932ed9d23e1104"),
+    ((500, 40, 1, 6),
+     "935cbae12906a653f9f5ba5180fa312b87e047dd8a4760365bf5a58c36589f00")]
+
+
+def pinned_agg_inputs(dev, N, M, f, D):
+    """Normals, indices in [-1, N + 2) (past the last row they clamp to
+    it), 85% of the rows valid, row 0 all -1."""
+    rng = np.random.default_rng(N + M + f + D)
+    h = rng.normal(size=(N, D)).astype(np.float32)
+    nbr = rng.integers(-1, N + 2, (M, f)).astype(np.int32)
+    nbr[0] = -1
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    return t(h), t(nbr), t(rng.random(N) > 0.15)
+
+
+def agg_digest(mean, cnt):
+    return hashlib.sha256(mean.cpu().numpy().tobytes()
+                          + cnt.cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("shape,digest", E_PINNED)
+def test_agg_fwd_bitmatches_pinned_output(dev, shape, digest, monkeypatch):
+    """E at its own form and at forced ones (one row a warp, 32 rows a
+    warp, more rows than M, 128-column slices), on an aligned h and on a
+    view 4 bytes off a 16-byte boundary (the scalar path): every time
+    the first design's bits, and within tolerance of the plain version."""
+    N, M, f, D = shape
+    h, nbr, valid = pinned_agg_inputs(dev, *shape)
+    base = torch.empty(N * D + 1, device=dev)
+    unaligned = base[1:].view(N, D)
+    unaligned.copy_(h)
+    assert unaligned.data_ptr() % 16 == 4 and unaligned.is_contiguous()
+    want, want_cnt = ref.sage_agg_ref(h, nbr, valid)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    forms = [sage_agg.agg_form(M, f, D, sms), (1, 128), (32, 128),
+             (M + 5, 128), (3, -(-D // 128) * 128)]
+    for form in forms:
+        monkeypatch.setattr(sage_agg, "agg_form", lambda *a, form=form: form)
+        for hh in (h, unaligned):
+            before = sage_agg.sage_agg_fwd.launches
+            mean, cnt = sage_agg.sage_agg_fwd(hh, nbr, valid)
+            torch.cuda.synchronize()
+            assert sage_agg.sage_agg_fwd.launches == before + 1
+            assert agg_digest(mean, cnt) == digest, form
+            assert close(mean, want) and torch.equal(cnt, want_cnt)
+
+
+def test_agg_fwd_rejects_a_bad_form(dev, monkeypatch):
+    """A slice that is not a positive multiple of 128 is refused."""
+    h, nbr, valid = pinned_agg_inputs(dev, 100, 4, 3, 8)
+    monkeypatch.setattr(sage_agg, "agg_form", lambda *a: (1, 100))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sage_agg.sage_agg_fwd(h, nbr, valid)
+
+
 def test_autograd_through_kernels_matches_plain(dev):
     """UPDATE after AGG, differentiated on the card (kernels C-F) and on
     the CPU (plain versions): the same loss, the same gradients."""
@@ -775,6 +848,54 @@ def test_sample_draw_kernel_bitmatches_plain(dev, policy, S, H, max_deg, n,
                               a, f, S, policy)
         assert got.dtype == torch.int32 and got.shape == (n, f)
         assert torch.equal(got, want)
+
+
+def degree_csr(rng, degrees, S, H):
+    """A CSR of S solids over S + H VID_p whose rows take the given
+    degrees in turn; every fourth row lists its first vertex twice more
+    (a multi-edge: its labor and cv keys tie)."""
+    deg = np.resize(np.asarray(degrees), S)
+    rows = []
+    for i, d in enumerate(deg):
+        row = rng.integers(0, S + H, d)
+        if i % 4 == 3 and d >= 3:
+            row[1:3] = row[0]
+        rows.append(row)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    return indptr, np.concatenate(rows).astype(np.int32)
+
+
+DRAW_DEGREES = [0, 1, 2, 4, 5, 8, 9, 15, 16, 17, 31, 32, 33, 64, 65, 128,
+                129, 600]
+
+
+@pytest.mark.parametrize("policy", ["uniform", "labor", "cv"])
+@pytest.mark.parametrize("f", [1, 16, 17, 32])
+@pytest.mark.parametrize("group", sample_draw.GROUPS)
+def test_sample_draw_kernel_every_degree(dev, policy, f, group, monkeypatch):
+    """I at every tile size, bit for bit: tiles that mix take-all and
+    selection rows of every degree class (1, 2 and 4 candidates a lane,
+    so rows of 32, 33, 64, 65, 128 and 129 slots; 600 by rounds), 64 rows
+    that draw nothing (-1, halos, allow=False), n = 1, multi-edges whose
+    labor and cv keys tie, and a seed with its top bit set."""
+    monkeypatch.setattr(sample_draw, "draw_group", lambda n, sms: group)
+    rng = np.random.default_rng(f + group)
+    S, H = 900, 100
+    indptr, indices = degree_csr(rng, DRAW_DEGREES, S, H)
+    wtab = (1.0 + 4.0 * (rng.random(S + H) < 0.3)).astype(np.float32)
+    mixed = rng.permutation(384)               # every degree, 12 tiles of 32
+    nothing = np.concatenate([np.full(20, -1), rng.integers(S, S + H, 24),
+                              rng.integers(0, S, 20)])
+    cur = np.concatenate([mixed, nothing, mixed[:37]])
+    allow = np.ones(cur.shape[0], bool)
+    allow[384 + 44:384 + 64] = False            # the solid rows of `nothing`
+    allow[-37::5] = False
+    for c, a in ((cur, allow), (cur, None), (cur[:1], None)):
+        got, want = draw_pair(dev, indptr, indices, wtab, c, 0x9E3779B9, a,
+                              f, S, policy)
+        assert torch.equal(got, want)
+        if a is not None:
+            assert bool((got[384:448] == -1).all())
 
 
 def test_device_sampler_on_card_matches_cpu(dev):

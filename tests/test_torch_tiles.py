@@ -1,11 +1,14 @@
 """The host-side choices of the port's CUDA wrappers, on the CPU: kernel A's
 block form (``serve_fused.serve_tile``), kernel D's row stripes
-(``update_fused.bwd_stripes``), and the build digest that decides when a
+(``update_fused.bwd_stripes``), kernel E's rows and column slice a warp
+(``sage_agg.agg_form``), kernel I's rows a warp
+(``sample_draw.draw_group``), and the build digest that decides when a
 kernel library is rebuilt.  None of these needs a card; the kernels they
 configure are held to their plain versions in ``test_torch_cuda.py``."""
 import pytest
 
-from repro_torch.kernels import _build, serve_fused, update_fused
+from repro_torch.kernels import (_build, sage_agg, sample_draw, serve_fused,
+                                 update_fused)
 
 H100_SMS = 132
 
@@ -133,3 +136,83 @@ def test_kernels_a_and_c_share_the_tf32x3_header():
     for name in ("serve_fused", "update_fused"):
         assert [p.name for p in _build.sources(name)] == [f"{name}.cu",
                                                           "tf32x3.cuh"]
+
+
+# kernel I at the training paths' frontier sizes (cur rows n) on an H100:
+# the rows of a warp's tile picked
+DRAW_SHAPES = {"layer 0": (176000, 16), "layer 1": (16000, 2),
+               "layer 2": (1000, 1), "ragged": (77, 1),
+               "ragged wide": (5001, 1), "4 ranks at layer 0": (704000, 32)}
+
+
+@pytest.mark.parametrize("path", sorted(DRAW_SHAPES))
+def test_draw_group_at_the_path_shapes(path):
+    n, want = DRAW_SHAPES[path]
+    g = sample_draw.draw_group(n, H100_SMS)
+    assert g == want and g in sample_draw.GROUPS
+    budget = H100_SMS * sample_draw.TILES_PER_SM
+    # the fewest rows a tile within the tile budget (32 past it)
+    assert -(-n // g) <= budget or g == 32
+    assert g == 1 or -(-n // (g // 2)) > budget
+
+
+@pytest.mark.parametrize("n,want", [(1, 1), (96, 1), (97, 2), (192, 2),
+                                    (193, 4), (3072, 32), (10 ** 7, 32)])
+def test_draw_group_on_one_sm(n, want):
+    assert sample_draw.draw_group(n, 1) == want
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 31, 32])
+def test_draw_group_below_one_tile(n):
+    """Fewer rows than a warp's lanes: one row a tile, on any card."""
+    assert sample_draw.draw_group(n, H100_SMS) == 1
+    assert sample_draw.draw_group(n, 1) == 1
+
+
+# kernel E at the training and offline shapes (M, f, D) on an H100: the
+# (rows, slice) form picked
+AGG_SHAPES = {"train l0": ((176000, 5, 128), (6, 128)),
+              "train l1": ((16000, 10, 256), (3, 256)),
+              "train l2": ((1000, 15, 256), (1, 128)),
+              "offline": ((2048, 77, 256), (1, 128)),
+              "ragged D=6": ((37, 7, 6), (1, 128)),
+              "ragged D=100": ((257, 13, 100), (1, 128)),
+              "wide D": ((100000, 10, 1024), (3, 1024))}
+
+
+def agg_warps(M, D, form):
+    rows, slice_ = form
+    return -(-M // rows) * max(1, -(-D // slice_))
+
+
+@pytest.mark.parametrize("path", sorted(AGG_SHAPES))
+def test_agg_form_at_the_path_shapes(path):
+    (M, f, D), want = AGG_SHAPES[path]
+    rows, slice_ = form = sage_agg.agg_form(M, f, D, H100_SMS)
+    assert form == want
+    assert rows >= 1 and slice_ >= sage_agg.SLICE
+    assert slice_ % sage_agg.SLICE == 0
+    # a warp's rows fill one 32-slot chunk at most
+    assert rows == 1 or rows * f <= 32
+    budget = H100_SMS * sage_agg.WAVE_WARPS_PER_SM
+    if agg_warps(M, D, form) < budget:         # the card still short:
+        assert rows == 1                        # rows went first,
+        assert slice_ == sage_agg.SLICE         # then the slices
+
+
+@pytest.mark.parametrize("M,f,D,want", [(176000, 5, 128, (6, 128)),
+                                        (1000, 15, 256, (2, 256)),
+                                        (40, 1, 6, (1, 128)),
+                                        (2048, 77, 256, (1, 256))])
+def test_agg_form_on_one_sm(M, f, D, want):
+    """On one SM the rows alone make the wave sooner: fewer splits."""
+    assert sage_agg.agg_form(M, f, D, 1) == want
+
+
+@pytest.mark.parametrize("M", [1, 3, 31])
+@pytest.mark.parametrize("f,D", [(1, 128), (15, 256), (5, 6), (0, 0)])
+def test_agg_form_below_one_warps_rows(M, f, D):
+    """Fewer dst rows than one warp would own: one row a warp, and the
+    columns in slices of 128 (one slice where D is 128 or less)."""
+    rows, slice_ = sage_agg.agg_form(M, f, D, H100_SMS)
+    assert (rows, slice_) == (1, sage_agg.SLICE)
