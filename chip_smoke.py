@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together, into ``build/kernels/``), then runs eight
-phases on one card, phases 1-4 and 7 at the paper's full GraphSAGE width
-(128 -> 256 -> 256 -> 172, fanouts 5/10/15), phases 5-6 at its full GAT
-width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172, one head at the last
-layer) and phase 8 at both:
+source, all started together, into ``build/kernels/``), then runs nine
+phases on one card, phases 1-4, 7 and 9 (b) at the paper's full GraphSAGE
+width (128 -> 256 -> 256 -> 172, fanouts 5/10/15), phases 5-6 at its full
+GAT width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172, one head at the
+last layer) and phases 8 and 9 (c) at both:
 
   1. kernels vs plain versions: each kernel's wrapper against its plain
      PyTorch version on the same inputs — the serve layer at the three
@@ -57,22 +57,25 @@ layer) and phase 8 at both:
      on the kernel's own input, and G and the HEC probe are timed at the
      path's shapes;
   6. GAT training, the fourth main path: (b) ``launch/train.py gnn --model
-     gat`` with phase 4's graph and settings (lr 0.001), the HEC cut to
-     ``GAT_HEC_SIZE`` = 524,288 entries per layer (at 1M the epoch trains,
-     but ``evaluate``'s clone of every HEC runs out of the card's memory),
-     launch counts exact (per step G and H 3 per rank, per eval batch G 3
-     per rank); (a) G and H against their plain versions at rank 0's
+     gat`` with phase 4's graph and settings (lr 0.001, the paper's HEC of
+     ``GAT_HEC_SIZE`` = 1M entries per layer), launch counts exact (per
+     step G and H 3 per rank, per eval batch G 3 per rank), peak memory
+     printed; (a) G and H against their plain versions at rank 0's
      three layer shapes and at ragged shapes (an all-masked row; G's
      column-split form at 45 rows and its chunked form at 400 slots),
-     each G row printed with the form it took, and the HEC probe at GAT's
-     training widths, timed with their bounds; (c) the first two steps on
+     each G row printed with the form it took, and the HEC probe B bit
+     for bit on (b)'s own 1M-entry caches at rank 0's three layers (the
+     main path's HEC geometry, which (c) does not reach), timed with their
+     bounds; (c) the first two steps on
      the card and on the CPU, as phase 4 (c), at batch
      ``GAT_CHECK_BATCH`` = 256 (a CPU step at batch 1000 takes over 60
-     s), and every gradient tensor against a float64 witness of the first
-     step, which alone holds layer 0's ``a_u`` and ``a_v``; the card's and
-     the CPU's ReLU branches pinned to the exact ones in both (a few
-     float32 pre-activations within rounding of zero take the other
-     branch by chance, ``ExactReluBranches``); with a traced card step;
+     s) with a HEC of ``GAT_CHECK_HEC_SIZE`` = 524,288 entries (the
+     CPU's copy), and every gradient tensor against a float64 witness of
+     the first step, which alone holds layer 0's ``a_u`` and ``a_v``; the
+     card's and the CPU's ReLU branches pinned to the exact ones in both
+     (a few float32 pre-activations within rounding of zero take the
+     other branch by chance, ``ExactReluBranches``); with a traced card
+     step;
   7. device-drawn training, the fifth main path: (b) ``DistTrainer.
      train_epochs`` for two epochs and ``evaluate`` on phase 4's graph,
      data and settings with ``SamplerConfig(device_draw=True,
@@ -111,7 +114,26 @@ layer) and phase 8 at both:
      every shard's cache tags and the hot-tier ages equal), and sharded
      serving of both models on phase 2's low-degree graph with the hidden
      layers warmed, against offline embeddings computed by the plain
-     versions on the whole graph.
+     versions on the whole graph;
+  9. the trainer's other modes, the eighth to tenth main paths: (b)
+     ``launch/train.py gnn --mode sync`` and ``--mode drop`` with phase
+     4's graph (built once for phases 4, 6, 7 and 9: ``ReuseGraphs``) and
+     settings, one epoch and ``evaluate`` each, launch counts exact (per
+     step C, D and E 3 per rank, F 2 per rank, no HEC probe; per eval
+     batch C and E 3 per rank), then one ``aep`` epoch with the hot tier
+     (``HOT_SIZE`` = 1,024 slots, ``HOT_BUDGET`` = 512 rows a rank and
+     step) through ``DistTrainer.train_epochs`` and ``evaluate``, with
+     phase 4's launch counts, no undersized-budget warning and hot hits;
+     per run s/epoch, spans, accuracy, hit rates and peak memory; (c) the
+     first two steps of ``sync``, ``drop`` and ``aep`` with the tier, both
+     models, on a ``CHECK_VERTICES`` = 20,000-vertex graph at batch
+     ``CHECK_BATCH`` = 64, on the CPU and on the card, each card step from
+     the CPU's state before it (GAT's ReLU branches pinned): per step loss,
+     gradient norm and gradient within 1e-4 relative (GAT's layer-0
+     attention vectors at step 0 against a float64 witness, as phase 6
+     (c)), every HEC tag, queued and hot tag, slot age, sync ``got`` mask
+     and fetched row equal; and a free card run, its loss and gradient
+     norm within ``FREE_RUN_TOL`` = 1e-3 of the CPU's at every step.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
@@ -119,9 +141,11 @@ the microbatch launches, the three offline chunk shapes for the pre-warm's
 chunks.  The HEC probe's ``ms`` is launch-weighted over both paths: its
 four serving probe shapes share the serving launches, its three training
 lookup shapes the training launches, and likewise at GAT's widths in
-phases 5 and 6; its ``launches`` is the sum, split in
-``launches_by_path``.  C-F's are means over their layer shapes, each
-layer standing for an equal share of the training path's launches; G's
+phases 5 and 6 (and phase 9's hot-tier run at phase 4's); its
+``launches`` is the sum, split in ``launches_by_path``.  C-F's are means
+over their layer shapes, each layer standing for an equal share of the
+training paths' launches (phase 4's and phase 9's three runs, split in
+``launches_by_path``); G's
 is launch-weighted over phase 5's online and offline shapes and phase 6's
 layer shapes, H's a mean over phase 6's layer shapes, I's a mean over
 phase 7's layer shapes under cv (its ``plain_ms`` is blocking: the plain
@@ -160,6 +184,8 @@ no result; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -241,11 +267,14 @@ TRAIN_ARGS = ["gnn", "--ranks", "4", "--degree", "10", "--classes", "172",
               "cuda"]
 EVAL_BATCHES = 8            # DistTrainer.evaluate's default
 CHECK_STEPS = 2             # steps of the card-vs-CPU checks, phases 4/6 (c)
-# entries per layer and rank, phase 6: at phase 4's 1M, GAT's epoch trains
-# but evaluate (which clones every HEC) runs out of the card's memory
-GAT_HEC_SIZE = 524_288
+# entries per layer and rank, phase 6: the paper's cs = 1M, as phase 4
+# (evaluate copies no HEC)
+GAT_HEC_SIZE = 1_000_000
 # batch of phase 6 (c): at 1000 one CPU step of GAT takes over 60 s
 GAT_CHECK_BATCH = 256
+# and its HEC: the CPU's copy at the main path's 1M would take 35 GB of
+# host memory (phase 6 (a) holds B on the 1M caches of (b) instead)
+GAT_CHECK_HEC_SIZE = 524_288
 # phase 6 (c): the leaves (layer 0's a_u and a_v, whose sums cancel
 # heavily) where the CPU's float32 gradient sits 9e-5 to 1.2e-4 from a
 # float64 witness, too far to hold the card to; the card is held to the
@@ -724,15 +753,16 @@ def train_main_path(torch, np, phase, argv, per_step, per_eval):
 
 def check_training(np, phase, res, launches, per_step, per_eval):
     """The checks and printout of a training run (b): exact launches,
-    finite losses and gradients, pushes and HEC hits, the accuracy, and
-    the host spans per step of each epoch."""
+    finite losses and gradients, by mode pushes and HEC hits (``aep``),
+    fetched halos (``sync``) or none (``drop``), the accuracy, and the
+    host spans per step of each epoch."""
     print(f"{phase}: launches on the training path: {launches}")
     tr, cfg = res["trainer"], res["cfg"]
     R, L, log = tr.num_ranks, cfg.num_layers, tr.step_log
     steps = len(log)
     print(f"{phase}: {steps} steps per rank in {len(res['history'])} "
-          f"epoch(s), {R} ranks, batch {cfg.batch_size}; {EVAL_BATCHES} "
-          f"eval batches")
+          f"epoch(s), {R} ranks, batch {cfg.batch_size}, mode {tr.mode}; "
+          f"{EVAL_BATCHES} eval batches")
     for n in launches:
         want = steps * per_step.get(n, 0) + EVAL_BATCHES * per_eval.get(n, 0)
         check(launches[n] == want, f"{phase}: {n} launched {launches[n]} "
@@ -741,18 +771,26 @@ def check_training(np, phase, res, launches, per_step, per_eval):
         check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
               f"{phase}: step {i}: loss {m['loss']} grad norm "
               f"{m['grad_norm']}")
-    check(all(m["aep_push_rows"] > 0 for m in log),
-          f"{phase}: a step pushed no rows")
-    hits = [sum(m[f"hec_hits_l{l}"] for m in log) for l in range(L)]
-    check(any(h > 0 for h in hits), f"{phase}: no HEC hit by the last step")
+    aep = tr.mode == "aep"
+    # outside aep only layer 0 counts halos, and nothing is pushed
+    layers = L if aep else 1
+    hits = [sum(m[f"hec_hits_l{l}"] for m in log) for l in range(layers)]
+    check(all(("aep_push_rows" in m) == aep for m in log)
+          and all(m["aep_push_rows"] > 0 for m in log if aep),
+          f"{phase}: a step pushed no rows, or pushed outside aep")
+    if tr.mode == "drop":
+        check(hits == [0], f"{phase}: drop mode used a halo row")
+    else:
+        check(any(h > 0 for h in hits), f"{phase}: no halo row was served "
+              f"(HEC hit or sync fetch) by the last step")
     check(0.0 <= res["test_acc"] <= 1.0, f"{phase}: evaluate failed")
+    pushed = (f"pushed rows per step {[int(m['aep_push_rows']) for m in log]}"
+              if aep else "no push")
     print(f"{phase}: losses {[round(m['loss'], 4) for m in log]}; seeds "
-          f"per step {[int(m['examples']) for m in log]}; HEC hits per "
-          f"layer {hits} of halos "
-          f"{[sum(m[f'hec_halos_l{l}'] for m in log) for l in range(L)]}; "
-          f"pushed rows per step "
-          f"{[int(m['aep_push_rows']) for m in log]}; test_acc "
-          f"{res['test_acc']:.4f}")
+          f"per step {[int(m['examples']) for m in log]}; halo rows served "
+          f"per layer {hits} of halos "
+          f"{[sum(m[f'hec_halos_l{l}'] for m in log) for l in range(layers)]}"
+          f"; {pushed}; test_acc {res['test_acc']:.4f}")
     per_epoch = steps // len(res["history"])
     for e, h in enumerate(res["history"]):
         print(f"{phase}: epoch {e} indicative host clock: "
@@ -1087,19 +1125,21 @@ def rel_norm(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def float64_first_moment(torch, ps, cfg, R, host):
+def float64_first_moment(torch, ps, cfg, R, host, mode="aep"):
     """Adam's first moment after step 0 in float64 on the CPU, the
-    witness of (c): the step's gradient (at step 0 the HEC is empty, so it
-    is a function of the parameters, the minibatch and the dropout seed
-    alone) through the trainer's own per-rank forward with a float64 model
-    and features, example-weighted over the ranks, clipped to norm 1 and
+    witness of (c): the step's gradient (at step 0 the HEC and the hot
+    tier are empty, so it is a function of the parameters, the minibatch,
+    the dropout seed and, in ``sync`` mode, the fetched features alone)
+    through the trainer's own forward in ``mode`` with a float64 model and
+    features, example-weighted over the ranks, clipped to norm 1 and
     scaled by 1 - b1, as ``adam_update`` does."""
     from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
                                                minibatch_to_device)
     # an empty HEC misses at any size: a small one spares the host memory
+    # (and the empty tier, like no tier, substitutes nothing)
     cfg = dataclasses.replace(cfg, hec=dataclasses.replace(
-        cfg.hec, cache_size=64 * cfg.hec.ways))
-    tr = DistTrainer(cfg, R, device="cpu")
+        cfg.hec, cache_size=64 * cfg.hec.ways, hot_size=0, hot_budget=0))
+    tr = DistTrainer(cfg, R, mode=mode, device="cpu")
     st = tr.init_state(seed=0)
     model = st["model"].double()
     data = build_dist_data(ps, cfg, tr.device)
@@ -1107,9 +1147,10 @@ def float64_first_moment(torch, ps, cfg, R, host):
     mb = minibatch_to_device(host, tr.device)
     params = model.parameter_list()
     grads, examples = [torch.zeros_like(q) for q in params], 0.0
-    for r in range(R):              # one rank's graph alive at a time
-        f = tr._rank_forward(model, st["hec"], data, mb, r, 0, cfg.dropout)
-        check(all(int(hit) == 0 for hit, _ in f.hits),
+    for r, x in enumerate(tr._inputs(data, mb)):   # one rank's graph at a time
+        f = tr._rank_forward(model, st["hec"], st["hot"], data, mb, x, r, 0,
+                             cfg.dropout)
+        check(mode == "sync" or all(int(hit) == 0 for hit, _, _ in f.hits),
               "the float64 witness hit its empty HEC")
         n = float(f.n_valid)
         for g, d in zip(grads, torch.autograd.grad(f.loss, params)):
@@ -1133,21 +1174,38 @@ class ExactReluBranches:
     takes the exact branch) and the CPU (which takes it there by
     chance).  With the branches pinned, the card, the CPU and
     the witness differ only by float32 arithmetic.  ``flips`` counts the
-    pre-activations whose float32 sign was not the exact one."""
+    pre-activations whose float32 sign was not the exact one.
 
-    def __init__(self, torch):
+    "Exact" is relative to the layer's own input, which past layer 0 is
+    the run's own float32; a smaller batch leaves that to chance again
+    (phase 9 (c) at batch 64 moved the layer-0 attention gradients 1.8e-4
+    from the witness on the card and the CPU alike).  So a run can
+    record its branches (``record=True``: ``masks``, one per projection
+    in call order), and ``replay=masks`` makes a run take another run's
+    branches instead: then the runs differ by float32 arithmetic alone."""
+
+    def __init__(self, torch, replay=None, record=False):
         from repro_torch.models.gnn import gat
         self.torch, self.cls, self.flips = torch, gat.GATLayer, 0
+        self.replay, self.record, self.masks = replay, record, []
 
     def __enter__(self):
         torch, self.orig = self.torch, self.cls.project
+        self.calls, self.masks = 0, []
 
         def project(layer, h):
             din, H, dh = layer.w.shape
             b, w = layer.b.reshape(-1), layer.w.reshape(din, H * dh)
             pre = torch.addmm(b, h, w)
             with torch.no_grad():
-                keep = torch.addmm(b.double(), h.double(), w.double()) > 0
+                if self.replay is None:
+                    keep = torch.addmm(b.double(), h.double(),
+                                       w.double()) > 0
+                else:
+                    keep = self.replay[self.calls].to(pre.device)
+                self.calls += 1
+                if self.record:
+                    self.masks.append(keep.cpu())
                 self.flips += int(((pre > 0) != keep).sum())
             z = pre * keep
             eye = torch.eye(H, dtype=z.dtype, device=z.device)[:, None, :]
@@ -1165,7 +1223,7 @@ class ExactReluBranches:
 
 
 def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
-              noisy_leaves=(), exact_relu=False):
+              noisy_leaves=(), exact_relu=False, hec_size=None):
     """(c): the main path's first ``steps`` steps from the same state,
     minibatches and uniforms, on the card and on the CPU (``batch``: a
     smaller batch for the check, should the CPU be too slow at full
@@ -1219,6 +1277,9 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
 
     cfg = res["cfg"] if batch is None else dataclasses.replace(
         res["cfg"], batch_size=batch)
+    if hec_size is not None:
+        cfg = dataclasses.replace(cfg, hec=dataclasses.replace(
+            cfg.hec, cache_size=hec_size))
     hosts = first_steps(cfg)
     # both trainers draw the reference's selection uniforms themselves:
     # the card's Threefry must give the CPU's bits
@@ -2306,6 +2367,341 @@ def phase8_exact(torch, np):
               f"fetched, {m['hot_hits']} from the hot tier")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the trainer's other modes (sync, drop, aep with the hot tier)
+# ---------------------------------------------------------------------------
+# phase 9's tier: 1,024 slots, refreshed at 512 rows a rank and step, so
+# that budget x life span (2) covers every slot whatever rank owns it (at
+# the reference dry-run's 256 the busiest rank's hot vertices outgrow it)
+HOT_SIZE, HOT_BUDGET = 1024, 512
+CHECK_VERTICES = 20_000     # phase 9 (c)'s graph
+CHECK_BATCH = 64            # and batch: 6 CPU runs of two steps (at 64
+#                             a GAT step's layer 0 has 67,584 rows)
+CHECK_HEC_SIZE = 65_536     # and HEC entries per layer and rank
+# phase 9 (c)'s free card run: loss and grad norm relative to the CPU's.
+# From the CPU's state a card step sits within ~1e-6; run free, GraphSAGE
+# with the tier read ~1e-4 at step 1 and GAT drop ~7e-4 (PERF.md)
+FREE_RUN_TOL = 1e-3
+# the parameter leaves per layer, in ``parameter_list``'s order
+LEAF_NAMES = {"graphsage": ("b", "wn", "ws"),
+              "gat": ("a_u", "a_v", "b", "w")}
+
+
+class ReuseGraphs:
+    """Between ``start`` and ``stop``, ``repro_torch.graph``'s
+    ``synthetic_graph`` and ``partition_graph`` hand back what an earlier
+    call with the same arguments built (both are pure functions of them),
+    so the launcher runs of phases 4, 6 and 9 train on one graph and one
+    partition, built once."""
+
+    def __init__(self):
+        import repro_torch.graph as graph
+        self.graph, self.built = graph, {}
+
+    def start(self):
+        g = self.graph
+        self.orig = g.synthetic_graph, g.partition_graph
+        make, cut = self.orig
+
+        def synthetic_graph(**kw):
+            key = ("graph",) + tuple(sorted(kw.items()))
+            if key not in self.built:
+                self.built[key] = make(**kw)
+            return self.built[key]
+
+        def partition_graph(graph, num_parts, seed=0):
+            key = ("parts", id(graph), num_parts, seed)
+            if key not in self.built:
+                self.built[key] = cut(graph, num_parts, seed=seed)
+            return self.built[key]
+        g.synthetic_graph, g.partition_graph = synthetic_graph, \
+            partition_graph
+        return self
+
+    def stop(self):
+        self.graph.synthetic_graph, self.graph.partition_graph = self.orig
+        self.built.clear()
+
+
+def mode_summary(phase, res, card):
+    """s/epoch, the step and sample spans, test accuracy and hit rates of
+    a training run (b), beside the card's name and power limit."""
+    h, L = res["history"][0], res["cfg"].num_layers
+    steps = len(res["trainer"].step_log) // len(res["history"])
+    rates = " ".join(
+        f"l{l} {h[f'{k}_hit_rate_l{l}']:.4f}" for k in ("hec", "hot")
+        for l in range(L) if f"{k}_hit_rate_l{l}" in h)
+    print(f"{phase}: {h['t_wall']:.2f} s/epoch (host clock, indicative), "
+          f"per step ms step {1e3 * h['t_step'] / steps:.1f}, sample "
+          f"{1e3 * h['t_sample'] / steps:.1f}; test_acc "
+          f"{res['test_acc']:.4f}; hit rates (HEC, hot) {rates or 'none'} "
+          f"[{card}]")
+
+
+def phase9_main_path(torch, np, ps, card):
+    """(b): ``launch/train.py gnn --mode sync`` and ``--mode drop`` on
+    phase 4's graph and settings (per step C, D, E at every layer of every
+    rank and F at layers >= 1, per eval batch C and E; no HEC probe), then
+    one ``aep`` epoch with the hot tier through ``DistTrainer.
+    train_epochs`` (``HOT_SIZE``, ``HOT_BUDGET``; phase 4's launches) and
+    ``evaluate``.  Returns each run's launches."""
+    import warnings
+
+    from repro_torch import obs
+    from repro_torch.train.gnn_trainer import DistTrainer, build_dist_data
+    R, L = 4, 3
+    per_step = {"update_fused_fwd": L * R, "update_fused_bwd": L * R,
+                "sage_agg_fwd": L * R, "sage_agg_bwd": (L - 1) * R}
+    per_eval = {"update_fused_fwd": L * R, "sage_agg_fwd": L * R}
+    out = {}
+    for mode in ("sync", "drop"):
+        torch.cuda.reset_peak_memory_stats()
+        phase = f"phase 9 (b) {mode}"
+        res, out[mode] = train_main_path(
+            torch, np, phase, TRAIN_ARGS + ["--vertices", str(TRAIN_VERTICES),
+                                            "--mode", mode],
+            per_step, per_eval)
+        check(all(m["hec_occ_l0"] == 0 for m in res["trainer"].step_log),
+              f"{phase}: a HEC was written outside aep")
+        mode_summary(phase, res, card)
+        peak_line(torch, phase)
+        del res
+        torch.cuda.empty_cache()
+
+    phase = "phase 9 (b) aep + hot tier"
+    cfg4 = launcher_config(TRAIN_ARGS)
+    cfg = dataclasses.replace(cfg4, hec=dataclasses.replace(
+        cfg4.hec, hot_size=HOT_SIZE, hot_budget=HOT_BUDGET))
+    torch.cuda.reset_peak_memory_stats()
+    obs.configure()
+    data = build_dist_data(ps, cfg, "cuda")
+    tr = DistTrainer(cfg=cfg, num_ranks=R, device="cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state = tr.init_state(seed=0, dist_data=data)
+    owned = int(data["hot_mine"].sum(1).max())
+    check(not any("undersized" in str(w.message) for w in caught),
+          f"{phase}: the hot budget is undersized: the busiest rank owns "
+          f"{owned} of {HOT_SIZE} hot vertices")
+    zero_launches()
+    state, hist = tr.train_epochs(ps, data, state, 1, log_every=1)
+    acc = tr.evaluate(ps, data, state)
+    out["hot"] = read_launches()
+    res = {"trainer": tr, "cfg": cfg, "history": hist, "test_acc": acc}
+    per_step4 = dict(per_step, hec_lookup=L * R)
+    per_eval4 = dict(per_eval, hec_lookup=L * R)
+    check_training(np, phase, res, out["hot"], per_step4, per_eval4)
+    hot_hits = [sum(m[f"hot_hits_l{l}"] for m in tr.step_log)
+                for l in range(L)]
+    check(any(h > 0 for h in hot_hits), f"{phase}: no hot-tier hit")
+    print(f"{phase}: tier of {len(state['hot'][0].age[0])} slots, budget "
+          f"{HOT_BUDGET} a rank and step (busiest owner holds {owned}, "
+          f"budget x life span {HOT_BUDGET * cfg.hec.life_span}); hot hits "
+          f"per layer {hot_hits}; hot rows pushed per step "
+          f"{[int(m['hot_push_rows']) for m in tr.step_log]}")
+    mode_summary(phase, res, card)
+    peak_line(torch, phase)
+    del res, state, data, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def launcher_config(argv, **over):
+    """The config ``launch/train.py`` builds from ``argv``, with
+    ``over`` replaced."""
+    from repro_torch.launch import train
+    return dataclasses.replace(train.gnn_config(train.parse_args(argv)),
+                               **over)
+
+
+def state_to(torch, state, device):
+    """A copy of a training state on ``device``."""
+    def to(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device, copy=True)
+        if isinstance(x, torch.nn.Module):
+            return copy.deepcopy(x).to(device)
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to(v) for v in x]
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{f.name: to(getattr(x, f.name))
+                                             for f in dataclasses.fields(x)})
+        return x
+    return to(state)
+
+
+def phase9_check(torch, np):
+    """(c): the first two steps of ``sync``, ``drop`` and ``aep`` with the
+    hot tier, both models at full width on a ``CHECK_VERTICES`` graph at
+    batch ``CHECK_BATCH``, on the card and on the CPU (GAT's ReLU
+    branches pinned: every run takes the float64 witness's at step 0,
+    the card's runs the CPU's at step 1).  The CPU runs free; one card
+    run takes each step from the CPU's state before it.  Per step of it:
+    loss and gradient norm within 1e-4 relative, Adam's first moment
+    within 1e-4 relative (at step 0 GAT's layer-0 attention vectors
+    against a float64 witness instead, as phase 6 (c)), and the HEC
+    tags, queued and hot tags, slot ages, sync ``got`` masks and fetched
+    rows equal.  A second card run goes free, its loss and gradient norm
+    within ``FREE_RUN_TOL`` of the CPU's at every step: Adam turns the
+    float noise of step 0's near-zero gradients into parameter gaps, and
+    with the tier kernel E's rounding grows at step 1 (PERF.md), but a
+    kernel fault that builds up over free steps still fails here.  The
+    three leaves where the free run's first moment sits furthest from
+    the CPU's are printed."""
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
+                                               minibatch_to_device)
+    R = 4
+    g = synthetic_graph(num_vertices=CHECK_VERTICES, avg_degree=10,
+                        num_classes=172, feat_dim=128, seed=0)
+    ps = partition_graph(g, R, seed=0)
+    base = {"graphsage": TRAIN_ARGS, "gat": TRAIN_ARGS + ["--model", "gat",
+                                                         "--lr", "0.001"]}
+
+    def run(cfg, mode, d, hosts, starts=None, pins=None):
+        """Every step from ``starts[i]`` (a state on the CPU) when given,
+        else free, and under ``pins(i)`` (GAT's ReLU branches) when given;
+        per step the metrics, Adam's first moment, the integer and
+        data-movement tensors and the recorded branches."""
+        tr = DistTrainer(cfg, R, mode=mode, device=d)
+        fetched, fetch = [], tr.engine.sync_fetch
+        tr.engine.sync_fetch = lambda *a: fetched.append(fetch(*a)) \
+            or fetched[-1]
+        data = build_dist_data(ps, cfg, d)
+        st = tr.init_state(seed=0, dist_data=data)
+        out = {"logs": [], "mu": [], "ints": [], "states": [], "masks": [],
+               "fetched": 0, "hot": 0, "flips": 0}
+        for i, host in enumerate(hosts):
+            if starts is not None:
+                st = state_to(torch, starts[i], d)
+            elif d == "cpu":
+                out["states"].append(state_to(torch, st, "cpu"))
+            fetched.clear()
+            pin = pins(i) if pins is not None else None
+            with pin if pin is not None else contextlib.nullcontext():
+                out["logs"].append(tr.train_step(
+                    st, data, minibatch_to_device(host, d), i))
+            if pin is not None:
+                out["flips"] += pin.flips
+                out["masks"].append(pin.masks)
+            out["mu"].append([m.cpu().clone() for m in st["opt"].mu])
+            if i == 0:                 # entries whose gradient is noise
+                out["quiet"] = sum(int((v.sqrt() < 1e-6).sum())
+                                   for v in st["opt"].nu)
+            ints = [s.tags for layer in st["hec"] for s in layer]
+            ints += [t.age for t in st["hot"]]
+            ints += [q[k] for q in st["inflight"]
+                     for k in ("tags", "hot_tags") if k in q]
+            ints += [x for h0, got in fetched for x in (h0, got)]
+            out["ints"].append([x.to("cpu", copy=True) for x in ints])
+            out["fetched"] += sum(int(got.sum()) for _, got in fetched)
+        out["hot"] = sum(int((t.age == 0).sum()) for t in st["hot"])
+        return out
+
+    def mu_gap(a, b, i, skip=()):
+        return max(rel_norm(x, y) for k, (x, y) in
+                   enumerate(zip(a["mu"][i], b["mu"][i])) if k not in skip)
+
+    witnesses = {}
+    for model in ("graphsage", "gat"):
+        for mode in ("sync", "drop", "aep"):
+            hot = dict(hot_size=HOT_SIZE, hot_budget=HOT_BUDGET) \
+                if mode == "aep" else {}
+            cfg = launcher_config(base[model], batch_size=CHECK_BATCH)
+            cfg = dataclasses.replace(cfg, hec=dataclasses.replace(
+                cfg.hec, cache_size=CHECK_HEC_SIZE, **hot))
+            plan = SamplingPlan(ps, cfg, 0)
+            sched = plan.epoch_schedule(0)
+            hosts = [plan.sample_host(0, i, sched[i])
+                     for i in range(CHECK_STEPS)]
+            t0 = time.perf_counter()
+            noisy = GAT_CPU_NOISY_LEAVES if model == "gat" else ()
+            pins = {name: None for name in ("cpu", "free", "card")}
+            if noisy:
+                # at step 0 the HEC and the tier are empty: aep's first
+                # gradient is drop's.  The witness records its branches;
+                # at step 0 every run takes them, at step 1 the card's
+                # runs take the CPU's
+                kind = "sync" if mode == "sync" else "drop"
+                if kind not in witnesses:
+                    with ExactReluBranches(torch, record=True) as wpin:
+                        witnesses[kind] = (float64_first_moment(
+                            torch, ps, cfg, R, hosts[0], kind), wpin.masks)
+                w_masks = witnesses[kind][1]
+                pins["cpu"] = lambda i: ExactReluBranches(
+                    torch, replay=w_masks if i == 0 else None, record=True)
+                pins["free"] = lambda i: ExactReluBranches(torch)
+                pins["card"] = lambda i: ExactReluBranches(
+                    torch, replay=w_masks if i == 0
+                    else runs["cpu"]["masks"][i])
+            runs = {}
+            for name, d, from_cpu in (("cpu", "cpu", False),
+                                      ("free", "cuda", False),
+                                      ("card", "cuda", True)):
+                starts = runs["cpu"]["states"] if from_cpu else None
+                runs[name] = run(cfg, mode, d, hosts, starts, pins[name])
+            c, p, fr = runs["card"], runs["cpu"], runs["free"]
+            tag = f"phase 9 (c) {model} {mode}"
+            held = free = 0.0
+            for i in range(CHECK_STEPS):
+                for key in ("loss", "grad_norm"):
+                    a, b = c["logs"][i][key], p["logs"][i][key]
+                    check(abs(a - b) <= 1e-4 * abs(b), f"{tag}: step {i} "
+                          f"{key}: card {a} vs CPU {b}")
+                    a = fr["logs"][i][key]
+                    check(abs(a - b) <= FREE_RUN_TOL * abs(b),
+                          f"{tag}: step {i} {key}: the card's free run {a} "
+                          f"vs CPU {b}")
+                    free = max(free, abs(a - b) / abs(b))
+                check(set(c["logs"][i]) == set(p["logs"][i]),
+                      f"{tag}: step {i}: the metric keys differ")
+                check(all(torch.equal(a, b) for a, b in zip(
+                    c["ints"][i], p["ints"][i])),
+                    f"{tag}: step {i}: HEC tags, queued or hot tags, "
+                    f"slot ages, got masks or fetched rows differ "
+                    f"between the card and the CPU")
+                gap = mu_gap(c, p, i, noisy if i == 0 else ())
+                check(gap <= 1e-4, f"{tag}: step {i}: gradient (Adam mu) "
+                      f"differs by {gap:.3e} relative")
+                held = max(held, gap)
+            witness = ""
+            if noisy:
+                vs = [rel_norm(a.double(), b)
+                      for a, b in zip(c["mu"][0], witnesses[kind][0])]
+                check(max(vs) <= 1e-4, f"{tag}: the card's gradient is "
+                      f"{max(vs):.3e} from the float64 witness")
+                witness = f", card vs float64 witness {max(vs):.2e}"
+            if mode == "sync":
+                check(c["fetched"] > 0, f"{tag}: no halo was fetched")
+            if mode == "aep":
+                check(c["hot"] > 0, f"{tag}: no hot slot was refreshed")
+            names = LEAF_NAMES[model]
+            leaves = sorted(
+                ((rel_norm(x, y), f"l{k // len(names)}."
+                  f"{names[k % len(names)]}") for k, (x, y) in
+                 enumerate(zip(fr["mu"][-1], p["mu"][-1]))), reverse=True)
+            print(f"{tag}: {CHECK_STEPS} steps at batch {cfg.batch_size} on "
+                  f"{CHECK_VERTICES} vertices, card (each step from the "
+                  f"CPU's state) vs CPU: losses "
+                  f"{[m['loss'] for m in c['logs']]} vs "
+                  f"{[m['loss'] for m in p['logs']]}; gradient rel. diff "
+                  f"{held:.2e}{witness}; {len(c['ints'][-1])} integer and "
+                  f"data-movement tensors equal ({c['fetched']} fetched "
+                  f"rows, {c['hot']} fresh hot slots); the card's free run: "
+                  f"loss and grad norm within {free:.2e} of the CPU's "
+                  f"({p['quiet']} of {sum(m.numel() for m in p['mu'][0])} "
+                  f"entries with sqrt(nu) < 1e-6 after step 0), Adam mu "
+                  f"furthest at leaves "
+                  + ", ".join(f"{n} {v:.2e}" for v, n in leaves[:3])
+                  + (f"; ReLU branches pinned (the witness's at step 0, "
+                     f"then the CPU's), {c['flips']} float32 signs on the "
+                     f"card differ from them" if noisy else "")
+                  + f" ({time.perf_counter() - t0:.1f} s)")
+
+
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
     """One contract row: per-launch means over the timed shapes, shape i
     standing for ``weights[i]`` launches of the main paths."""
@@ -2388,6 +2784,8 @@ def main(argv=None) -> int:
         print(f"phase 3: done in {time.perf_counter() - t0:.1f}s")
         del setup, g, part
 
+    # phases 4, 6, 7 and 9 train on one graph and partition, built once
+    reuse = ReuseGraphs().start()
     t0 = time.perf_counter()
     res, launches4 = phase4_main_path(torch, np, TRAIN_VERTICES)
     print(f"phase 4 (b): done in {time.perf_counter() - t0:.1f}s")
@@ -2400,6 +2798,7 @@ def main(argv=None) -> int:
     print(f"phase 4 (c): done in {time.perf_counter() - t0:.1f}s")
     # phase 7 trains on phase 4's graph and data: its HEC goes before GAT
     res4 = {k: res[k] for k in ("ps", "data", "cfg", "history", "trainer")}
+    ps4 = res["ps"]
     del res
     torch.cuda.empty_cache()
 
@@ -2424,7 +2823,8 @@ def main(argv=None) -> int:
     batch = None if GAT_CHECK_BATCH == int(TRAIN_ARGS[
         TRAIN_ARGS.index("--batch") + 1]) else GAT_CHECK_BATCH
     cpu_check(torch, np, "phase 6", res, batch=batch,
-              noisy_leaves=GAT_CPU_NOISY_LEAVES, exact_relu=True)
+              noisy_leaves=GAT_CPU_NOISY_LEAVES, exact_relu=True,
+              hec_size=GAT_CHECK_HEC_SIZE)
     peak_line(torch, "phase 6 (c)")
     print(f"phase 6 (c): done in {time.perf_counter() - t0:.1f}s")
     del res
@@ -2481,6 +2881,15 @@ def main(argv=None) -> int:
         print(f"phase 8 (a, c) ragged and exactness: done in "
               f"{time.perf_counter() - t0:.1f}s")
 
+    t0 = time.perf_counter()
+    launches9 = phase9_main_path(torch, np, ps4, card)
+    reuse.stop()
+    del ps4
+    print(f"phase 9 (b): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase9_check(torch, np)
+    print(f"phase 9 (c): done in {time.perf_counter() - t0:.1f}s")
+
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]
     launches_online = launches["serve_fused_layer"] - launches_offline
@@ -2490,11 +2899,13 @@ def main(argv=None) -> int:
     sage8, gat8 = p8["graphsage"], p8["gat"]
     b_paths = {"serve": launches["hec_lookup"],
                "train": launches4["hec_lookup"],
+               "train_hot": launches9["hot"]["hec_lookup"],
                "gat_serve": launches5["hec_lookup"],
                "gat_train": launches6["hec_lookup"],
                "sharded_serve": sage8["launches"]["hec_lookup"],
                "gat_sharded_serve": gat8["launches"]["hec_lookup"]}
     b_rows = [(rows_b, "serve"), (rows4["hec_lookup"], "train"),
+              (rows4["hec_lookup"], "train_hot"),
               (rows5_b, "gat_serve"), (rows6["hec_lookup"], "gat_train"),
               (sage8["rows_b"], "sharded_serve"),
               (gat8["rows_b"], "gat_sharded_serve")]
@@ -2520,8 +2931,9 @@ def main(argv=None) -> int:
         summarize("hec_lookup", [r for rs, _ in b_rows for r in rs],
                   {"hec_lookup": sum(b_paths.values())},
                   [b_paths[p] / len(rs) for rs, p in b_rows for _ in rs],
-                  "launch-weighted mean over the six paths: each path's "
-                  "probe or lookup shapes share its launches")]
+                  "launch-weighted mean over the seven paths: each path's "
+                  "probe or lookup shapes share its launches (phase 9's "
+                  "hot-tier training those of phase 4)")]
     rows[0]["launches_by_path"] = {
         "serve": launches["serve_fused_layer"], "sharded_serve": a_sharded}
     rows[0]["bound_route"] = ("3xTF32 on the tensor cores (bound_ms), beside "
@@ -2530,10 +2942,18 @@ def main(argv=None) -> int:
                                "Ws], 0)), float32, TF32 off, the gather "
                                "outside: the products and the bias only")
     rows[1]["launches_by_path"] = b_paths
+    train_paths = {"train": launches4, "train_sync": launches9["sync"],
+                   "train_drop": launches9["drop"],
+                   "train_hot": launches9["hot"]}
     for name in ("update_fused_fwd", "update_fused_bwd", "sage_agg_fwd",
                  "sage_agg_bwd"):
-        rows.append(summarize(name, rows4[name], launches4,
-                              [1] * len(rows4[name]), layer_mean))
+        rows.append(summarize(
+            name, rows4[name],
+            {name: sum(ls[name] for ls in train_paths.values())},
+            [1] * len(rows4[name]), layer_mean + " (phase 9's three "
+            "training runs take the same shapes)"))
+        rows[-1]["launches_by_path"] = {p: ls[name]
+                                        for p, ls in train_paths.items()}
     d_row = next(r for r in rows if r["name"] == "update_fused_bwd")
     d_row["launch_scheme"] = ("one CUDA launch per call: the last block to "
                               "finish sums the stripes' column sums")

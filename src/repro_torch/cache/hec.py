@@ -22,9 +22,10 @@ on CUDA tensors is one launch of the fused probe + load kernel
 residency mirror, model-version invalidation, counters): single-rank, or
 with ``ps=PartitionSet`` one state per layer stacked ``[R, ...]`` over
 the shards, tagged by VID_o.  Training keeps one :class:`HECState` per
-(layer, rank) from :func:`hec_init` (``train/gnn_trainer.py``) and
-copies them with :func:`hec_clone` where the reference would compute on
-a throwaway state.
+(layer, rank) from :func:`hec_init` (``train/gnn_trainer.py``); where the
+reference computes on a throwaway state (``evaluate``), the trainer keeps
+the tags and ages and the value rows its stores overwrite (``undo``) and
+puts them back.
 """
 from __future__ import annotations
 
@@ -88,7 +89,8 @@ def hec_tick(state: HECState, life_span: int) -> HECState:
 
 
 def hec_store(state: HECState, vids: torch.Tensor, embs: torch.Tensor,
-              valid: Optional[torch.Tensor] = None) -> HECState:
+              valid: Optional[torch.Tensor] = None,
+              undo: Optional[list] = None) -> HECState:
     """Scatter ``embs [n, dim]`` of ``vids [n]`` into the cache, in place.
 
     Way choice per entry: matching tag, else the first empty way, else the
@@ -97,7 +99,9 @@ def hec_store(state: HECState, vids: torch.Tensor, embs: torch.Tensor,
     same-set entries occupy distinct lines.  Beyond that several entries
     share a (set, way): the last one in batch order is written, as the
     reference's scatter does on the CPU.  Invalid entries (``valid`` False,
-    default ``vids < 0``) are dropped.
+    default ``vids < 0``) are dropped.  ``undo``, if given, gets
+    ``(values, index, rows)``: the value rows this store overwrites, so
+    that :func:`undo_stores` can put them back.
     """
     if valid is None:
         valid = vids >= 0
@@ -133,6 +137,8 @@ def hec_store(state: HECState, vids: torch.Tensor, embs: torch.Tensor,
     last.scatter_reduce_(0, line, keep_pos, reduce="amax")
     keep = valid & (last[line] == pos)
     ks, kw = s[keep], way[keep]
+    if undo is not None:
+        undo.append((state.values, (ks, kw), state.values[ks, kw]))
     state.tags[ks, kw] = vids[keep].to(torch.int32)
     state.age[ks, kw] = 0
     state.values[ks, kw] = embs.to(device=dev,
@@ -152,6 +158,14 @@ def hec_lookup(state: HECState, vids: torch.Tensor):
     hit, _, _, emb = hec_kernel.hec_lookup(
         state.tags, state.values, vids.to(torch.int32).contiguous())
     return hit, emb
+
+
+def undo_stores(undo: list):
+    """Put back the value rows the stores that filled ``undo`` overwrote
+    (:func:`hec_store`, ``hot_tier.tier_store``), latest first."""
+    for values, index, rows in reversed(undo):
+        values[index] = rows
+    undo.clear()
 
 
 def hec_clone(state: HECState) -> HECState:

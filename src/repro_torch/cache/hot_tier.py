@@ -1,9 +1,9 @@
 """Replicated hot-vertex tier over torch tensors — counterpart of
-``repro/cache/hot_tier.py`` (the serving side).
+``repro/cache/hot_tier.py``.
 
 On power-law graphs a few hub vertices are halos on almost every rank, so
-their embeddings are fetched pair by pair over and over.  The hot tier
-replicates them instead:
+their embeddings are fetched (serving) or pushed (training) pair by pair
+over and over.  The hot tier replicates them instead:
 
   * the static **hot set** (``comm/plan.py:hot_set_tables``) — the top-K
     highest-degree vertices among those that are halos anywhere — gives
@@ -12,9 +12,11 @@ replicates them instead:
   * every rank holds a replica of all K slots per layer
     (``HotTierState``: ``values [K, dim]`` + ``age [K]``),
   * reads are local: a halo row whose hub slot is fresh in the local
-    replica is served from it instead of the serve-side cache fetch,
+    replica is served from it instead of the serve-side cache fetch (or,
+    in training, the HEC),
   * ``tier_tick`` ages every slot; ``tier_lookup`` rejects slots older
-    than a life-span (``None``: any filled slot, as serving uses it).
+    than a life-span (training passes the HEC's; ``None``: any filled
+    slot, as serving uses it).
 
 As in ``repro_torch.cache.hec``, ``tier_tick`` and ``tier_store`` update
 the state **in place** (and return it).  :class:`HotTierCache` is the
@@ -87,11 +89,13 @@ def tier_lookup(state: HotTierState, hot_vids: torch.Tensor,
 
 
 def tier_store(state: HotTierState, slots: torch.Tensor, embs: torch.Tensor,
-               valid: Optional[torch.Tensor] = None) -> HotTierState:
+               valid: Optional[torch.Tensor] = None,
+               undo: Optional[list] = None) -> HotTierState:
     """Scatter fresh rows into their dense slots in place (age resets to
     0).  Rows with ``valid`` False (default: ``slots < 0``) are dropped.
     Where several valid rows name one slot, the last in batch order is
-    written, as the reference's scatter does on the CPU."""
+    written, as the reference's scatter does on the CPU.  ``undo`` as in
+    ``hec.hec_store``."""
     K = state.num_slots
     n = slots.shape[0]
     if n == 0:
@@ -107,6 +111,8 @@ def tier_store(state: HotTierState, slots: torch.Tensor, embs: torch.Tensor,
                          reduce="amax")
     keep = valid & (last[target] == pos)
     ks = s[keep]
+    if undo is not None:
+        undo.append((state.values, ks, state.values[ks]))
     state.values[ks] = embs.to(device=dev, dtype=state.values.dtype)[keep]
     state.age[ks] = 0
     return state

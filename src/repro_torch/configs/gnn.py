@@ -3,9 +3,9 @@ and its HEC/AEP hyperparameters (Table 2 and §4.4: cs=1M entries per
 layer, nc=2000, ls=2, d=1, minibatch 1000, fan-out 5,10,15).
 
 Serving reads the model shape; training reads ``lr``, ``dropout``, the
-HEC/AEP knobs (``hec``) and the minibatch prefetch and fanout draw
-(``pipeline``).  The reference's hot tier (``hot_size``/``hot_budget``)
-and the double-buffered staging wait for their slices.
+HEC/AEP knobs with the replicated hot tier (``hec``) and the minibatch
+prefetch and fanout draw (``pipeline``).  The reference's double-buffered
+staging waits for its slice.
 """
 from __future__ import annotations
 
@@ -15,16 +15,30 @@ from typing import Sequence
 
 @dataclasses.dataclass(frozen=True)
 class HECConfig:
-    """Historical Embedding Cache and push parameters (paper §3.2/§4.4)."""
+    """Historical Embedding Cache and push parameters (paper §3.2/§4.4),
+    and the replicated hot-vertex tier of ``aep`` training.
+
+    ``hot_size > 0`` replicates the top-K highest-degree halo'd vertices
+    on every rank: they leave the pairwise push contract, and each rank
+    broadcasts up to ``hot_budget`` of the hot vertices it owns per step
+    as one more segment of the same fused push.  Replicas age with the
+    HEC life-span, so ``hot_budget * life_span`` should cover the hot
+    vertices of the busiest owner (the trainer warns when it does not).
+    Both 0 (default) leaves the tier off."""
     cache_size: int = 1_000_000     # cs: entries per layer
     ways: int = 8                   # set-associativity
     life_span: int = 2              # ls: purge lines older than this
     push_limit: int = 2000          # nc: max solid embeddings pushed per rank pair
     delay: int = 1                  # d: iterations between push and consume
+    hot_size: int = 0               # K: replicated hot-tier slots (0 = off)
+    hot_budget: int = 0             # hot rows broadcast per rank per step
 
     def __post_init__(self):
         if self.cache_size % self.ways:
             raise ValueError("cache_size must be a multiple of ways")
+        if (self.hot_size > 0) != (self.hot_budget > 0):
+            raise ValueError("hot_size and hot_budget must be enabled "
+                             "together")
 
     @property
     def num_sets(self) -> int:

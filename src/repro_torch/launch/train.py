@@ -3,17 +3,19 @@
   python -m repro_torch.launch.train gnn [--model graphsage|gat] \\
       --ranks 4 --vertices 20000 --epochs 5 [--device cuda]
 
-Distributed minibatch GraphSAGE or GAT in ``aep`` mode: a synthetic
-power-law graph, partitioned into ``--ranks`` parts, trained by
-``--ranks`` ranks that run in one process on one device (the stacked
-collective backend).  The flags and defaults are the reference
-launcher's, for what the port has; ``--device`` (default ``cuda``) picks
-the card or, with ``cpu``, the plain PyTorch versions of the kernels.
-``--mode sync|drop`` raises ``NotImplementedError``; the health, quality
-and resilience flags are not offered yet.  As in the reference, the
-initial weights come from ``jax.random.key(--seed)`` (drawn without jax)
-and the AEP push draws the reference's uniforms, so both launchers train
-the same model on the same pushes.
+Distributed minibatch GraphSAGE or GAT in ``--mode aep`` (the paper's
+HEC and delayed push, the default), ``sync`` (fresh layer-0 halos
+fetched every step) or ``drop`` (halos dropped): a synthetic power-law
+graph, partitioned into ``--ranks`` parts, trained by ``--ranks`` ranks
+that run in one process on one device (the stacked collective backend).
+The flags and defaults are the reference launcher's, for what the port
+has; ``--device`` (default ``cuda``) picks the card or, with ``cpu``, the
+plain PyTorch versions of the kernels.  The health, quality and
+resilience flags are not offered yet.  As in the reference, the initial
+weights come from ``jax.random.key(--seed)`` (drawn without jax) and the
+AEP push draws the reference's uniforms, so both launchers train the
+same model on the same pushes.  As there, the hot tier has no flag
+(``HECConfig.hot_size``/``hot_budget``).
 
 Prints the graph, the partition, per-epoch loss, accuracy and HEC hit
 rates, and ``done: ... s/epoch; test_acc=...``.
@@ -76,19 +78,27 @@ def save_params(path: str, model, step: int) -> str:
     return path
 
 
+def gnn_config(args):
+    """The GNN config the reference launcher builds from the arguments."""
+    from repro_torch.configs.gnn import HECConfig, small_gnn_config
+    return small_gnn_config(
+        args.model, batch_size=args.batch, feat_dim=args.feat_dim,
+        num_classes=args.classes, fanouts=tuple(args.fanouts),
+        hidden_size=args.hidden, num_hidden_layers=args.layers - 1,
+        lr=args.lr,
+        hec=HECConfig(cache_size=args.hec_size, ways=8,
+                      life_span=args.hec_ls, push_limit=args.hec_nc,
+                      delay=args.hec_delay))
+
+
 def run_gnn(args) -> dict:
     """The reference launcher's flow; returns what it built and measured
     (graph, partition, trainer, data, state, history, test accuracy,
     seconds)."""
-    from repro_torch.configs.gnn import HECConfig, small_gnn_config
     from repro_torch.device import resolve_device
     from repro_torch.graph import partition_graph, synthetic_graph
     from repro_torch.train.gnn_trainer import DistTrainer, build_dist_data
 
-    if args.mode != "aep":
-        raise NotImplementedError(
-            f"--mode {args.mode}: only aep is ported; sync and drop come "
-            f"with a later slice")
     if len(args.fanouts) != args.layers:
         raise SystemExit(f"--fanouts lists {len(args.fanouts)} values for "
                          f"{args.layers} layers")
@@ -101,16 +111,10 @@ def run_gnn(args) -> dict:
     ps = partition_graph(g, args.ranks, seed=args.seed)
     print(f"partitioned into {args.ranks}: edge-cut={ps.edge_cut_frac:.3f} "
           f"solids={[p.num_solid for p in ps.parts]}")
-    cfg = small_gnn_config(
-        args.model, batch_size=args.batch, feat_dim=args.feat_dim,
-        num_classes=args.classes, fanouts=tuple(args.fanouts),
-        hidden_size=args.hidden, num_hidden_layers=args.layers - 1,
-        lr=args.lr,
-        hec=HECConfig(cache_size=args.hec_size, ways=8,
-                      life_span=args.hec_ls, push_limit=args.hec_nc,
-                      delay=args.hec_delay))
+    cfg = gnn_config(args)
     data = build_dist_data(ps, cfg, device)
-    tr = DistTrainer(cfg=cfg, num_ranks=args.ranks, device=device)
+    tr = DistTrainer(cfg=cfg, num_ranks=args.ranks, mode=args.mode,
+                     device=device)
     state = tr.init_state(seed=args.seed)
     t0 = time.time()
     state, hist = tr.train_epochs(ps, data, state, args.epochs, log_every=1)

@@ -1,6 +1,5 @@
-"""Distributed minibatch GNN training (GraphSAGE or GAT) in ``aep`` mode
-(paper Algorithms 1 and 2) — counterpart of
-``repro/train/gnn_trainer.py``.
+"""Distributed minibatch GNN training (GraphSAGE or GAT; paper Algorithms
+1 and 2) — counterpart of ``repro/train/gnn_trainer.py``.
 
 One paper "rank" owns a graph partition, a HEC per layer and an AEP
 in-flight queue; the model parameters are replicated and the gradients
@@ -9,22 +8,32 @@ a sequence of stages over all ranks, with the collectives of a
 :class:`~repro_torch.comm.collective.StackedCollective` between them,
 where the reference runs one ``shard_map`` program per rank.
 
-One step (``DistTrainer.train_step``, the reference's ``_rank_step``
-without the hot tier and the fault codes):
+Modes, as the reference's ``DistTrainer.mode``:
 
-  1. per rank, consume the delayed push: tick every layer's HEC and store
-     the queue's slot 0 (in place);
-  2. per rank, gather the layer-0 features and substitute HEC hits (the
-     HEC probe + load kernel) for halo rows;
+  aep   the paper's: HEC + delayed push (DistGNN-MB), optionally with the
+        replicated hot tier (``HECConfig.hot_size``/``hot_budget``)
+  sync  DistDGL-like baseline: the first ``nc`` layer-0 halos of every
+        rank fetched fresh from their owners each step, by a blocking
+        request/response all_to_all pair
+  drop  LLCG-like: halo rows are dropped at every layer
+
+One step (``DistTrainer.train_step``, the reference's ``_rank_step``
+without the fault codes):
+
+  1. ``aep``: per rank, consume the delayed push: tick every layer's HEC
+     (and the hot tier's replica) and store the queue's slot 0, in place;
+  2. every rank's layer-0 features; ``sync`` fetches its halos, ``aep``
+     substitutes hot-tier and HEC hits (the HEC probe + load kernel);
   3. per rank and layer, the model's layer with the hash dropout
      (GraphSAGE: the AGG and UPDATE kernels; GAT: the projection in
-     ``torch.addmm`` and the GAT AGG kernel), then the halo hook: HEC hits
-     replace halo rows by ``torch.where``, so substituted rows get no
-     gradient;
+     ``torch.addmm`` and the GAT AGG kernel), then the halo hook: in
+     ``aep`` hot-tier then HEC hits replace halo rows by ``torch.where``,
+     so substituted rows get no gradient; otherwise halos turn invalid;
   4. per rank, the masked cross-entropy over the seeds;
-  5. the AEP push of every rank's selection in ONE fused all_to_all,
-     between the forward and the backward (the paper's overlap); it reads
-     detached forward activations;
+  5. ``aep``: the push of every rank's selection (and hot-tier broadcast
+     segment) in ONE fused all_to_all, between the forward and the
+     backward (the paper's overlapped scheme); it reads detached forward
+     activations;
   6. per rank, the backward (the layers' gradient kernels and
      ``torch.matmul``);
   7. the example-weighted gradient all-reduce;
@@ -35,16 +44,18 @@ runs on ``device`` (kernel I on the card); under the ``cv`` policy
 ``train_epochs`` refreshes each rank's HEC residency, which the draw's
 weights read, at the start of every epoch.
 
-The HEC states and the queues are updated in place where the reference
-returns new ones; ``evaluate`` therefore works on copies (``hec_clone``)
-and leaves the training state as it was.  The reference's ``sync`` and
-``drop`` modes, the hot tier, the NaN guard and fault codes, and the
-health and quality planes wait for later slices.
+The HEC states, the hot tier and the queues are updated in place where
+the reference returns new ones.  ``evaluate`` runs each batch from the
+training state as it is: it keeps the HEC tags and ages (and the tier's
+ages), journals the value rows the consume overwrites, and puts all of
+it back after the batch.  The NaN guard and fault codes, and the health
+and quality planes wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -52,6 +63,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.cache import hec as hec_lib
+from repro_torch.cache import hot_tier as hot_lib
 from repro_torch.comm.collective import StackedCollective
 from repro_torch.comm.engine import HaloExchangeEngine
 from repro_torch.comm.plan import _pad_stack, build_exchange_plan
@@ -64,6 +76,7 @@ from repro_torch.pipeline.prefetcher import EVAL_EPOCH_TAG, SamplingPlan
 from repro_torch.train import optimizer as opt_lib
 
 PushUniforms = Callable[[int, int, Sequence[int]], torch.Tensor]
+MODES = ("aep", "sync", "drop")
 
 
 def layer_dims(cfg: GNNConfig) -> List[int]:
@@ -73,8 +86,10 @@ def layer_dims(cfg: GNNConfig) -> List[int]:
 
 def build_dist_data(ps: PartitionSet, cfg: GNNConfig, device) -> dict:
     """Rank-stacked ``[R, ...]`` tables on ``device``: features, labels,
-    solid counts, VID_p -> VID_o maps and the push contract mask — built
-    once per partitioning, never per step."""
+    solid counts, VID_p -> VID_o maps and the exchange plan's tables (the
+    push contract mask, the sorted owner tables and, with
+    ``cfg.hec.hot_size``, the hot set) — built once per partitioning,
+    never per step."""
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return {
         "features": t(_pad_stack([p.features for p in ps.parts], 0.0)),
@@ -83,7 +98,9 @@ def build_dist_data(ps: PartitionSet, cfg: GNNConfig, device) -> dict:
         "num_solid": t(np.array([p.num_solid for p in ps.parts], np.int32)),
         "vid_o": t(_pad_stack([p.vid_p_to_o().astype(np.int32)
                                for p in ps.parts], -1)),
-        **build_exchange_plan(ps, host_indices=False).device_tables(device),
+        **build_exchange_plan(ps, host_indices=False,
+                              hot_size=cfg.hec.hot_size).device_tables(
+                                  device),
     }
 
 
@@ -98,7 +115,8 @@ def _epoch_mean(ep_metrics: List[dict]) -> dict:
     """Loss/acc weighted by real example count (padded empty batches weigh
     nothing), other per-step metrics plain-averaged, and per layer the
     epoch's HEC hit rate ``hec_hit_rate_l{l}`` = summed hits over summed
-    halos (absent when no halo row was looked up)."""
+    halos and, with the hot tier, ``hot_hit_rate_l{l}`` = summed hot hits
+    over the same halos (both absent when no halo row was looked up)."""
     if not ep_metrics:                   # zero-step epoch: no train seeds
         return {"examples": 0.0, "loss": 0.0, "acc": 0.0}
     w = np.array([m.get("examples", 1.0) for m in ep_metrics], np.float64)
@@ -119,6 +137,9 @@ def _epoch_mean(ep_metrics: List[dict]) -> dict:
             if halos:
                 out[f"hec_hit_rate_l{l}"] = \
                     sum(m[key] for m in ep_metrics) / halos
+                if f"hot_hits_l{l}" in ep_metrics[0]:
+                    out[f"hot_hit_rate_l{l}"] = sum(
+                        m[f"hot_hits_l{l}"] for m in ep_metrics) / halos
     return out
 
 
@@ -127,13 +148,27 @@ def default_push_uniforms(device: torch.device,
     """The reference's selection uniforms in [1e-6, 1), bit for bit:
     ``jax.random.uniform(fold_in(fold_in(PRNGKey(base_seed), seed), rank),
     shape, minval=1e-6, maxval=1.0)`` (``repro/comm/engine.py:
-    select_push``), drawn on ``device`` by the tensor Threefry of
-    ``pipeline/threefry.py``."""
+    select_push`` with 7, ``select_hot_push`` with 11), drawn on
+    ``device`` by the tensor Threefry of ``pipeline/threefry.py``."""
     def draw(seed: int, rank: int, shape: Sequence[int]) -> torch.Tensor:
         k = threefry.fold_in(threefry.fold_in(threefry.key(base_seed),
                                               int(seed) & 0xFFFFFFFF), rank)
         return threefry.uniform(k, shape, 1e-6, 1.0, device)
     return draw
+
+
+@dataclasses.dataclass
+class RankInputs:
+    """One rank's minibatch as the forward reads it: per layer the nodes
+    (VID_p), masks and VID_o, and the layer-0 input (``sync``: with the
+    fetched halo rows, ``got`` marking them)."""
+    nodes: List[torch.Tensor]
+    masks: List[torch.Tensor]
+    vid_o_nodes: List[torch.Tensor]
+    is_halo0: torch.Tensor
+    h0: torch.Tensor
+    valid0: torch.Tensor
+    got: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -153,10 +188,13 @@ class RankForward:
 
 @dataclasses.dataclass
 class DistTrainer:
-    """R-rank GNN trainer (``cfg.model``) in ``aep`` mode on one device.
+    """R-rank GNN trainer (``cfg.model``) in ``mode`` (aep | sync | drop)
+    on one device.
 
     ``push_uniforms(seed, rank, (R, N0))`` gives the AEP selection's
-    uniforms for a step (default: :func:`default_push_uniforms`).
+    uniforms for a step (default: :func:`default_push_uniforms`, the
+    reference's ``PRNGKey(7)`` stream); ``hot_uniforms(seed, rank,
+    (N0,))`` is the hot tier's, the reference's ``PRNGKey(11)`` stream.
     ``step_log`` keeps every training step's metrics."""
     cfg: GNNConfig
     num_ranks: int
@@ -165,76 +203,161 @@ class DistTrainer:
     push_uniforms: Optional[PushUniforms] = None
 
     def __post_init__(self):
-        if self.mode != "aep":
-            raise NotImplementedError(
-                f"mode {self.mode!r}: only aep is ported; sync and drop "
-                f"come with a later slice")
+        if self.mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got "
+                             f"{self.mode!r}")
         self.device = resolve_device(self.device)
         self.comm = StackedCollective(self.num_ranks)
         h = self.cfg.hec
         self.engine = HaloExchangeEngine(self.num_ranks, self.cfg.num_layers,
-                                         h.push_limit, h.delay, self.comm)
+                                         h.push_limit, h.delay, self.comm,
+                                         hot_budget=h.hot_budget)
         if self.push_uniforms is None:
             self.push_uniforms = default_push_uniforms(self.device)
+        self.hot_uniforms = default_push_uniforms(self.device, 11)
         self.step_log: List[dict] = []
 
     # -- state ---------------------------------------------------------------
-    def init_state(self, seed: int = 0, params: Optional[dict] = None) -> dict:
+    def init_state(self, seed: int = 0, params: Optional[dict] = None,
+                   dist_data: Optional[dict] = None) -> dict:
         """Fresh state: ``cfg.model``'s model (the reference's weights
         from ``jax.random.key(seed)``, or its ``{"layers": [...]}`` tree
-        ``params``), Adam, one empty HEC per (layer, rank) and empty
-        in-flight queues."""
-        cfg, dev = self.cfg, self.device
+        ``params``), Adam, one empty HEC per (layer, rank) in every mode,
+        empty in-flight queues and, in ``aep`` with a hot budget, one
+        empty hot-tier replica per layer stacked over the ranks.
+
+        The tier follows the reference's rules: it is off outside
+        ``aep``; it needs ``dist_data`` (whose plan dropped the hot
+        vertices from the push contract), and is off when the plan found
+        no hot set; a budget that cannot refresh the busiest owner's hot
+        vertices within a life-span draws a warning."""
+        cfg, dev, R = self.cfg, self.device, self.num_ranks
         model = build_model(cfg, seed=seed, device=dev, params=params)
         dims = layer_dims(cfg)
         hec = [[hec_lib.hec_init(cfg.hec.cache_size, cfg.hec.ways, dims[l],
-                                 dev) for _ in range(self.num_ranks)]
+                                 dev) for _ in range(R)]
                for l in range(cfg.num_layers)]
+        hot = []
+        eng = self.engine
+        if eng.hot_budget and self.mode != "aep":
+            eng.hot_budget = 0             # the tier is an AEP mechanism
+        elif eng.hot_budget:
+            if dist_data is None:
+                raise ValueError(
+                    "hec.hot_size/hot_budget are enabled: init_state needs "
+                    "dist_data (build_dist_data(ps, cfg, device)) so the "
+                    "tier replicas match the plan's hot tables")
+            if "hot_vids" not in dist_data:
+                eng.hot_budget = 0         # no hot set, contract unfiltered
+            else:
+                K = dist_data["hot_vids"].shape[1]
+                owned_max = int(dist_data["hot_mine"].sum(1).max())
+                refresh = cfg.hec.hot_budget * cfg.hec.life_span
+                if refresh < owned_max:
+                    warnings.warn(
+                        f"hot tier refresh budget is undersized: the "
+                        f"busiest rank owns {owned_max} of {K} hot "
+                        f"vertices but can refresh only hot_budget*"
+                        f"life_span = {refresh} per staleness window; "
+                        f"unrefreshed replicas go stale and those hub "
+                        f"halos degrade like HEC misses (dropped from "
+                        f"aggregation)")
+                hot = [hot_lib.tier_init(K, dims[l], dev, num_ranks=R)
+                       for l in range(cfg.num_layers)]
         return {"model": model, "opt": opt_lib.adam_init(
                     model.parameter_list()),
-                "hec": hec,
-                "inflight": self.engine.inflight_init(max(dims), dev),
+                "hec": hec, "hot": hot,
+                "inflight": eng.inflight_init(max(dims), dev),
                 "step": 0}
 
-    # -- one rank's forward ----------------------------------------------------
-    def _rank_forward(self, model, hec, data: dict, mb: dict, r: int,
-                      seed: int, dropout: float) -> RankForward:
+    # -- the forward ---------------------------------------------------------
+    def _inputs(self, data: dict, mb: dict) -> List[RankInputs]:
+        """Every rank's layer-0 input: its own features, halo rows zero
+        and invalid; in ``sync`` mode the halo fetch then fills the first
+        ``nc`` halo rows of every rank from their owners."""
+        R = self.num_ranks
+        num_solid = data["num_solid"][:, None]
+        vid_o, feats = data["vid_o"], data["features"]
+        nodes, masks = mb["layer_nodes"], mb["node_mask"]
+        vid_o_nodes = [torch.where(n >= 0, vid_o.gather(
+            1, n.clamp(0, vid_o.shape[1] - 1).long()), -1) for n in nodes]
+        is_halo0 = (nodes[0] >= num_solid) & masks[0]
+        valid0 = masks[0] & ~is_halo0
+        rows = torch.arange(R, device=feats.device)[:, None]
+        h0 = feats[rows, nodes[0].clamp(0, feats.shape[1] - 1).long()] \
+            * valid0[..., None].float()
+        got = None
+        if self.mode == "sync":
+            h0, got = self.engine.sync_fetch(
+                data["solid_sorted_vids"], data["solid_sorted_idx"], feats,
+                vid_o_nodes[0], is_halo0, h0)
+        return [RankInputs(nodes=[n[r] for n in nodes],
+                           masks=[m[r] for m in masks],
+                           vid_o_nodes=[v[r] for v in vid_o_nodes],
+                           is_halo0=is_halo0[r], h0=h0[r], valid0=valid0[r],
+                           got=None if got is None else got[r])
+                for r in range(R)]
+
+    def _substitute(self, hec, hot, hot_vids, r, k, h, valid, is_halo,
+                    vids):
+        """``aep`` at layer k of rank r: halo rows fresh in the hot tier's
+        replica take it, the others HEC hits; returns the new ``(h,
+        valid)`` and the (locally served, halo, hot) row counts."""
+        use_hot = None
+        if hot:
+            t_hit, t_emb = hot_lib.tier_lookup(hot[k].rank(r), hot_vids,
+                                               vids, self.cfg.hec.life_span)
+            use_hot = is_halo & t_hit
+            h = torch.where(use_hot[:, None], t_emb[:, :h.shape[1]], h)
+        hit, emb = hec_lib.hec_lookup(hec[k][r], vids)
+        use = is_halo & hit
+        if use_hot is not None:
+            use = use & ~use_hot
+        h = torch.where(use[:, None], emb[:, :h.shape[1]], h)
+        valid = (valid & ~is_halo) | use
+        if use_hot is None:
+            return h, valid, (use.sum(), is_halo.sum(), None)
+        served = use | use_hot
+        return h, valid | use_hot, (served.sum(), is_halo.sum(),
+                                    use_hot.sum())
+
+    def _rank_forward(self, model, hec, hot, data: dict, mb: dict,
+                      x: RankInputs, r: int, seed: int,
+                      dropout: float) -> RankForward:
+        L = self.cfg.num_layers
         num_solid = data["num_solid"][r]
-        feats = data["features"][r]
-        vid_o = data["vid_o"][r]
-        nodes = [n[r] for n in mb["layer_nodes"]]
-        masks = [m[r] for m in mb["node_mask"]]
-        vid_o_nodes = [torch.where(n >= 0,
-                                   vid_o[n.clamp(0, vid_o.shape[0] - 1).long()],
-                                   -1) for n in nodes]
-        # layer-0 inputs: own features, HEC hits for halo rows
-        nodes0, mask0 = nodes[0], masks[0]
-        is_halo0 = (nodes0 >= num_solid) & mask0
-        keep0 = mask0 & ~is_halo0
-        h0 = feats[nodes0.clamp(0, feats.shape[0] - 1).long()] \
-            * keep0[:, None].float()
-        hit0, emb0 = hec_lib.hec_lookup(hec[0][r], vid_o_nodes[0])
-        use0 = is_halo0 & hit0
-        h0 = torch.where(use0[:, None], emb0, h0)
-        valid0 = keep0 | use0
-        hits = [(use0.sum(), is_halo0.sum())]
+        hot_vids = data["hot_vids"][r] if hot else None
+        aep = self.mode == "aep"
+        h0, valid0, is_halo0 = x.h0, x.valid0, x.is_halo0
+        if aep:
+            h0, valid0, hit0 = self._substitute(
+                hec, hot, hot_vids, r, 0, h0, valid0, is_halo0,
+                x.vid_o_nodes[0])
+        elif self.mode == "sync":                 # the fetched rows
+            valid0 = valid0 | x.got
+            hit0 = (x.got.sum(), is_halo0.sum(), None)
+        else:                                     # drop
+            hit0 = (torch.zeros_like(is_halo0.sum()), is_halo0.sum(), None)
+        hits = [hit0]
         captured = {}
 
         def halo_hook(k, h, valid):
             if k == 0:
                 captured[0] = (h, valid)
                 return h, valid
-            is_halo = (nodes[k] >= num_solid) & masks[k]
-            hit, emb = hec_lib.hec_lookup(hec[k][r], vid_o_nodes[k])
-            use = is_halo & hit
-            h = torch.where(use[:, None], emb[:, :h.shape[1]], h)
-            valid = (valid & ~is_halo) | use
-            hits.append((use.sum(), is_halo.sum()))
+            is_halo = (x.nodes[k] >= num_solid) & x.masks[k]
+            if aep:
+                h, valid, hit = self._substitute(hec, hot, hot_vids, r, k, h,
+                                                 valid, is_halo,
+                                                 x.vid_o_nodes[k])
+                hits.append(hit)
+            else:
+                valid = valid & ~is_halo
             captured[k] = (h.detach(), valid)
             return h, valid
 
         out, valid = model.train_forward(
-            h0, valid0, {"nbr_idx": [x[r] for x in mb["nbr_idx"]]},
+            h0, valid0, {"nbr_idx": [n[r] for n in mb["nbr_idx"]]},
             dropout=dropout, seed=seed, halo_hook=halo_hook)
         B = mb["seeds"].shape[1]
         logits = out[:B]
@@ -249,38 +372,64 @@ class DistTrainer:
         return RankForward(
             loss=nll_sum / n_valid.clamp_min(1), nll_sum=nll_sum.detach(),
             correct=correct, n_valid=n_valid,
-            captured=[captured[l] for l in range(self.cfg.num_layers)],
-            hits=hits, nodes0=nodes0, mask0=mask0, vid0=vid_o_nodes[0])
+            captured=[captured[l] for l in range(L)],
+            hits=hits, nodes0=x.nodes[0], mask0=x.masks[0],
+            vid0=x.vid_o_nodes[0])
 
-    def _consume(self, hec, inflight):
+    def _forward(self, state: dict, data: dict, mb: dict, seed: int,
+                 dropout: float) -> List[RankForward]:
+        xs = self._inputs(data, mb)
+        return [self._rank_forward(state["model"], state["hec"],
+                                   state["hot"], data, mb, x, r, seed,
+                                   dropout) for r, x in enumerate(xs)]
+
+    def _consume(self, state: dict, undo: Optional[list] = None):
+        """``aep``: every rank ticks its HECs (and tier replica) and stores
+        its queue's slot 0 (``undo``: journal of the overwritten rows)."""
         dims = layer_dims(self.cfg)
         for r in range(self.num_ranks):
-            self.engine.consume_push([layer[r] for layer in hec],
-                                     inflight[r], dims,
-                                     self.cfg.hec.life_span)
+            self.engine.consume_push(
+                [layer[r] for layer in state["hec"]], state["inflight"][r],
+                dims, self.cfg.hec.life_span,
+                hot=[t.rank(r) for t in state["hot"]] or None, undo=undo)
 
-    # -- the step ---------------------------------------------------------------
+    def _push(self, state: dict, data: dict, fwd: List[RankForward],
+              seed: int) -> dict:
+        """Every rank's push selection (and hot-tier broadcast segment) in
+        one fused all_to_all into the queues; returns the push stats."""
+        R, dims = self.num_ranks, layer_dims(self.cfg)
+        selections, hot = [], [] if state["hot"] else None
+        for r, f in enumerate(fwd):
+            n0 = f.nodes0.shape[0]
+            sel_args = (f.nodes0, f.mask0, f.vid0, data["num_solid"][r],
+                        f.captured)
+            selections.append(self.engine.select_push(
+                data["push_mask"][r], *sel_args,
+                self.push_uniforms(seed, r, (R, n0)), dims, max(dims)))
+            if hot is not None:
+                hot.append(self.engine.select_hot_push(
+                    data["hot_vids"][r], data["hot_mine"][r], *sel_args,
+                    self.hot_uniforms(seed, r, (n0,)), dims, max(dims)))
+        state["inflight"], stats = self.engine.aep_push(
+            selections, state["inflight"], dims, hot=hot)
+        return stats
+
+    # -- the step ------------------------------------------------------------
     def train_step(self, state: dict, data: dict, mb: dict,
                    seed: int) -> dict:
         """One synchronized step of every rank on the device minibatch
         ``mb`` with the u32 ``seed``; updates ``state`` in place and
-        returns the step's metrics (floats)."""
-        cfg, R, L = self.cfg, self.num_ranks, self.cfg.num_layers
-        dims = layer_dims(cfg)
+        returns the step's metrics (floats), with the reference's keys
+        for the mode."""
+        cfg, L = self.cfg, self.cfg.num_layers
+        aep = self.mode == "aep"
         model, hec = state["model"], state["hec"]
-        self._consume(hec, state["inflight"])
-        fwd = [self._rank_forward(model, hec, data, mb, r, seed,
-                                  cfg.dropout) for r in range(R)]
-        # the push reads only forward activations: dispatched before the
-        # backward, as the paper overlaps it with backward compute
-        selections = []
-        for r, f in enumerate(fwd):
-            u = self.push_uniforms(seed, r, (R, f.nodes0.shape[0]))
-            selections.append(self.engine.select_push(
-                data["push_mask"][r], f.nodes0, f.mask0, f.vid0,
-                data["num_solid"][r], f.captured, u, dims, max(dims)))
-        state["inflight"], push = self.engine.aep_push(
-            selections, state["inflight"], dims)
+        if aep:
+            self._consume(state)
+        fwd = self._forward(state, data, mb, seed, cfg.dropout)
+        # the push reads only forward activations: it is dispatched before
+        # the backward, as the paper overlaps it with backward compute
+        push = self._push(state, data, fwd, seed) if aep else None
         params = model.parameter_list()
         rank_grads = [torch.autograd.grad(f.loss, params) for f in fwd]
         # example-weighted all-reduce: the gradient of the global batch mean
@@ -299,14 +448,19 @@ class DistTrainer:
             opt_lib.AdamConfig(lr=cfg.lr, grad_clip=1.0))
         state["step"] += 1
         metrics = {"loss": loss_m, "acc": acc_m, "examples": examples,
-                   "grad_norm": diag["grad_norm"],
-                   "aep_push_rows": self.comm.psum(push["push_rows"]),
-                   "aep_push_bytes": self.comm.psum(push["push_bytes"])}
-        for l in range(L):
-            metrics[f"hec_hits_l{l}"] = self.comm.psum(
-                torch.stack([f.hits[l][0] for f in fwd]))
-            metrics[f"hec_halos_l{l}"] = self.comm.psum(
-                torch.stack([f.hits[l][1] for f in fwd]))
+                   "grad_norm": diag["grad_norm"]}
+        if push is not None:
+            metrics["aep_push_rows"] = self.comm.psum(push["push_rows"])
+            metrics["aep_push_bytes"] = self.comm.psum(push["push_bytes"])
+            if "hot_push_rows" in push:
+                metrics["hot_push_rows"] = self.comm.psum(
+                    push["hot_push_rows"])
+        psum = lambda xs: self.comm.psum(torch.stack(xs))  # noqa: E731
+        for l in range(len(fwd[0].hits)):
+            metrics[f"hec_hits_l{l}"] = psum([f.hits[l][0] for f in fwd])
+            metrics[f"hec_halos_l{l}"] = psum([f.hits[l][1] for f in fwd])
+            if state["hot"]:
+                metrics[f"hot_hits_l{l}"] = psum([f.hits[l][2] for f in fwd])
         for l in range(L):
             metrics[f"hec_occ_l{l}"] = float(np.mean(
                 [hec_lib.hec_occupancy(st) for st in hec[l]]))
@@ -375,28 +529,41 @@ class DistTrainer:
     def evaluate(self, ps: PartitionSet, data: dict, state: dict,
                  num_batches: int = 8, seed0: int = 123) -> float:
         """Test accuracy over sampled test-vertex minibatches (the
-        reference's eval stream), dropout off.  Each batch starts from the
-        training state as it is — one tick + consume of the in-flight
-        queue on copies of the HECs — and the training state is never
-        written."""
+        reference's eval stream), dropout off, on the mode's own path.
+        Each batch starts from the training state as it is: in ``aep`` one
+        tick + consume of the in-flight queue, then the forward.  The
+        consume is the only write, so the HEC tags and ages and the
+        tier's ages are kept, the value rows it overwrites journaled, and
+        all of it put back after the batch: the training state is left as
+        it was, and no HEC is copied whole."""
         plan = SamplingPlan(ps, self.cfg, base_seed=seed0,
                             device=self.device)
         schedule = plan.eval_schedule(num_batches, seed0)
+        aep = self.mode == "aep"
+        kept = [(st.tags.clone(), st.age.clone())
+                for layer in state["hec"] for st in layer] if aep else []
+        kept_hot = [t.age.clone() for t in state["hot"]]
+        undo = []
         accs, weights = [], []
         for k, host in enumerate(plan.batches(schedule,
                                               EVAL_EPOCH_TAG + seed0)):
             mb = minibatch_to_device(host, self.device)
-            hec = [[hec_lib.hec_clone(st) for st in layer]
-                   for layer in state["hec"]]
-            self._consume(hec, state["inflight"])
-            fwd = [self._rank_forward(state["model"], hec, data, mb, r,
-                                      10_000 + k, 0.0)
-                   for r in range(self.num_ranks)]
+            if aep:
+                self._consume(state, undo=undo)
+            fwd = self._forward(state, data, mb, 10_000 + k, 0.0)
+            if aep:
+                hec_lib.undo_stores(undo)
+                states = [st for layer in state["hec"] for st in layer]
+                for st, (tags, age) in zip(states, kept):
+                    st.tags.copy_(tags)
+                    st.age.copy_(age)
+                for t, age in zip(state["hot"], kept_hot):
+                    t.age.copy_(age)
             examples = int(sum(int(f.n_valid) for f in fwd))
             correct = int(sum(int(f.correct) for f in fwd))
             accs.append(correct / max(examples, 1))
             weights.append(float(examples))
-            del hec
+            del fwd
         if not sum(weights):
             return 0.0
         return float(np.average(accs, weights=weights))

@@ -630,6 +630,149 @@ def test_two_training_steps_on_card_match_cpu(dev):
         assert torch.equal(a["tags"].cpu(), b["tags"])
 
 
+def mode_run(d, mode, model):
+    """Two steps of a 4-rank trainer in ``mode`` on device ``d`` (``aep``
+    with the hot tier), then ``evaluate`` (its accuracy and the state
+    before and after it): what the card tests of the modes compare."""
+    from repro_torch.configs.gnn import HECConfig, small_gnn_config
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
+                                               minibatch_to_device)
+    g = synthetic_graph(num_vertices=2000, avg_degree=8, num_classes=6,
+                        feat_dim=24, seed=0)
+    ps = partition_graph(g, 4, seed=0)
+    hot = dict(hot_size=48, hot_budget=32) if mode == "aep" else {}
+    cfg = small_gnn_config(model, batch_size=32, feat_dim=24, num_classes=6,
+                           hidden_size=16, num_hidden_layers=2,
+                           fanouts=(4, 5, 6),
+                           hec=HECConfig(cache_size=4096, ways=4,
+                                         push_limit=128, **hot))
+    plan = SamplingPlan(ps, cfg, 0)
+    hosts = list(plan.batches(plan.epoch_schedule(0), 0))[:2]
+    tr = DistTrainer(cfg, 4, mode=mode, device=d)
+    data = build_dist_data(ps, cfg, d)
+    st = tr.init_state(seed=3, dist_data=data)
+    logs = [tr.train_step(st, data, minibatch_to_device(h, d), i)
+            for i, h in enumerate(hosts)]
+    out = {"logs": logs, "mu": [m.cpu().clone() for m in st["opt"].mu],
+           "state": state_tensors(st)}
+    out["acc"] = tr.evaluate(ps, data, st, num_batches=3)
+    out["after"] = state_tensors(st)
+    return out
+
+
+def state_tensors(st):
+    """Every tensor of a training state, as host copies."""
+    out = [p.detach().cpu().clone() for p in st["model"].parameter_list()]
+    out += [getattr(s, f).cpu().clone() for layer in st["hec"] for s in layer
+            for f in ("tags", "age", "values")]
+    out += [getattr(s, f).cpu().clone() for s in st["hot"]
+            for f in ("age", "values")]
+    out += [q[k].cpu().clone() for q in st["inflight"] for k in sorted(q)]
+    return out
+
+
+def bit_equal(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("mode", ["sync", "drop", "aep"])
+@pytest.mark.parametrize("model", ["graphsage", "gat"])
+def test_modes_on_card_match_cpu(dev, mode, model):
+    """Two steps of ``sync``, ``drop`` and ``aep`` with the hot tier on the
+    card == the same steps through the plain versions on the CPU: loss and
+    gradient norm within 1e-4 relative, Adam's first moment within
+    tolerance after step 1 for GraphSAGE, the counts equal, and HEC tags,
+    hot-tier slot ages and every queued tag equal; ``evaluate`` on the
+    card leaves the state bit-equal to what it was, and its accuracy is
+    the CPU's within one eval example in fifty."""
+    gpu, cpu = mode_run(dev, mode, model), mode_run(torch.device("cpu"),
+                                                   mode, model)
+    for a, b in zip(gpu["logs"], cpu["logs"]):
+        assert set(a) == set(b)
+        for k in ("loss", "grad_norm"):
+            assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), k
+        for k in a:
+            if k.startswith(("hec_hits", "hec_halos", "hot_", "aep_push_rows",
+                             "exam")):
+                assert a[k] == b[k], k
+    if model == "graphsage":
+        assert all(close(a, b) for a, b in zip(gpu["mu"], cpu["mu"]))
+    ints = lambda xs: [x for x in xs if x.dtype != torch.float32]  # noqa
+    assert bit_equal(ints(gpu["state"]), ints(cpu["state"]))
+    assert bit_equal(gpu["after"], gpu["state"])
+    assert abs(gpu["acc"] - cpu["acc"]) <= 0.02
+    if mode == "sync":
+        assert gpu["logs"][-1]["hec_hits_l0"] > 0
+    if mode == "aep":
+        assert gpu["logs"][-1]["hot_push_rows"] > 0
+
+
+def test_sync_fetch_and_hot_segment_on_card_match_cpu(dev):
+    """The sync fetch (fewer halos than slots on rank 0, more on the
+    others) and the hot tier's selection, fused push and consume on the
+    card: every output bit-equal to the CPU's."""
+    from repro_torch.cache import hot_tier
+    from repro_torch.comm import HaloExchangeEngine, StackedCollective
+    rng = np.random.default_rng(4)
+    R, N0, F, S, nc, K, dims = 4, 3000, 24, 700, 400, 48, [24, 16]
+    svids = np.sort(rng.choice(10_000, (R, S), replace=False), 1)
+    vid0 = rng.integers(-1, 10_000, (R, N0))
+    vid0[:, :S // 2] = svids[(np.arange(R) + 1) % R][:, :S // 2]
+    is_halo0 = (rng.random((R, N0)) < 0.5) & (vid0 >= 0)
+    is_halo0[0, nc // 2:] = False
+    hot = svids[:, :K // R].reshape(-1)
+    order = np.argsort(hot)
+    hot_owner = np.repeat(np.arange(R), K // R)[order]
+    own_vid0 = np.full((R, N0), -1)
+    own_vid0[:, :S] = svids
+    cpu = torch.device("cpu")
+    outs = []
+    for d in (dev, cpu):
+        t = lambda x, dt=torch.int32: torch.as_tensor(  # noqa: E731
+            x, device=d).to(dt)
+        eng = HaloExchangeEngine(R, 2, nc, 1, StackedCollective(R),
+                                 hot_budget=16)
+        h0, got = eng.sync_fetch(
+            t(svids), t(np.tile(np.arange(S), (R, 1))),
+            t(rng_features(R, S, F), torch.float32), t(vid0), t(is_halo0,
+                                                                torch.bool),
+            torch.zeros((R, N0, F), device=d))
+        hot_vids = t(hot[order])
+        captured = [(t(rng_features(1, N0, w)[0], torch.float32),
+                     torch.ones(N0, dtype=torch.bool, device=d))
+                    for w in dims]
+        sels = [eng.select_hot_push(
+            hot_vids, t(hot_owner == r, torch.bool), t(np.arange(N0)),
+            torch.ones(N0, dtype=torch.bool, device=d), t(own_vid0[r]),
+            t(S), captured, t(np.linspace(0.9, 0.1, N0), torch.float32),
+            dims, max(dims)) for r in range(R)]
+        empty = [(torch.full((R, 2, nc), -1, dtype=torch.int32, device=d),
+                  torch.zeros((R, 2, nc, max(dims)), device=d))
+                 for _ in range(R)]
+        q, stats = eng.aep_push(empty, eng.inflight_init(max(dims), d), dims,
+                                hot=sels)
+        caches = [[hec.hec_init(64, 4, w, d) for w in dims] for _ in range(R)]
+        tiers = [hot_tier.tier_init(K, w, d, num_ranks=R) for w in dims]
+        for r in range(R):
+            eng.consume_push(caches[r], q[r], dims, 2,
+                             hot=[tt.rank(r) for tt in tiers])
+        outs.append([x.cpu() for x in (h0, got, *sels[0], stats[
+            "hot_push_rows"], q[1]["hot_tags"], *(tt.age for tt in tiers),
+            *(tt.values for tt in tiers))])
+    assert bit_equal(*outs)
+    assert int(outs[0][1].sum()) > 0 and int((outs[0][2] >= 0).sum()) > 0
+    # every rank owns 12 hot vertices (under the budget of 16) and sends
+    # them all: every slot of every replica is refreshed
+    assert bool((outs[0][6] == 0).all()) and bool((outs[0][7] == 0).all())
+
+
+def rng_features(R, n, w, seed=5):
+    return np.random.default_rng(seed + w).normal(
+        size=(R, n, w)).astype(np.float32)
+
+
 # ---------------------------------------------------------------------------
 # GAT AGG (G, H)
 # ---------------------------------------------------------------------------

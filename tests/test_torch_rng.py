@@ -2,7 +2,8 @@
 
 * the AEP push selection's default uniforms
   (``train/gnn_trainer.py:default_push_uniforms``) against the
-  reference's draw in ``repro/comm/engine.py:select_push``;
+  reference's draw in ``repro/comm/engine.py:select_push``, and the hot
+  tier's (``DistTrainer.hot_uniforms``) against ``select_hot_push``'s;
 * ``split``, ``random_bits`` and ``uniform`` of ``pipeline/threefry.py``;
 * ``models/gnn/init.py``: ``erf_inv_f32`` on every float32 a normal can
   draw, ``normal``, and the GraphSAGE and GAT initial weights against
@@ -67,6 +68,21 @@ def test_push_uniforms_base_seed_is_a_parameter():
     np.testing.assert_array_equal(bits(got.numpy()),
                                   bits(jax_push_uniforms(5, 2, (4, 513), 11)))
     assert not np.array_equal(got.numpy(), jax_push_uniforms(5, 2, (4, 513)))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 32 - 1])
+def test_hot_push_uniforms_match_jax(seed):
+    """``repro/comm/engine.py:select_hot_push``'s draw, one uniform per
+    layer-0 row from ``PRNGKey(11)``, as the trainer's default
+    ``hot_uniforms`` gives it."""
+    from repro_torch.configs.gnn import small_gnn_config
+    from repro_torch.train.gnn_trainer import DistTrainer
+    tr = DistTrainer(small_gnn_config("graphsage"), 4, device="cpu")
+    for me, n0 in enumerate((1152, 1777, 10, 300)):
+        got = tr.hot_uniforms(seed, me, (n0,))
+        assert got.dtype == torch.float32 and tuple(got.shape) == (n0,)
+        np.testing.assert_array_equal(
+            bits(got.numpy()), bits(jax_push_uniforms(seed, me, (n0,), 11)))
 
 
 # ---------------------------------------------------------------------------

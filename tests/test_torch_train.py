@@ -700,16 +700,21 @@ def test_float64_witness_matches_first_step(model):
         assert smoke.rel_norm(got.double(), w) <= 1e-5
 
 
-def test_launcher_trains_on_cpu(tmp_path, capsys):
+@pytest.mark.parametrize("mode", ["aep", "sync", "drop"])
+def test_launcher_trains_on_cpu(tmp_path, capsys, mode):
     from repro_torch.launch import train
     ckpt = str(tmp_path / "params.npz")
     res = train.run_gnn(train.parse_args(
         ["gnn", "--device", "cpu", "--ranks", "2", "--vertices", "1200",
-         "--epochs", "2", "--batch", "32", "--ckpt", ckpt]))
+         "--epochs", "2", "--batch", "32", "--ckpt", ckpt, "--mode", mode]))
     out = capsys.readouterr().out
     assert "graph: V=1200" in out and "partitioned into 2" in out
-    assert out.count("[aep] epoch") == 2 and "test_acc=" in out
+    assert out.count(f"[{mode}] epoch") == 2 and "test_acc=" in out
+    assert res["trainer"].mode == mode
     hist = res["history"]
+    # outside aep nothing is pushed and layer 0 alone counts halos
+    assert ("aep_push_rows" in hist[0]) == (mode == "aep")
+    assert ("hec_hits_l1" in hist[0]) == (mode == "aep")
     assert hist[-1]["loss"] < hist[0]["loss"]
     assert all(np.isfinite(h["loss"]) for h in hist)
     assert {"t_sample", "t_host_prep", "t_stage", "t_step"} <= set(hist[0])
@@ -745,13 +750,6 @@ def test_launcher_trains_gat_on_cpu(tmp_path, capsys):
     assert leaves[0].shape == (4, 16) and leaves[3].shape == (64, 4, 16)
 
 
-@pytest.mark.parametrize("flag", [["--mode", "sync"], ["--mode", "drop"]])
-def test_launcher_refuses_what_waits(flag):
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="slice"):
-        train.run_gnn(train.parse_args(["gnn", "--device", "cpu", *flag]))
-
-
 def test_constructors_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = small_gnn_config("graphsage")
@@ -770,8 +768,16 @@ def test_port_configs_match_reference_defaults():
     from repro_torch.configs import gnn as t_cfg
     a, b = t_cfg.HECConfig(), j_cfg.HECConfig()
     assert json.dumps([a.cache_size, a.ways, a.life_span, a.push_limit,
-                       a.delay]) == json.dumps(
-        [b.cache_size, b.ways, b.life_span, b.push_limit, b.delay])
+                       a.delay, a.hot_size, a.hot_budget]) == json.dumps(
+        [b.cache_size, b.ways, b.life_span, b.push_limit, b.delay,
+         b.hot_size, b.hot_budget])
+    a, b = (c.HECConfig(hot_size=48, hot_budget=32) for c in (t_cfg, j_cfg))
+    assert (a.hot_size, a.hot_budget) == (b.hot_size, b.hot_budget)
+    for bad in (dict(hot_size=8), dict(hot_budget=8)):
+        with pytest.raises(AssertionError, match="together"):
+            j_cfg.HECConfig(**bad)
+        with pytest.raises(ValueError, match="together"):
+            t_cfg.HECConfig(**bad)
     p, q = t_cfg.PipelineConfig(), j_cfg.PipelineConfig()
     assert (p.num_workers, p.prefetch_depth) == (q.num_workers,
                                                  q.prefetch_depth)
