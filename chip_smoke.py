@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together, into ``build/kernels/``), then runs nine
-phases on one card, phases 1-4, 7 and 9 (b) at the paper's full GraphSAGE
+source, all started together, into ``build/kernels/``), then runs ten
+phases on one card, phases 1-4, 7, 9 (b) and 10 at the paper's full GraphSAGE
 width (128 -> 256 -> 256 -> 172, fanouts 5/10/15), phases 5-6 at its full
 GAT width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172, one head at the
 last layer) and phases 8 and 9 (c) at both:
@@ -133,7 +133,34 @@ last layer) and phases 8 and 9 (c) at both:
      attention vectors at step 0 against a float64 witness, as phase 6
      (c)), every HEC tag, queued and hot tag, slot age, sync ``got`` mask
      and fetched row equal; and a free card run, its loss and gradient
-     norm within ``FREE_RUN_TOL`` = 1e-3 of the CPU's at every step.
+     norm within ``FREE_RUN_TOL`` = 1e-3 of the CPU's at every step;
+ 10. the minibatch pipeline, the push on its side stream and the trace,
+     the eleventh to fourteenth main paths: four epochs of
+     ``launch/train.py gnn`` at phase 4's graph and settings with
+     ``--trace-out``, ``--metrics-out`` and ``--prom-out`` (written under
+     ``build/phase10/``), each with phase 4's launch counts: (a) the
+     default (``MinibatchPipeline``: pinned batches, copies on a copy
+     stream one batch ahead, the push on its side stream) against
+     ``PipelineConfig(double_buffer=False)``: the same HEC tag and age
+     digests and pushed rows at every step, the loss of every full step
+     and of the epoch and the parameters (as one vector) within
+     ``FREE_RUN_TOL`` (the 3-seed last step's loss and the worst leaf
+     printed), and from the trace the share of the H2D copy time beside
+     main-stream kernels and the ``stage`` ms per step; (b) the
+     default against ``DistTrainer(overlap=False)`` (the push inline
+     after the backward): the same checks, push-stream kernels (the
+     uniforms' elementwise ones among them) running beside the main
+     stream's, the measured overlap share beside ``obs.StepModel``'s, the
+     ``step`` ms and device busy share of both; (c) ``train_epochs(
+     pipeline=None)`` (the reference's per-row sampler) at phase 9 (c)'s
+     size, on the CPU and on the card, each card step from the CPU's
+     state held as phase 9 (c) holds it; (d) every run's trace passes
+     ``validate_chrome_trace`` with ``sample``/``host_prep`` on a prefetch
+     thread, ``stage``/``step`` on the main thread and device tracks for
+     at least two streams, every JSONL line parses, the Prometheus file
+     has ``phase_seconds`` of the four phases, the ``EpochBreakdown``
+     table prints; (e) one epoch at ``P10_WORKERS`` = 4 prefetch workers,
+     its ``sample`` ms and s/epoch beside (a)'s.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
@@ -800,17 +827,22 @@ def check_training(np, phase, res, launches, per_step, per_eval):
               + " (sample and host_prep run on the prefetch worker)")
 
 
-def phase4_main_path(torch, np, vertices):
-    """(b) of phase 4: GraphSAGE; per step C, D, E and B at every layer of
-    every rank and F at layers >= 1, per eval batch C, E and B."""
+def phase4_counts():
+    """Phase 4's launches: per step C, D, E and B at every layer of every
+    rank and F at layers >= 1, per eval batch C, E and B."""
     R, L = 4, 3
     per_step = {"hec_lookup": L * R, "update_fused_fwd": L * R,
                 "update_fused_bwd": L * R, "sage_agg_fwd": L * R,
                 "sage_agg_bwd": (L - 1) * R}
     per_eval = {"hec_lookup": L * R, "update_fused_fwd": L * R,
                 "sage_agg_fwd": L * R}
+    return per_step, per_eval
+
+
+def phase4_main_path(torch, np, vertices):
+    """(b) of phase 4: GraphSAGE through the launcher."""
     return train_main_path(torch, np, "phase 4", TRAIN_ARGS + [
-        "--vertices", str(vertices)], per_step, per_eval)
+        "--vertices", str(vertices)], *phase4_counts())
 
 
 def close_to(got, want):
@@ -1236,9 +1268,7 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
     beside which the CPU's float32 is printed.  The card's last step at the
     main path's batch is traced (once more on the card alone when the
     check ran at another batch)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.launch.gnn_serve import device_profile
+    from repro_torch import obs
     from repro_torch.pipeline.prefetcher import SamplingPlan
     from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
                                                minibatch_to_device)
@@ -1256,16 +1286,14 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
         for i, host in enumerate(hosts):
             mb = minibatch_to_device(host, tr.device)
             traced = trace and i == steps - 1
-            if traced:                 # the device's share of one step
-                prof = profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA])
-                prof.__enter__()
-            t0 = time.perf_counter()
-            out["logs"].append(tr.train_step(st, data, mb, i))
-            out["secs"].append(time.perf_counter() - t0)
+            # the device's share of one step: the union of its intervals
+            with (obs.DeviceTrace(tr.device) if traced
+                  else contextlib.nullcontext()) as dt:
+                t0 = time.perf_counter()
+                out["logs"].append(tr.train_step(st, data, mb, i))
+                out["secs"].append(time.perf_counter() - t0)
             if traced:
-                prof.__exit__(None, None, None)
-                out["profile"] = device_profile(prof, out["secs"][-1])
+                out["profile"] = dt.summary()
             if i == 0:                 # copies: the state moves on in place
                 out["mu"] = [m.cpu().clone() for m in st["opt"].mu]
                 out["pushed"] = [q["tags"][-1].cpu().clone()
@@ -1360,17 +1388,18 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
     dp = traced_profile
     h = res["history"][0]
     steps_b = len(res["trainer"].step_log)
+    busy_ms = dp["busy_us"] / 1e3
     print(f"{phase} (c): traced card step {steps - 1} at batch "
-          f"{res['cfg'].batch_size}: {dp['wall_ms']:.1f} "
-          f"ms wall, device busy {dp['device_busy_ms']:.2f} ms "
-          f"({100 * dp['device_busy_share']:.1f}%); against the main "
-          f"path's {1e3 * h['t_wall'] / steps_b:.1f} ms of epoch wall per "
-          f"step, a busy share of "
-          f"{100 * dp['device_busy_ms'] * steps_b / (1e3 * h['t_wall']):.1f}%"
-          f" (indicative)")
+          f"{res['cfg'].batch_size}: {dp['wall_us'] / 1e3:.1f} "
+          f"ms wall, device busy {busy_ms:.2f} ms "
+          f"({100 * dp['busy_share']:.1f}%, the union over "
+          f"{len(dp['streams'])} streams); against the main path's "
+          f"{1e3 * h['t_wall'] / steps_b:.1f} ms of epoch wall per step, a "
+          f"busy share of {100 * busy_ms * steps_b / (1e3 * h['t_wall']):.1f}"
+          f"% (indicative)")
     for row in dp["top"]:
-        print(f"{phase} (c):   {row['device_ms']:8.3f} ms  {row['calls']:5d}"
-              f"x  {row['op'][:90]}")
+        print(f"{phase} (c):   {row['device_us'] / 1e3:8.3f} ms  "
+              f"{row['calls']:5d}x  {row['name'][:90]}")
     return dp
 
 
@@ -2079,13 +2108,13 @@ def phase8_main_path(torch, np, args, preset, phase):
     lookups, unlook = record_last(
         DistGNNServeScheduler, "_lookup",
         lambda self, state, vids: (state.tags.data_ptr(), vids.shape[1]))
-    reg = obs.configure().registry
     zero_launches()
     try:
         res = gnn_serve_dist.run(largs)
         launches = read_launches()
     finally:
         unrec(), unprobe(), unlook()
+    reg = obs.get().registry               # the launcher's own runtime
     spans = {ph: reg.value("phase_seconds", phase=ph) * 1e3
              for ph in ("serve_round", "serve_sample", "serve_step",
                         "serve_sync_host")}
@@ -2702,6 +2731,410 @@ def phase9_check(torch, np):
                   + f" ({time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the minibatch pipeline, the push on its side stream, the trace
+# ---------------------------------------------------------------------------
+P10_DIR = os.path.join(ROOT, "build", "phase10")
+P10_WORKERS = 4             # (e): prefetch workers (and depth)
+# kernels only the backward launches (kernels D and F)
+BWD_KERNELS = ("update_bwd_kernel", "sage_agg_bwd_kernel")
+
+
+def is_bwd(event) -> bool:
+    """A device event of kernel D or F (their names carry the template
+    arguments and parameters)."""
+    return any(k in event["name"] for k in BWD_KERNELS)
+
+
+class StepRecorder:
+    """Between ``start`` and ``stop`` every ``DistTrainer.train_step`` also
+    records its metrics and, per HEC, a digest of its tags and of its ages
+    (an int64 weighted sum: equal tensors give equal digests), so two runs
+    are compared step for step without a copy of 12 GB of HECs.  The
+    digests stay on the card until ``stop``: a host read per step would
+    wait inside the ``step`` span."""
+
+    def __init__(self, torch):
+        from repro_torch.train.gnn_trainer import DistTrainer
+        self.torch, self.cls = torch, DistTrainer
+        self.steps, self._w = [], {}
+
+    def digest(self, t):
+        torch = self.torch
+        key = (t.numel(), t.device)
+        if key not in self._w:
+            g = torch.Generator().manual_seed(t.numel())
+            self._w[key] = torch.randint(1, 2 ** 31 - 1, (t.numel(),),
+                                         generator=g).to(t.device)
+        return ((t.reshape(-1).long() + 2) * self._w[key]).sum()
+
+    def start(self):
+        orig = self.orig = self.cls.train_step
+
+        def train_step(tr, state, data, mb, seed):
+            m = orig(tr, state, data, mb, seed)
+            hecs = [s for layer in state["hec"] for s in layer]
+            self.steps.append({"m": m,
+                               "tags": [self.digest(s.tags) for s in hecs],
+                               "ages": [self.digest(s.age) for s in hecs]})
+            return m
+        self.cls.train_step = train_step
+        return self
+
+    def stop(self):
+        self.cls.train_step = self.orig
+        for s in self.steps:
+            for k in ("tags", "ages"):
+                s[k] = [int(x) for x in s[k]]
+
+
+def trace_streams(phase, trace):
+    """The device events of a launcher trace and the roles of its streams:
+    the main stream (the one of kernels D and F), the push's side stream
+    (another stream with kernels in training), and the copy streams."""
+    from repro_torch import obs
+    dev = obs.device_events(trace)
+    spans = [e for e in trace["traceEvents"]
+             if e["ph"] == "X" and e.get("cat") == "phase"]
+    steps = [e for e in spans if e["name"] == "step"]
+    t0 = min(e["ts"] for e in spans if e["name"] == "stage")
+    window = (t0, max(e["ts"] + e["dur"] for e in steps))
+    train = [e for e in dev if window[0] <= e["ts"] <= window[1]]
+    main = {e["stream"] for e in train if is_bwd(e)}
+    check(len(main) == 1, f"{phase}: kernels D and F ran on streams "
+          f"{sorted(main)}, not on one main stream")
+    main = main.pop()
+    push = {e["stream"] for e in train
+            if e["stream"] != main and e["cat"] == "device_kernel"}
+    copy = {e["stream"] for e in train if e["stream"] not in push | {main}
+            and e["cat"] == "device_memcpy"
+            and e["name"].startswith("Memcpy HtoD")}
+    return {"events": train, "main": main, "push": push, "copy": copy,
+            "streams": sorted({e["stream"] for e in dev})}
+
+
+def overlap_share(obs, events, mine, theirs, cat):
+    """``(overlapped µs, own µs)``: the device time of the ``cat`` events on
+    streams ``mine`` that overlaps the main stream's kernels ``theirs``."""
+    ev = [e for e in events if (e["stream"] in mine and e["cat"] == cat)
+          or (e["stream"] == theirs and e["cat"] == "device_kernel")]
+    own = sum(obs.busy_us([e for e in ev if e["stream"] == s])
+              for s in mine)
+    return sum(obs.stream_overlap_us(ev, s, [theirs]) for s in mine), own
+
+
+def phase10_run(torch, np, key, name, card, pipeline=None, overlap=True):
+    """One epoch and ``evaluate`` through ``launch/train.py gnn`` at phase
+    4's settings with ``--trace-out``, ``--metrics-out`` and ``--prom-out``
+    (``pipeline``: a ``PipelineConfig``; ``overlap``: the push's
+    schedule): phase 4's launches exact, (d)'s artifacts checked, the
+    breakdown printed.  Returns what (a), (b) and (e) compare."""
+    from repro_torch import obs
+    from repro_torch.launch import train
+    phase = f"phase 10 {name}"
+    d = os.path.join(P10_DIR, key)
+    os.makedirs(d, exist_ok=True)
+    files = {k: os.path.join(d, f) for k, f in (
+        ("trace", "trace.json"), ("metrics", "metrics.jsonl"),
+        ("prom", "metrics.prom"))}
+    rec = StepRecorder(torch).start()
+    zero_launches()
+    try:
+        res = train.run_gnn(train.parse_args(
+            TRAIN_ARGS + ["--vertices", str(TRAIN_VERTICES), "--trace-out",
+                          files["trace"], "--metrics-out", files["metrics"],
+                          "--prom-out", files["prom"]]),
+            pipeline=pipeline, overlap=overlap)
+        launches = read_launches()
+    finally:
+        rec.stop()
+    check_training(np, phase, res, launches, *phase4_counts())
+    tr, h = res["trainer"], res["history"][0]
+    check((tr.push_stream is not None) == overlap,
+          f"{phase}: the push stream is {tr.push_stream}, overlap "
+          f"{overlap}")
+    # (d) the artifacts
+    with open(files["trace"]) as f:
+        trace = json.load(f)
+    n_spans = obs.validate_chrome_trace(trace)
+    names = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e["ph"] == "M"}
+    tids = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X" and e.get("cat") == "phase":
+            tids.setdefault(e["name"], set()).add(names[e["tid"]])
+    check(all(t.startswith("minibatch-prefetch") for p in ("sample",
+                                                          "host_prep")
+              for t in tids.get(p, ["none"]))
+          and tids.get("stage") == tids.get("step") == {"MainThread"},
+          f"{phase}: span threads {tids}")
+    roles = trace_streams(phase, trace)
+    check(len(roles["streams"]) >= 2, f"{phase}: device tracks for "
+          f"{roles['streams']} streams")
+    with open(files["metrics"]) as f:
+        rows = [json.loads(line) for line in f]
+    with open(files["prom"]) as f:
+        prom = f.read()
+    missing = [p for p in ("sample", "host_prep", "stage", "step")
+               if f'phase_seconds{{phase="{p}"}}' not in prom]
+    check(rows and not missing, f"{phase}: {len(rows)} JSONL lines, "
+          f"Prometheus file without phase_seconds of {missing}")
+    # the streams' shares
+    steps = len(tr.step_log)
+    c_ov, c_own = overlap_share(obs, roles["events"], roles["copy"],
+                                roles["main"], "device_memcpy")
+    out = {"launches": launches, "steps": rec.steps, "history": h,
+           "params": [p.detach().clone()
+                      for p in res["state"]["model"].parameter_list()],
+           "copy_share": c_ov / c_own if c_own else 0.0,
+           "stage_ms": 1e3 * h["t_stage"] / steps,
+           "step_ms": 1e3 * h["t_step"] / steps,
+           "sample_ms": 1e3 * h["t_sample"] / steps,
+           "busy": res["device_trace"]["step"]["busy_share"]}
+    main_k = [e for e in roles["events"] if e["stream"] == roles["main"]
+              and e["cat"] == "device_kernel"]
+    main_us = obs.busy_us(main_k)
+    model = obs.StepModel()
+    if overlap:
+        check(len(roles["push"]) == 1, f"{phase}: push streams "
+              f"{sorted(roles['push'])}")
+        p_ov, p_own = overlap_share(obs, roles["events"], roles["push"],
+                                    roles["main"], "device_kernel")
+        push = roles["push"]
+        pk = [e for e in roles["events"] if e["stream"] in push]
+        bwd = [e for e in roles["events"] if is_bwd(e)]
+        df_us = sum(obs.stream_overlap_us(pk + bwd, s, [roles["main"]])
+                    for s in push)
+        hidden = {}                    # push kernel name -> overlapped us
+        for e in pk:
+            hidden.setdefault(e["name"], []).append(e)
+        hidden = {n: obs.stream_overlap_us(es + main_k, es[0]["stream"],
+                                           [roles["main"]])
+                  for n, es in hidden.items()}
+        hidden = {n: v for n, v in hidden.items() if v > 0}
+        top = sorted(hidden.items(), key=lambda kv: -kv[1])[:3]
+        check(p_ov > 0 and any("elementwise" in n for n in hidden),
+              f"{phase}: no push-stream kernel (the uniforms' elementwise "
+              f"ones among them) ran while the main stream's did: "
+              f"{p_ov:.1f} of {p_own:.1f} us")
+        model = obs.StepModel(work_s=main_us / steps / 1e6,
+                              push_s=p_own / steps / 1e6)
+        out.update(push_share=p_ov / p_own, push_ms=p_own / steps / 1e3,
+                   model_eff=model.overlap_efficiency())
+        print(f"{phase}: push stream {sorted(push)[0]}: "
+              f"{p_own / steps / 1e3:.3f} ms of device time per step, "
+              f"{100 * p_ov / p_own:.1f}% of it while main-stream kernels "
+              f"ran ({df_us / steps / 1e3:.3f} ms per step beside kernels D "
+              f"and F); StepModel(main {main_us / steps / 1e3:.3f} ms, "
+              f"push {p_own / steps / 1e3:.3f} ms per step) models "
+              f"{100 * out['model_eff']:.1f}% hidden; most hidden: "
+              + ", ".join(f"{n[:60]} {v / steps / 1e3:.3f} ms"
+                          for n, v in top))
+    print(f"{phase}: {n_spans} spans and device events in the trace, "
+          f"streams {roles['streams']} (main {roles['main']}, push "
+          f"{sorted(roles['push'])}, copies {sorted(roles['copy'])}); "
+          f"{len(rows)} JSONL lines; H2D copies {c_own / steps / 1e3:.3f} "
+          f"ms per step, {100 * out['copy_share']:.1f}% of it beside "
+          f"main-stream kernels; stage {out['stage_ms']:.2f} ms, step "
+          f"{out['step_ms']:.1f} ms, sample {out['sample_ms']:.1f} ms per "
+          f"step; {h['t_wall']:.2f} s/epoch; device busy "
+          f"{100 * out['busy']:.1f}% of the step spans; traced [{card}]")
+    bd = obs.EpochBreakdown.from_history(res["history"], model)
+    for line in bd.table().splitlines():
+        print(f"{phase}: {line}")
+    del res, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase10_same(torch, phase, a, b):
+    """Two runs on one minibatch stream: per step the HEC tag and age
+    digests and the pushed rows equal; the epoch's loss, every full
+    step's loss and the final parameters (all leaves as one vector)
+    within ``FREE_RUN_TOL`` relative (F's atomics and the ReLU kinks part
+    two card runs, and Adam turns a near-zero gradient entry's noise into
+    a step of up to lr, so a small leaf parts further: its gap is
+    printed).  A step of fewer than half a full batch's examples (the
+    epoch's last: 3 seeds) takes its loss over so few terms that one
+    term's shift moves it ~1,000 times as far as a full step's; its gap
+    is printed, not held.  Returns the held gap, the short steps' and
+    the worst leaf's."""
+    check(len(a["steps"]) == len(b["steps"]) > 0, f"{phase}: "
+          f"{len(a['steps'])} vs {len(b['steps'])} steps")
+    full = max(x["m"]["examples"] for x in a["steps"])
+    gap = short = 0.0
+    for i, (x, y) in enumerate(zip(a["steps"], b["steps"])):
+        check(x["tags"] == y["tags"] and x["ages"] == y["ages"]
+              and x["m"]["aep_push_rows"] == y["m"]["aep_push_rows"]
+              and x["m"]["examples"] == y["m"]["examples"],
+              f"{phase}: step {i}: HEC tags, ages, pushed rows or "
+              f"examples differ")
+        d = abs(x["m"]["loss"] - y["m"]["loss"]) / abs(y["m"]["loss"])
+        if 2 * x["m"]["examples"] >= full:
+            gap = max(gap, d)
+        else:
+            short = max(short, d)
+    ha, hb = a["history"]["loss"], b["history"]["loss"]
+    flat = [torch.cat([p.reshape(-1) for p in r["params"]]) for r in (a, b)]
+    gap = max(gap, abs(ha - hb) / abs(hb), rel_norm(*flat))
+    leaf = max((rel_norm(p, q), k) for k, (p, q) in
+               enumerate(zip(a["params"], b["params"])))
+    check(gap <= FREE_RUN_TOL, f"{phase}: losses or parameters part by "
+          f"{gap:.3e} relative (worst leaf {leaf[1]}: {leaf[0]:.3e})")
+    return gap, short, leaf
+
+
+def phase10_main_path(torch, np, card):
+    """(a), (b), (d) and (e): four launcher epochs on phase 4's graph.
+    Returns each run's launches, by name."""
+    from repro_torch.configs.gnn import PipelineConfig
+    runs = {"default": phase10_run(torch, np, "default", "(a, b) default",
+                                   card),
+            "sync_copy": phase10_run(
+                torch, np, "sync_copy", "(a) double_buffer=False", card,
+                pipeline=PipelineConfig(double_buffer=False)),
+            "inline_push": phase10_run(torch, np, "inline_push",
+                                       "(b) overlap=False", card,
+                                       overlap=False),
+            "workers": phase10_run(
+                torch, np, "workers", f"(e) num_workers={P10_WORKERS}", card,
+                pipeline=PipelineConfig(num_workers=P10_WORKERS,
+                                        prefetch_depth=P10_WORKERS))}
+    a, s, i, w = (runs[k] for k in ("default", "sync_copy", "inline_push",
+                                    "workers"))
+    gap, short, leaf = phase10_same(torch, "phase 10 (a)", a, s)
+    print(f"phase 10 (a): double-buffered vs in-order copies: the same "
+          f"tags, ages and pushed rows at every step, losses and "
+          f"parameters within {gap:.2e} (the 3-seed step's loss "
+          f"{short:.2e}, leaf {leaf[1]} {leaf[0]:.2e}); stage {a['stage_ms']:.2f} vs "
+          f"{s['stage_ms']:.2f} ms per step, H2D copy time beside "
+          f"main-stream kernels {100 * a['copy_share']:.1f}% vs "
+          f"{100 * s['copy_share']:.1f}%; {a['history']['t_wall']:.2f} vs "
+          f"{s['history']['t_wall']:.2f} s/epoch [{card}]")
+    gap, short, leaf = phase10_same(torch, "phase 10 (b)", a, i)
+    print(f"phase 10 (b): push on its side stream vs inline after the "
+          f"backward: the same tags, ages and pushed rows at every step, "
+          f"losses and parameters within {gap:.2e} (the 3-seed step's loss "
+          f"{short:.2e}, leaf {leaf[1]} {leaf[0]:.2e}); measured overlap "
+          f"{100 * a['push_share']:.1f}% of {a['push_ms']:.3f} ms per step "
+          f"beside StepModel's {100 * a['model_eff']:.1f}%; step "
+          f"{a['step_ms']:.1f} vs {i['step_ms']:.1f} ms, device busy "
+          f"{100 * a['busy']:.1f}% vs {100 * i['busy']:.1f}% of the step "
+          f"spans [{card}]")
+    gap, _, _ = phase10_same(torch, "phase 10 (e)", a, w)
+    print(f"phase 10 (e): {P10_WORKERS} prefetch workers vs 1: sample "
+          f"{w['sample_ms']:.1f} vs {a['sample_ms']:.1f} ms per step (per "
+          f"worker, in parallel), step {w['step_ms']:.1f} vs "
+          f"{a['step_ms']:.1f} ms, {w['history']['t_wall']:.2f} vs "
+          f"{a['history']['t_wall']:.2f} s/epoch; same stream (gap "
+          f"{gap:.2e}) [{card}]")
+    return {k: r["launches"] for k, r in runs.items()}
+
+
+class _Enough(Exception):
+    """Stops a ``train_epochs`` after the steps a check needs."""
+
+
+def phase10_unstaged(torch, np):
+    """(c): ``train_epochs(pipeline=None)`` (the reference's per-row
+    sampler, one generator, each batch copied in step order) for
+    ``CHECK_STEPS`` steps at phase 9 (c)'s size on the CPU and on the
+    card; one more card run takes each step from the CPU's state before
+    it: loss and gradient norm within 1e-4 relative, Adam's first moment
+    within 1e-4, HEC tags and ages and queued tags equal.  The free card
+    run draws the CPU's minibatches, its loss within ``FREE_RUN_TOL``."""
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
+                                               minibatch_to_device)
+    R = 4
+    g = synthetic_graph(num_vertices=CHECK_VERTICES, avg_degree=10,
+                        num_classes=172, feat_dim=128, seed=0)
+    ps = partition_graph(g, R, seed=0)
+    cfg = launcher_config(TRAIN_ARGS, batch_size=CHECK_BATCH)
+    cfg = dataclasses.replace(cfg, hec=dataclasses.replace(
+        cfg.hec, cache_size=CHECK_HEC_SIZE))
+
+    def ints(st):
+        return [x.to("cpu", copy=True) for x in
+                [s.tags for layer in st["hec"] for s in layer]
+                + [s.age for layer in st["hec"] for s in layer]
+                + [q["tags"] for q in st["inflight"]]]
+
+    def run(d, starts=None):
+        tr = DistTrainer(cfg, R, device=d)
+        data = build_dist_data(ps, cfg, d)
+        out = {"logs": [], "mu": [], "ints": [], "states": [], "mbs": []}
+        inner = tr.train_step
+
+        def step(state, data_, mb, seed):
+            if len(out["logs"]) == CHECK_STEPS:
+                raise _Enough
+            if d == "cpu":
+                out["states"].append(state_to(torch, state, "cpu"))
+            out["mbs"].append({k: [x.cpu() for x in v] if isinstance(
+                v, list) else v.cpu() for k, v in mb.items()})
+            out["logs"].append(inner(state, data_, mb, seed))
+            out["mu"].append([m.cpu().clone() for m in state["opt"].mu])
+            out["ints"].append(ints(state))
+            return out["logs"][-1]
+        if starts is None:
+            tr.train_step = step
+            try:
+                tr.train_epochs(ps, data, tr.init_state(seed=0), 1,
+                                pipeline=None)
+            except _Enough:
+                pass
+        else:
+            for i, st in enumerate(starts):
+                st = state_to(torch, st, d)
+                out["logs"].append(tr.train_step(
+                    st, data, minibatch_to_device(runs["cpu"]["mbs"][i], d),
+                    i))
+                out["mu"].append([m.cpu().clone() for m in st["opt"].mu])
+                out["ints"].append(ints(st))
+        return out
+
+    t0 = time.perf_counter()
+    runs = {"cpu": run("cpu")}
+    runs["free"] = run("cuda")
+    runs["card"] = run("cuda", starts=runs["cpu"]["states"])
+    c, p, fr = runs["card"], runs["cpu"], runs["free"]
+    tag = "phase 10 (c)"
+    check(len(p["logs"]) == len(c["logs"]) == len(fr["logs"]) == CHECK_STEPS,
+          f"{tag}: {len(p['logs'])} steps")
+    held = free = 0.0
+    for i in range(CHECK_STEPS):
+        check(all(torch.equal(x, y) for k in p["mbs"][i]
+                  for x, y in (zip(p["mbs"][i][k], fr["mbs"][i][k])
+                               if isinstance(p["mbs"][i][k], list)
+                               else [(p["mbs"][i][k], fr["mbs"][i][k])])),
+              f"{tag}: step {i}: the card's unstaged minibatch differs")
+        for key in ("loss", "grad_norm"):
+            a, b = c["logs"][i][key], p["logs"][i][key]
+            check(abs(a - b) <= 1e-4 * abs(b), f"{tag}: step {i} {key}: "
+                  f"card {a} vs CPU {b}")
+            a = fr["logs"][i][key]
+            check(abs(a - b) <= FREE_RUN_TOL * abs(b), f"{tag}: step {i} "
+                  f"{key}: the card's free run {a} vs CPU {b}")
+            free = max(free, abs(a - b) / abs(b))
+        check(all(torch.equal(x, y) for x, y in zip(c["ints"][i],
+                                                    p["ints"][i])),
+              f"{tag}: step {i}: HEC tags, ages or queued tags differ")
+        gap = max(rel_norm(x, y) for x, y in zip(c["mu"][i], p["mu"][i]))
+        check(gap <= 1e-4, f"{tag}: step {i}: gradient (Adam mu) differs "
+              f"by {gap:.3e} relative")
+        held = max(held, gap)
+    filled = sum(int((x >= 0).sum()) for x in c["ints"][-1][:3 * R])
+    print(f"{tag}: train_epochs(pipeline=None), {CHECK_STEPS} steps at "
+          f"batch {CHECK_BATCH} on {CHECK_VERTICES} vertices, card (each "
+          f"step from the CPU's state) vs CPU: losses "
+          f"{[m['loss'] for m in c['logs']]} vs "
+          f"{[m['loss'] for m in p['logs']]}; gradient rel. diff "
+          f"{held:.2e}; {filled} HEC tags, the ages and queued tags equal; "
+          f"the card's free run on the same minibatches within {free:.2e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
     """One contract row: per-launch means over the timed shapes, shape i
     standing for ``weights[i]`` launches of the main paths."""
@@ -2883,12 +3316,18 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     launches9 = phase9_main_path(torch, np, ps4, card)
+    print(f"phase 9 (b): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches10 = phase10_main_path(torch, np, card)
     reuse.stop()
     del ps4
-    print(f"phase 9 (b): done in {time.perf_counter() - t0:.1f}s")
+    print(f"phase 10 (a, b, d, e): done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase9_check(torch, np)
     print(f"phase 9 (c): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase10_unstaged(torch, np)
+    print(f"phase 10 (c): done in {time.perf_counter() - t0:.1f}s")
 
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]
@@ -2900,12 +3339,16 @@ def main(argv=None) -> int:
     b_paths = {"serve": launches["hec_lookup"],
                "train": launches4["hec_lookup"],
                "train_hot": launches9["hot"]["hec_lookup"],
+               **{f"train_pipeline_{k}": ls["hec_lookup"]
+                  for k, ls in launches10.items()},
                "gat_serve": launches5["hec_lookup"],
                "gat_train": launches6["hec_lookup"],
                "sharded_serve": sage8["launches"]["hec_lookup"],
                "gat_sharded_serve": gat8["launches"]["hec_lookup"]}
     b_rows = [(rows_b, "serve"), (rows4["hec_lookup"], "train"),
               (rows4["hec_lookup"], "train_hot"),
+              *[(rows4["hec_lookup"], f"train_pipeline_{k}")
+                for k in launches10],
               (rows5_b, "gat_serve"), (rows6["hec_lookup"], "gat_train"),
               (sage8["rows_b"], "sharded_serve"),
               (gat8["rows_b"], "gat_sharded_serve")]
@@ -2931,9 +3374,9 @@ def main(argv=None) -> int:
         summarize("hec_lookup", [r for rs, _ in b_rows for r in rs],
                   {"hec_lookup": sum(b_paths.values())},
                   [b_paths[p] / len(rs) for rs, p in b_rows for _ in rs],
-                  "launch-weighted mean over the seven paths: each path's "
-                  "probe or lookup shapes share its launches (phase 9's "
-                  "hot-tier training those of phase 4)")]
+                  "launch-weighted mean over the paths: each path's probe "
+                  "or lookup shapes share its launches (phase 9's hot-tier "
+                  "training and phase 10's runs those of phase 4)")]
     rows[0]["launches_by_path"] = {
         "serve": launches["serve_fused_layer"], "sharded_serve": a_sharded}
     rows[0]["bound_route"] = ("3xTF32 on the tensor cores (bound_ms), beside "
@@ -2944,14 +3387,16 @@ def main(argv=None) -> int:
     rows[1]["launches_by_path"] = b_paths
     train_paths = {"train": launches4, "train_sync": launches9["sync"],
                    "train_drop": launches9["drop"],
-                   "train_hot": launches9["hot"]}
+                   "train_hot": launches9["hot"],
+                   **{f"train_pipeline_{k}": ls
+                      for k, ls in launches10.items()}}
     for name in ("update_fused_fwd", "update_fused_bwd", "sage_agg_fwd",
                  "sage_agg_bwd"):
         rows.append(summarize(
             name, rows4[name],
             {name: sum(ls[name] for ls in train_paths.values())},
             [1] * len(rows4[name]), layer_mean + " (phase 9's three "
-            "training runs take the same shapes)"))
+            "training runs and phase 10's four take the same shapes)"))
         rows[-1]["launches_by_path"] = {p: ls[name]
                                         for p, ls in train_paths.items()}
     d_row = next(r for r in rows if r["name"] == "update_fused_bwd")

@@ -80,13 +80,20 @@ class SamplerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Background minibatch preparation: ``num_workers`` sampling threads
-    (0 = inline), ``prefetch_depth`` minibatches ahead of the step, and
-    the fanout draw (``sampler``).  Every step owns its RNG stream and
-    every device draw its seed, so the minibatches are the same for any
-    worker count."""
+    """The minibatch pipeline (``pipeline/``): ``enabled`` makes it the
+    training path's source (else the unstaged per-step sampler),
+    ``num_workers`` sampling threads (0 = inline), ``prefetch_depth``
+    minibatches ahead of the step, ``double_buffer`` (issue batch k+1's
+    host-to-device copy before step k reads batch k), ``vectorized`` (the
+    vectorized CSR sampler, else the reference's per-row one) and the
+    fanout draw (``sampler``).  Every step owns its RNG stream and every
+    device draw its seed, so the minibatches are the same for any worker
+    count and either staging."""
+    enabled: bool = True
     num_workers: int = 1
     prefetch_depth: int = 1
+    double_buffer: bool = True
+    vectorized: bool = True
     sampler: SamplerConfig = dataclasses.field(
         default_factory=SamplerConfig)
 

@@ -4,7 +4,8 @@
   python -m repro_torch.launch.gnn_serve [--model graphsage|gat]
       [--preset small|graphsage-papers100m|gat-papers100m]
       [--vertices 20000] [--slots 32] [--queries 1024] [--overlap 0.5]
-      [--cache-size 65536] [--no-prewarm] [--device cuda] [--profile]
+      [--cache-size 65536] [--no-prewarm] [--device cuda]
+      [--trace-out PATH] [--metrics-out PATH] [--prom-out PATH]
 
 Flow: synthetic power-law graph -> single-partition serving graph ->
 ``GNNServeScheduler`` (fixed-slot microbatches, HEC-backed cache) serves a
@@ -20,7 +21,10 @@ paper's full widths (feat 128, hidden 256, 3 layers, 172 classes,
 fanouts 5,10,15; GAT with 4 heads of 256 and one of 172 at the last
 layer), and fix the model.  The weights are the reference launcher's:
 ``init_model_params(jax.random.key(0), cfg)``, drawn without jax
-(``models/gnn/init.py``).
+(``models/gnn/init.py``).  ``--trace-out`` traces the timed passes (on
+the card with the device's kernels and copies, and prints the device
+busy share of the cold pass as the union of device intervals);
+``--metrics-out`` and ``--prom-out`` write the registry.
 """
 from __future__ import annotations
 
@@ -30,6 +34,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.launch.common import (add_obs_flags, configure_obs,
+                                       device_trace, finish_obs, prom_writer,
+                                       report_device)
 
 PRESETS = ("small", "graphsage-papers100m", "gat-papers100m")
 
@@ -50,9 +58,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions of "
                          "the kernels)")
-    ap.add_argument("--profile", action="store_true",
-                    help="trace the cold pass with torch.profiler: print "
-                         "the device's busy share and its top kernels")
+    add_obs_flags(ap)
     return ap.parse_args(argv)
 
 
@@ -90,24 +96,9 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def device_profile(prof, wall_s: float, top: int = 8) -> dict:
-    """Device busy share of a profiled window and its top device events
-    (kernels and copies; one stream, so their times do not overlap)."""
-    from torch.autograd import DeviceType
-    ops = [(e.key, e.self_device_time_total, e.count)
-           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    ops.sort(key=lambda x: -x[1])
-    busy_us = sum(t for _, t, _ in ops)
-    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / 1e6 / wall_s,
-            "top": [{"op": k, "device_ms": t / 1e3, "calls": n}
-                    for k, t, n in ops[:top]]}
-
-
 def run(args: argparse.Namespace) -> dict:
     """The launcher's flow; prints its report and returns the server, the
     workload, both passes' requests, the offline embeddings and rates."""
-    from repro_torch import obs
     from repro_torch.device import resolve_device
     from repro_torch.graph import partition_graph, synthetic_graph
     from repro_torch.models.gnn import build_model
@@ -143,21 +134,14 @@ def run(args: argparse.Namespace) -> dict:
     srv.cache.reset_counters()
     srv.reset_frontend()
 
-    reg = obs.configure().registry
-    prof = None
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU] + (
-            [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        prof = profile(activities=acts)
-        prof.__enter__()
-    t0 = time.perf_counter()
-    cold = [srv.submit(v) for v in vids]
-    srv.pump()
-    _sync(device)
-    t_cold = time.perf_counter() - t0
-    if prof is not None:
-        prof.__exit__(None, None, None)
+    reg = configure_obs(args).registry
+    prom = prom_writer(args)
+    with device_trace(args, device) as trace:
+        t0 = time.perf_counter()
+        cold = [srv.submit(v) for v in vids]
+        srv.pump()
+        _sync(device)
+        t_cold = time.perf_counter() - t0
     m = srv.metrics()
     steps = max(m["steps_run"], 1)
     breakdown = {ph: reg.value("phase_seconds", phase=ph) * 1e3 / steps
@@ -176,14 +160,7 @@ def run(args: argparse.Namespace) -> dict:
     print("cold round: " + ", ".join(
         f"{ph.removeprefix('serve_')} {ms:.2f}" for ph, ms in
         breakdown.items()) + " ms per microbatch (host clock)")
-    if prof is not None:
-        dp = out["cold_profile"] = device_profile(prof, t_cold)
-        print(f"profile:    cold pass {dp['wall_ms']:.1f} ms wall (traced), "
-              f"device busy {dp['device_busy_ms']:.2f} ms = "
-              f"{100 * dp['device_busy_share']:.1f}% of it")
-        for row in dp["top"]:
-            print(f"profile:      {row['device_ms']:8.3f} ms  "
-                  f"{row['calls']:5d} calls  {row['op'][:70]}")
+    out["device_trace"] = report_device(trace, "cold pass")
 
     if not args.no_prewarm:
         srv.update_params(model)
@@ -209,6 +186,7 @@ def run(args: argparse.Namespace) -> dict:
               f"{m['fast_path_hits'] - fp0} fast-path answers, "
               f"{m['steps_run']} microbatches -> "
               f"{t_cold / t_warm:.1f}x cold throughput")
+    finish_obs(prom)
     return out
 
 

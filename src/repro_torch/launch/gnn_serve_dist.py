@@ -7,7 +7,8 @@
       [--vertices 20000] [--slots 32] [--halo-slots 256] [--queries 1024]
       [--overlap 0.5] [--cache-size 65536] [--policy degree]
       [--prewarm-frac F] [--hot-size 2048] [--no-dedup] [--round-batch 4]
-      [--device cuda]
+      [--device cuda] [--trace-out PATH] [--metrics-out PATH]
+      [--prom-out PATH]
 
 Flow (the reference launcher's, with its defaults): synthetic power-law
 graph -> min-cut partitions -> ``DistGNNServeScheduler`` (a warm-up pass
@@ -18,10 +19,12 @@ solids; the hot tier's replicas take the whole hot set) -> the query
 workload routed to owner shards and served with the per-layer halo
 fetches -> the same workload again, with the overlapping neighborhoods
 now resident.  Presets as in ``repro_torch.launch.gnn_serve``; weights
-the reference launcher's, from ``jax.random.key(0)``.  The reference's plane flags (``--trace-out``,
-``--metrics-out``, ``--flight-dir``, ``--slo-p99-ms``,
-``--audit-interval``, ``--quality-budget``, ``--prom-out``) come with the
-planes (slice 6).
+the reference launcher's, from ``jax.random.key(0)``.  ``--trace-out``
+traces the run (on the card with the device's kernels and copies, and
+prints the device busy share of the two passes as the union of device
+intervals); ``--metrics-out`` and ``--prom-out`` write the registry.  The
+health and quality flags (``--flight-dir``, ``--slo-p99-ms``,
+``--audit-interval``, ``--quality-budget``) come with those planes.
 """
 from __future__ import annotations
 
@@ -31,6 +34,9 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.launch.common import (add_obs_flags, configure_obs,
+                                       device_trace, finish_obs, prom_writer,
+                                       report_device)
 from repro_torch.launch.gnn_serve import PRESETS, model_config, workload
 
 
@@ -63,6 +69,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain PyTorch versions of "
                          "the kernels)")
+    add_obs_flags(ap)
     return ap.parse_args(argv)
 
 
@@ -82,6 +89,8 @@ def run(args: argparse.Namespace) -> dict:
                                                    DistServeConfig)
 
     device = resolve_device(args.device)
+    configure_obs(args)
+    prom = prom_writer(args)
     cfg = model_config(args.preset, args.model)
     R = args.ranks
     g = synthetic_graph(num_vertices=args.vertices, avg_degree=8,
@@ -129,37 +138,40 @@ def run(args: argparse.Namespace) -> dict:
         print(f"pre-warm:   policy={args.policy} stored {n} vertices/layer "
               f"across {R} shards in {time.perf_counter() - t0:.3f}s")
 
-    for name in ("serve", "repeat"):
-        if name == "repeat":
-            srv.cache.reset_counters()
+    with device_trace(args, device) as trace:
+        for name in ("serve", "repeat"):
+            if name == "repeat":
+                srv.cache.reset_counters()
+                if srv.hot is not None:
+                    srv.hot.reset_counters()
+                srv.reset_frontend()
+            t0 = time.perf_counter()
+            reqs = [srv.submit(v) for v in vids]
+            srv.pump()
+            _sync(device)
+            dt = time.perf_counter() - t0
+            m = srv.metrics()
+            out[name] = reqs
+            out[f"{name}_metrics"] = m
+            out[f"{name}_qps"] = args.queries / dt
+            print(f"{name + ':':11s} {args.queries} queries in {dt:.3f}s "
+                  f"({args.queries / dt:.0f} q/s), {m['steps_run']} rounds, "
+                  f"{m['fast_path_hits']} fast-path answers; latency "
+                  f"p50={m['latency_p50_ms']:.1f}ms "
+                  f"p99={m['latency_p99_ms']:.1f}ms")
+            print(f"halo:       {m['halo_seen']} rows seen, "
+                  f"{m['halo_local_hits']} served locally (cached-halo frac "
+                  f"{m['cached_halo_frac']:.2f}), {m['halo_fetched']} fetched "
+                  f"via all_to_all ({m['halo_requested']} rows requested)")
             if srv.hot is not None:
-                srv.hot.reset_counters()
-            srv.reset_frontend()
-        t0 = time.perf_counter()
-        reqs = [srv.submit(v) for v in vids]
-        srv.pump()
-        _sync(device)
-        dt = time.perf_counter() - t0
-        m = srv.metrics()
-        out[name] = reqs
-        out[f"{name}_metrics"] = m
-        out[f"{name}_qps"] = args.queries / dt
-        print(f"{name + ':':11s} {args.queries} queries in {dt:.3f}s "
-              f"({args.queries / dt:.0f} q/s), {m['steps_run']} rounds, "
-              f"{m['fast_path_hits']} fast-path answers; latency "
-              f"p50={m['latency_p50_ms']:.1f}ms "
-              f"p99={m['latency_p99_ms']:.1f}ms")
-        print(f"halo:       {m['halo_seen']} rows seen, "
-              f"{m['halo_local_hits']} served locally (cached-halo frac "
-              f"{m['cached_halo_frac']:.2f}), {m['halo_fetched']} fetched "
-              f"via all_to_all ({m['halo_requested']} rows requested)")
-        if srv.hot is not None:
-            print(f"heavy tail: {m['hot_hits']} hub rows from the local "
-                  f"replica, {m['hot_fast_path_hits']} tier fast-path "
-                  f"answers, {m['dedup_merged']} queries deduped into "
-                  f"shared slots")
+                print(f"heavy tail: {m['hot_hits']} hub rows from the local "
+                      f"replica, {m['hot_fast_path_hits']} tier fast-path "
+                      f"answers, {m['dedup_merged']} queries deduped into "
+                      f"shared slots")
     print(f"speedup:    {out['repeat_qps'] / out['serve_qps']:.1f}x the "
           f"first pass's q/s")
+    out["device_trace"] = report_device(trace, "serve and repeat passes")
+    finish_obs(prom)
     return out
 
 

@@ -10,12 +10,18 @@ graph, partitioned into ``--ranks`` parts, trained by ``--ranks`` ranks
 that run in one process on one device (the stacked collective backend).
 The flags and defaults are the reference launcher's, for what the port
 has; ``--device`` (default ``cuda``) picks the card or, with ``cpu``, the
-plain PyTorch versions of the kernels.  The health, quality and
-resilience flags are not offered yet.  As in the reference, the initial
-weights come from ``jax.random.key(--seed)`` (drawn without jax) and the
-AEP push draws the reference's uniforms, so both launchers train the
-same model on the same pushes.  As there, the hot tier has no flag
-(``HECConfig.hot_size``/``hot_budget``).
+plain PyTorch versions of the kernels.  ``--trace-out``,
+``--metrics-out`` and ``--prom-out`` write the phase spans (on the card
+with the device's kernels and copies, one track per CUDA stream, and the
+device busy share printed), the registry as JSONL and in Prometheus
+text.  The health, quality and resilience flags are not offered yet.
+As in the reference, the initial weights come from
+``jax.random.key(--seed)`` (drawn without jax) and the AEP push draws
+the reference's uniforms, so both launchers train the same model on the
+same pushes.  As there, the hot tier, the pipeline's settings and the
+push's schedule have no flag (``HECConfig.hot_size``/``hot_budget``,
+``PipelineConfig``, ``DistTrainer.overlap``; ``run_gnn`` takes the last
+two).
 
 Prints the graph, the partition, per-epoch loss, accuracy and HEC hit
 rates, and ``done: ... s/epoch; test_acc=...``.
@@ -23,11 +29,16 @@ rates, and ``done: ... s/epoch; test_acc=...``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Optional, Sequence
 
 import numpy as np
+
+from repro_torch.launch.common import (add_obs_flags, configure_obs,
+                                       device_trace, finish_obs, prom_writer,
+                                       report_device)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -60,6 +71,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     g.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
+    add_obs_flags(g)
     return ap.parse_args(argv)
 
 
@@ -91,10 +103,12 @@ def gnn_config(args):
                       delay=args.hec_delay))
 
 
-def run_gnn(args) -> dict:
+def run_gnn(args, pipeline=None, overlap: bool = True) -> dict:
     """The reference launcher's flow; returns what it built and measured
     (graph, partition, trainer, data, state, history, test accuracy,
-    seconds)."""
+    seconds, and with ``--trace-out`` the device summary).  ``pipeline``
+    (a ``PipelineConfig``) and ``overlap`` (``DistTrainer.overlap``) have
+    no flag, as in the reference."""
     from repro_torch.device import resolve_device
     from repro_torch.graph import partition_graph, synthetic_graph
     from repro_torch.train.gnn_trainer import DistTrainer, build_dist_data
@@ -103,6 +117,8 @@ def run_gnn(args) -> dict:
         raise SystemExit(f"--fanouts lists {len(args.fanouts)} values for "
                          f"{args.layers} layers")
     device = resolve_device(args.device)
+    configure_obs(args)
+    prom = prom_writer(args)
     g = synthetic_graph(num_vertices=args.vertices, avg_degree=args.degree,
                         num_classes=args.classes, feat_dim=args.feat_dim,
                         seed=args.seed)
@@ -112,22 +128,29 @@ def run_gnn(args) -> dict:
     print(f"partitioned into {args.ranks}: edge-cut={ps.edge_cut_frac:.3f} "
           f"solids={[p.num_solid for p in ps.parts]}")
     cfg = gnn_config(args)
+    if pipeline is not None:
+        cfg = dataclasses.replace(cfg, pipeline=pipeline)
     data = build_dist_data(ps, cfg, device)
     tr = DistTrainer(cfg=cfg, num_ranks=args.ranks, mode=args.mode,
-                     device=device)
+                     device=device, overlap=overlap)
     state = tr.init_state(seed=args.seed)
-    t0 = time.time()
-    state, hist = tr.train_epochs(ps, data, state, args.epochs, log_every=1)
-    dt = time.time() - t0
-    acc = tr.evaluate(ps, data, state)
+    with device_trace(args, device) as trace:
+        t0 = time.time()
+        state, hist = tr.train_epochs(ps, data, state, args.epochs,
+                                      log_every=1)
+        dt = time.time() - t0
+        acc = tr.evaluate(ps, data, state)
     print(f"done: {args.epochs} epochs in {dt:.1f}s "
           f"({dt / args.epochs:.2f}s/epoch); test_acc={acc:.3f}")
+    dev = report_device(trace, "training and evaluate", spans=("step",))
+    finish_obs(prom)
     if args.ckpt:
+        tr.join_push()
         save_params(args.ckpt, state["model"], state["step"])
         print("saved", args.ckpt)
     return {"graph": g, "ps": ps, "cfg": cfg, "trainer": tr, "data": data,
             "state": state, "history": hist, "test_acc": acc,
-            "train_seconds": dt}
+            "train_seconds": dt, "device_trace": dev}
 
 
 def main(argv: Optional[Sequence[str]] = None):

@@ -1,13 +1,14 @@
 """Background minibatch preparation: deterministic plan + bounded prefetch
-(own copy of ``repro/pipeline/prefetcher.py``, with the eval schedule of
-``repro/pipeline/staging.py``).
+(own copy of ``repro/pipeline/prefetcher.py``).
 
 Determinism contract: every minibatch is a pure function of
 ``(base_seed, epoch, step)`` — each step owns a private
 ``np.random.Generator`` seeded from that triple, and the per-epoch shuffle
 of each rank's training seeds likewise owns a per-``(epoch, rank)``
-stream, with the reference's domain tags.  With
-``SamplerConfig.device_draw`` each rank's fanout draw runs through its
+stream, with the reference's domain tags.  The host draw is the
+vectorized sampler, or with ``PipelineConfig(vectorized=False)`` the
+reference's per-row ``sample_blocks``.  With ``SamplerConfig.device_draw``
+(and the vectorized sampler) each rank's fanout draw runs through its
 :class:`~repro_torch.pipeline.vectorized_sampler.DeviceSampler` on
 ``device`` (kernel I on the card, its plain version on the CPU), seeded
 by the reference's ``fold_in`` chain.  Either way the port draws exactly
@@ -17,8 +18,9 @@ Rank imbalance: an epoch takes ``max_r ceil(train_r / batch)`` steps on
 every rank; ranks that run out of seeds contribute empty (fully masked)
 seed batches.
 
-The host-to-device copy is the trainer's, plain for now; the reference's
-double-buffered staging waits for a later slice.
+With ``pin_memory`` the worker also pins each host batch (in the
+``host_prep`` span), so ``pipeline/staging.py`` can copy it to the card
+asynchronously.
 """
 from __future__ import annotations
 
@@ -29,12 +31,14 @@ import threading
 from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch import obs
 from repro_torch.configs.gnn import GNNConfig
 from repro_torch.device import DeviceLike
 from repro_torch.graph.partition import PartitionSet
-from repro_torch.graph.sampling import epoch_minibatches, pad_schedule
+from repro_torch.graph.sampling import (epoch_minibatches, pad_schedule,
+                                        sample_blocks)
 from repro_torch.pipeline.vectorized_sampler import (DeviceSampler,
                                                      sample_blocks_vectorized,
                                                      stack_ranks)
@@ -42,7 +46,15 @@ from repro_torch.pipeline.vectorized_sampler import (DeviceSampler,
 # domain-separation tags so shuffle and sampling streams never collide
 _SHUFFLE_TAG = 0x5F
 _SAMPLE_TAG = 0xA7
-EVAL_EPOCH_TAG = 1 << 20   # eval streams live far away from training epochs
+
+
+def pin_batch(batch: dict) -> dict:
+    """A host ``[R, ...]`` batch as page-locked torch tensors (raises
+    without a card)."""
+    def pin(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+    return {k: [pin(a) for a in v] if isinstance(v, list) else pin(v)
+            for k, v in batch.items()}
 
 
 @dataclasses.dataclass
@@ -50,11 +62,12 @@ class SamplingPlan:
     """Deterministic schedule of per-rank seed batches + per-step RNG
     streams.  ``device`` places the device draw's samplers (``None``: the
     card); it is read only when ``cfg.pipeline.sampler.device_draw`` is
-    on."""
+    on.  ``pin_memory``: ``sample_host`` returns pinned tensors."""
     ps: PartitionSet
     cfg: GNNConfig
     base_seed: int = 0
     device: DeviceLike = None
+    pin_memory: bool = False
     _samplers: Optional[List[DeviceSampler]] = dataclasses.field(
         default=None, init=False, repr=False)
     _lock: threading.Lock = dataclasses.field(
@@ -69,19 +82,6 @@ class SamplingPlan:
                 [self.base_seed, epoch, r, _SHUFFLE_TAG])
             per_rank.append(epoch_minibatches(part, bs, rng))
         return pad_schedule(per_rank)
-
-    def eval_schedule(self, num_batches: int,
-                      seed: int) -> List[List[np.ndarray]]:
-        """Test-set seed batches, one RNG stream per rank (the reference's
-        ``MinibatchPipeline.eval_batches``); sample them at epoch
-        ``EVAL_EPOCH_TAG + seed``."""
-        bs = self.cfg.batch_size
-        per_rank = []
-        for r, part in enumerate(self.ps.parts):
-            rng = np.random.default_rng([self.base_seed, seed, r])
-            per_rank.append((np.flatnonzero(part.test_mask), rng))
-        return [[test[rng.permutation(len(test))[:bs]]
-                 for test, rng in per_rank] for _ in range(num_batches)]
 
     def step_rng(self, epoch: int, step: int) -> np.random.Generator:
         return np.random.default_rng(
@@ -110,21 +110,27 @@ class SamplingPlan:
         """One synchronized [R, ...] host minibatch for ``(epoch, step)``."""
         cfg = self.cfg
         rng = self.step_rng(epoch, step)
+        sampler = (sample_blocks_vectorized if cfg.pipeline.vectorized
+                   else sample_blocks)
         # the device draw: per-rank closures over (epoch, step); the seed
         # chain, not `rng`, carries the determinism
-        samplers = (self.device_samplers()
-                    if cfg.pipeline.sampler.device_draw else None)
-        with obs.span("sample"):
+        use_dev = (cfg.pipeline.sampler.device_draw
+                   and cfg.pipeline.vectorized)
+        samplers = self.device_samplers() if use_dev else None
+        # the spans run on whichever prefetch worker takes the step
+        with obs.span("sample", epoch=epoch, step=step):
             mbs = []
             for r in range(self.ps.num_parts):
-                draw_fn = None if samplers is None else (
-                    lambda k, cur, f, allow, _s=samplers[r]:
-                    _s.draw(epoch, step, k, cur, f, allow))
-                mbs.append(sample_blocks_vectorized(
-                    self.ps.parts[r], seed_lists[r], cfg.fanouts, rng,
-                    cfg.batch_size, draw_fn=draw_fn))
-        with obs.span("host_prep"):
-            return stack_ranks(mbs)
+                kw = {}
+                if use_dev:
+                    kw["draw_fn"] = (
+                        lambda k, cur, f, allow, _s=samplers[r]:
+                        _s.draw(epoch, step, k, cur, f, allow))
+                mbs.append(sampler(self.ps.parts[r], seed_lists[r],
+                                   cfg.fanouts, rng, cfg.batch_size, **kw))
+        with obs.span("host_prep", epoch=epoch, step=step):
+            batch = stack_ranks(mbs)
+            return pin_batch(batch) if self.pin_memory else batch
 
     def batches(self, schedule: List[Sequence[np.ndarray]],
                 epoch: int) -> Iterator[dict]:

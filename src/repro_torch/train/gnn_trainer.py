@@ -30,14 +30,27 @@ without the fault codes):
      ``aep`` hot-tier then HEC hits replace halo rows by ``torch.where``,
      so substituted rows get no gradient; otherwise halos turn invalid;
   4. per rank, the masked cross-entropy over the seeds;
-  5. ``aep``: the push of every rank's selection (and hot-tier broadcast
-     segment) in ONE fused all_to_all, between the forward and the
-     backward (the paper's overlapped scheme); it reads detached forward
-     activations;
-  6. per rank, the backward (the layers' gradient kernels and
-     ``torch.matmul``);
-  7. the example-weighted gradient all-reduce;
-  8. Adam with a global-norm clip of 1.0, in place.
+  5. per rank, the backward (the layers' gradient kernels and
+     ``torch.matmul``) on the main stream; in ``aep`` with
+     ``overlap=True`` (the paper's scheme) each rank's push selection
+     (and hot-tier broadcast segment) is dispatched just before its
+     backward, and every rank's selection then goes in ONE fused
+     all_to_all; on the card the push runs on the trainer's push stream,
+     which first waits for the forward, so it overlaps the backward;
+  6. the example-weighted gradient all-reduce;
+  7. Adam with a global-norm clip of 1.0, in place;
+  8. ``aep`` with ``overlap=False`` (the reference's legacy schedule):
+     the push, inline on the main stream after Adam.
+
+Both schedules move the same data.  Every reader of the push (the next
+step's consume, the push metrics, ``evaluate``, ``_cv_residency``, a
+checkpoint) first makes its stream wait on the push stream's event.
+
+Minibatches come from the reference's sources: by default a
+:class:`~repro_torch.pipeline.staging.MinibatchPipeline` (vectorized
+sampler, prefetch thread, double-buffered staging), with
+``train_epochs(pipeline=None)`` the unstaged per-step sampler
+(``train/data.py:gnn_epoch_iterator``, ``sample_step``).
 
 With ``cfg.pipeline.sampler.device_draw`` the minibatches' fanout draw
 runs on ``device`` (kernel I on the card); under the ``cv`` policy
@@ -53,6 +66,7 @@ and quality planes wait for later slices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -70,9 +84,12 @@ from repro_torch.comm.plan import _pad_stack, build_exchange_plan
 from repro_torch.configs.gnn import GNNConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.partition import PartitionSet
+from repro_torch.graph.sampling import sample_blocks
 from repro_torch.models.gnn import build_model
 from repro_torch.pipeline import threefry
-from repro_torch.pipeline.prefetcher import EVAL_EPOCH_TAG, SamplingPlan
+from repro_torch.pipeline.staging import (MinibatchPipeline,
+                                          minibatch_to_device)
+from repro_torch.pipeline.vectorized_sampler import stack_ranks
 from repro_torch.train import optimizer as opt_lib
 
 PushUniforms = Callable[[int, int, Sequence[int]], torch.Tensor]
@@ -104,19 +121,23 @@ def build_dist_data(ps: PartitionSet, cfg: GNNConfig, device) -> dict:
     }
 
 
-def minibatch_to_device(mb: dict, device) -> dict:
-    """The host ``[R, ...]`` minibatch (``stack_ranks``) as tensors."""
-    t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
-    return {k: [t(a) for a in v] if isinstance(v, list) else t(v)
-            for k, v in mb.items()}
+def sample_step(ps: PartitionSet, cfg: GNNConfig, seed_lists,
+                rng: np.random.Generator) -> dict:
+    """One synchronized host ``[R, ...]`` minibatch by the reference's
+    per-row sampler (``sample_blocks``, drawing from ``rng`` rank by
+    rank); the caller stages it."""
+    return stack_ranks([sample_blocks(ps.parts[r], seed_lists[r],
+                                      cfg.fanouts, rng, cfg.batch_size)
+                        for r in range(ps.num_parts)])
 
 
 def _epoch_mean(ep_metrics: List[dict]) -> dict:
     """Loss/acc weighted by real example count (padded empty batches weigh
-    nothing), other per-step metrics plain-averaged, and per layer the
-    epoch's HEC hit rate ``hec_hit_rate_l{l}`` = summed hits over summed
-    halos and, with the hot tier, ``hot_hit_rate_l{l}`` = summed hot hits
-    over the same halos (both absent when no halo row was looked up)."""
+    nothing), other per-step metrics plain-averaged, and the epoch's hit
+    rates through an epoch-local registry (``obs.hit_rate_metrics``): per
+    layer ``hec_hit_rate_l{l}`` = summed hits over summed halos and, with
+    the hot tier, ``hot_hit_rate_l{l}`` over the same halos (both absent
+    when no halo row was looked up)."""
     if not ep_metrics:                   # zero-step epoch: no train seeds
         return {"examples": 0.0, "loss": 0.0, "acc": 0.0}
     w = np.array([m.get("examples", 1.0) for m in ep_metrics], np.float64)
@@ -130,16 +151,13 @@ def _epoch_mean(ep_metrics: List[dict]) -> dict:
             out[key] = float(total)
         else:
             out[key] = float(vals.mean())
-    for key in ep_metrics[0]:
-        if key.startswith("hec_hits_l"):
-            l = key[len("hec_hits_l"):]
-            halos = sum(m[f"hec_halos_l{l}"] for m in ep_metrics)
-            if halos:
-                out[f"hec_hit_rate_l{l}"] = \
-                    sum(m[key] for m in ep_metrics) / halos
-                if f"hot_hits_l{l}" in ep_metrics[0]:
-                    out[f"hot_hit_rate_l{l}"] = sum(
-                        m[f"hot_hits_l{l}"] for m in ep_metrics) / halos
+    # part of the history, not telemetry: on whatever the runtime's state
+    reg = obs.MetricsRegistry(enabled=True)
+    for m in ep_metrics:
+        for key, v in m.items():
+            if key.startswith(("hec_hits_l", "hec_halos_l", "hot_hits_l")):
+                reg.counter(key).inc(v)
+    out.update(obs.hit_rate_metrics(reg))
     return out
 
 
@@ -195,12 +213,15 @@ class DistTrainer:
     uniforms for a step (default: :func:`default_push_uniforms`, the
     reference's ``PRNGKey(7)`` stream); ``hot_uniforms(seed, rank,
     (N0,))`` is the hot tier's, the reference's ``PRNGKey(11)`` stream.
+    ``overlap`` (``aep``): push between the forward and the backward, on
+    the card on ``push_stream`` (else inline after the backward).
     ``step_log`` keeps every training step's metrics."""
     cfg: GNNConfig
     num_ranks: int
     mode: str = "aep"
     device: DeviceLike = None
     push_uniforms: Optional[PushUniforms] = None
+    overlap: bool = True
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -215,6 +236,10 @@ class DistTrainer:
         if self.push_uniforms is None:
             self.push_uniforms = default_push_uniforms(self.device)
         self.hot_uniforms = default_push_uniforms(self.device, 11)
+        self.push_stream = (torch.cuda.Stream(self.device)
+                            if self.overlap and self.mode == "aep"
+                            and self.device.type == "cuda" else None)
+        self._pushed = None            # the push stream's last event
         self.step_log: List[dict] = []
 
     # -- state ---------------------------------------------------------------
@@ -393,26 +418,70 @@ class DistTrainer:
                 dims, self.cfg.hec.life_span,
                 hot=[t.rank(r) for t in state["hot"]] or None, undo=undo)
 
+    def _select(self, state: dict, data: dict, f: RankForward, r: int,
+                seed: int):
+        """Rank r's push selection and, with the hot tier, its broadcast
+        segment (the selection uniforms drawn here)."""
+        R, dims = self.num_ranks, layer_dims(self.cfg)
+        n0 = f.nodes0.shape[0]
+        args = (f.nodes0, f.mask0, f.vid0, data["num_solid"][r], f.captured)
+        sel = self.engine.select_push(
+            data["push_mask"][r], *args,
+            self.push_uniforms(seed, r, (R, n0)), dims, max(dims))
+        hot = None if not state["hot"] else self.engine.select_hot_push(
+            data["hot_vids"][r], data["hot_mine"][r], *args,
+            self.hot_uniforms(seed, r, (n0,)), dims, max(dims))
+        return sel, hot
+
+    def _send(self, state: dict, sels: list) -> dict:
+        """Every rank's selection (and hot segment) in one fused
+        all_to_all into the queues; returns the push stats."""
+        hot = [h for _, h in sels] if state["hot"] else None
+        state["inflight"], stats = self.engine.aep_push(
+            [s for s, _ in sels], state["inflight"], layer_dims(self.cfg),
+            hot=hot)
+        return stats
+
     def _push(self, state: dict, data: dict, fwd: List[RankForward],
               seed: int) -> dict:
-        """Every rank's push selection (and hot-tier broadcast segment) in
-        one fused all_to_all into the queues; returns the push stats."""
-        R, dims = self.num_ranks, layer_dims(self.cfg)
-        selections, hot = [], [] if state["hot"] else None
-        for r, f in enumerate(fwd):
-            n0 = f.nodes0.shape[0]
-            sel_args = (f.nodes0, f.mask0, f.vid0, data["num_solid"][r],
-                        f.captured)
-            selections.append(self.engine.select_push(
-                data["push_mask"][r], *sel_args,
-                self.push_uniforms(seed, r, (R, n0)), dims, max(dims)))
-            if hot is not None:
-                hot.append(self.engine.select_hot_push(
-                    data["hot_vids"][r], data["hot_mine"][r], *sel_args,
-                    self.hot_uniforms(seed, r, (n0,)), dims, max(dims)))
-        state["inflight"], stats = self.engine.aep_push(
-            selections, state["inflight"], dims, hot=hot)
-        return stats
+        """The whole push, inline on the current stream."""
+        return self._send(state, [self._select(state, data, f, r, seed)
+                                  for r, f in enumerate(fwd)])
+
+    def _side(self):
+        """The push's stream context (none off the side stream)."""
+        return (torch.cuda.stream(self.push_stream)
+                if self.push_stream is not None
+                else contextlib.nullcontext())
+
+    def _side_begin(self, state: dict, fwd: List[RankForward]):
+        """Before the push on ``push_stream``: what it reads from the main
+        stream is recorded on the push stream (so the caching allocator
+        reuses no block it may still read), and the push stream waits
+        for the forward's kernels."""
+        side = self.push_stream
+        read = [t for f in fwd for t in (f.nodes0, f.mask0, f.vid0)]
+        read += [t for f in fwd for pair in f.captured for t in pair]
+        read += [t for q in state["inflight"] for t in q.values()]
+        for t in read:
+            t.record_stream(side)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+
+    def _side_end(self, state: dict, stats: dict):
+        """After the push: what it leaves for the main stream (the queues,
+        the stats) is recorded on it, and the push's event is kept for
+        its readers (:meth:`join_push`)."""
+        main = torch.cuda.current_stream(self.device)
+        for t in ([t for q in state["inflight"] for t in q.values()]
+                  + list(stats.values())):
+            t.record_stream(main)
+        self._pushed = self.push_stream.record_event()
+
+    def join_push(self):
+        """Make the current stream wait for the last push (a no-op off
+        the side stream)."""
+        if self._pushed is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._pushed)
 
     # -- the step ------------------------------------------------------------
     def train_step(self, state: dict, data: dict, mb: dict,
@@ -425,13 +494,31 @@ class DistTrainer:
         aep = self.mode == "aep"
         model, hec = state["model"], state["hec"]
         if aep:
+            self.join_push()
             self._consume(state)
         fwd = self._forward(state, data, mb, seed, cfg.dropout)
-        # the push reads only forward activations: it is dispatched before
-        # the backward, as the paper overlaps it with backward compute
-        push = self._push(state, data, fwd, seed) if aep else None
         params = model.parameter_list()
-        rank_grads = [torch.autograd.grad(f.loss, params) for f in fwd]
+        push = None
+        if aep and self.overlap:
+            # the push reads only forward activations: each rank's
+            # selection is dispatched before that rank's backward, so on
+            # the card the push stream's kernels run beside the backward's
+            # (the host dispatches both; the backward's larger kernels
+            # keep the main stream busy while the next rank's selection
+            # is launched), then the fused all_to_all
+            if self.push_stream is not None:
+                self._side_begin(state, fwd)
+            sels, rank_grads = [], []
+            for r, f in enumerate(fwd):
+                with self._side():
+                    sels.append(self._select(state, data, f, r, seed))
+                rank_grads.append(torch.autograd.grad(f.loss, params))
+            with self._side():
+                push = self._send(state, sels)
+            if self.push_stream is not None:
+                self._side_end(state, push)
+        else:
+            rank_grads = [torch.autograd.grad(f.loss, params) for f in fwd]
         # example-weighted all-reduce: the gradient of the global batch mean
         n_valid = torch.stack([f.n_valid for f in fwd])
         examples = self.comm.psum(n_valid)
@@ -447,9 +534,12 @@ class DistTrainer:
             grads, state["opt"], params,
             opt_lib.AdamConfig(lr=cfg.lr, grad_clip=1.0))
         state["step"] += 1
+        if aep and not self.overlap:       # the legacy inline schedule
+            push = self._push(state, data, fwd, seed)
         metrics = {"loss": loss_m, "acc": acc_m, "examples": examples,
                    "grad_norm": diag["grad_norm"]}
         if push is not None:
+            self.join_push()
             metrics["aep_push_rows"] = self.comm.psum(push["push_rows"])
             metrics["aep_push_bytes"] = self.comm.psum(push["push_bytes"])
             if "hot_push_rows" in push:
@@ -466,43 +556,72 @@ class DistTrainer:
                 [hec_lib.hec_occupancy(st) for st in hec[l]]))
         return {k: float(v) for k, v in metrics.items()}
 
-    # -- epochs ------------------------------------------------------------------
+    # -- epochs ------------------------------------------------------------
+    def _resolve_pipeline(self, ps: PartitionSet, seed0: int, pipeline):
+        """``"auto"``: a :class:`MinibatchPipeline` iff
+        ``cfg.pipeline.enabled``, else ``None``; anything else as given."""
+        if pipeline != "auto":
+            return pipeline
+        if not self.cfg.pipeline.enabled:
+            return None
+        return MinibatchPipeline(ps, self.cfg, base_seed=seed0,
+                                 device=self.device)
+
     def train_epochs(self, ps: PartitionSet, data: dict, state: dict,
-                     num_epochs: int, seed0: int = 0, log_every: int = 0):
-        """Train ``num_epochs`` epochs on the reference's minibatch stream
-        (``SamplingPlan`` with ``base_seed=seed0``, prefetched by the
-        config's workers).  Returns ``(state, history)``: per epoch the
-        metrics' means and the host seconds of the ``sample``,
+                     num_epochs: int, seed0: int = 0, log_every: int = 0,
+                     pipeline="auto", start_epoch: int = 0):
+        """Train ``num_epochs`` epochs, ``start_epoch`` onward.
+        ``pipeline``: ``"auto"`` (a :class:`MinibatchPipeline` with
+        ``base_seed=seed0`` when ``cfg.pipeline.enabled``, else
+        unstaged), a ``MinibatchPipeline`` as given, or ``None``: the
+        reference's unstaged path, ``gnn_epoch_iterator`` with one
+        ``np.random.default_rng(seed0)`` across the epochs, each batch
+        copied in step order.  Every pipelined minibatch is a pure
+        function of ``(seed0, epoch, step)``, so ``start_epoch=k`` replays
+        epoch k's batches.  Returns ``(state, history)``: per epoch the
+        metrics' means, the fanout draw's ``sampler_policy`` and, while
+        the registry is on, the host seconds of the ``sample``,
         ``host_prep``, ``stage`` and ``step`` spans (``t_<span>``) and of
-        the epoch (``t_wall``), and the fanout draw's ``sampler_policy``."""
+        the epoch (``t_wall``)."""
         cfg = self.cfg
-        plan = SamplingPlan(ps, cfg, base_seed=seed0, device=self.device)
+        pipeline = self._resolve_pipeline(ps, seed0, pipeline)
+        rng = np.random.default_rng(seed0)
         reg = obs.get().registry
-        phases = ("sample", "host_prep", "stage", "step")
+        phases = obs.MEASURED_PHASES
         s_policy = cfg.pipeline.sampler.policy
         history = []
-        for ep in range(num_epochs):
-            if s_policy == "cv" and cfg.pipeline.sampler.device_draw:
+        for ep in range(start_epoch, start_epoch + num_epochs):
+            if (pipeline is not None and s_policy == "cv"
+                    and cfg.pipeline.sampler.device_draw):
                 # control-variate sampling: the draw's weights prefer
                 # vertices with a live line in the HEC as it is now
-                plan.set_cv_residency(self._cv_residency(ps, state))
+                pipeline.set_cv_residency(self._cv_residency(ps, state))
+            if pipeline is not None:
+                mb_iter = pipeline.epoch_batches(ep)
+            else:
+                from repro_torch.train.data import gnn_epoch_iterator
+                mb_iter = self._unstaged(
+                    host for host, _ in gnn_epoch_iterator(ps, cfg, rng))
             ep_metrics = []
             ph0 = {p: reg.value("phase_seconds", phase=p) for p in phases}
             wall0 = time.perf_counter()
-            for host in plan.batches(plan.epoch_schedule(ep), ep):
-                with obs.span("stage"):
-                    mb = minibatch_to_device(host, self.device)
-                with obs.span("step"):
+            for mb in mb_iter:
+                with obs.span("step", epoch=ep, step=state["step"]):
                     m = self.train_step(state, data, mb, state["step"])
                 ep_metrics.append(m)
                 self.step_log.append(m)
             mean = _epoch_mean(ep_metrics)
             mean["sampler_policy"] = s_policy
-            for p in phases:
-                mean[f"t_{p}"] = reg.value("phase_seconds", phase=p) - ph0[p]
-            mean["t_wall"] = time.perf_counter() - wall0
+            if reg.enabled:
+                reg.counter("train_epochs_total",
+                            sampler_policy=s_policy).inc()
+                for p in phases:
+                    mean[f"t_{p}"] = \
+                        reg.value("phase_seconds", phase=p) - ph0[p]
+                mean["t_wall"] = time.perf_counter() - wall0
             history.append(mean)
-            if log_every and (ep % log_every == 0 or ep == num_epochs - 1):
+            if log_every and (ep % log_every == 0
+                              or ep == start_epoch + num_epochs - 1):
                 hl = " ".join(
                     f"l{l}:{mean.get(f'hec_hits_l{l}', 0) / max(mean.get(f'hec_halos_l{l}', 1), 1):.2f}"  # noqa: E501
                     for l in range(cfg.num_layers))
@@ -510,10 +629,19 @@ class DistTrainer:
                       f"acc={mean['acc']:.3f} hit-rates {hl}")
         return state, history
 
+    def _unstaged(self, hosts):
+        """Host minibatches copied to the device one by one, in step
+        order (the ``stage`` span)."""
+        for host in hosts:
+            with obs.span("stage"):
+                mb = minibatch_to_device(host, self.device)
+            yield mb
+
     def _cv_residency(self, ps: PartitionSet, state: dict) -> List[np.ndarray]:
         """Per rank a bool mask over VID_p: the vertices with a live line
         in any layer's HEC of that rank (tags hold VID_o); the reference's
         ``_cv_residency``, one host read of the tags per epoch."""
+        self.join_push()
         V = sum(p.num_solid for p in ps.parts)
         masks = []
         for r, p in enumerate(ps.parts):
@@ -527,27 +655,43 @@ class DistTrainer:
 
     @torch.no_grad()
     def evaluate(self, ps: PartitionSet, data: dict, state: dict,
-                 num_batches: int = 8, seed0: int = 123) -> float:
-        """Test accuracy over sampled test-vertex minibatches (the
-        reference's eval stream), dropout off, on the mode's own path.
-        Each batch starts from the training state as it is: in ``aep`` one
-        tick + consume of the in-flight queue, then the forward.  The
-        consume is the only write, so the HEC tags and ages and the
-        tier's ages are kept, the value rows it overwrites journaled, and
-        all of it put back after the batch: the training state is left as
-        it was, and no HEC is copied whole."""
-        plan = SamplingPlan(ps, self.cfg, base_seed=seed0,
-                            device=self.device)
-        schedule = plan.eval_schedule(num_batches, seed0)
+                 num_batches: int = 8, seed0: int = 123,
+                 pipeline="auto") -> float:
+        """Test accuracy over sampled test-vertex minibatches, dropout
+        off, on the mode's own path: the pipeline's eval stream
+        (``pipeline`` as in :meth:`train_epochs`, ``base_seed=seed0``),
+        or with ``None`` the reference's unstaged one (each batch's test
+        vertices shuffled by one ``np.random.default_rng(seed0)``, then
+        ``sample_step``).  Each batch starts from the training state as
+        it is: in ``aep`` one tick + consume of the in-flight queue, then
+        the forward.  The consume is the only write, so the HEC tags and
+        ages and the tier's ages are kept, the value rows it overwrites
+        journaled, and all of it put back after the batch: the training
+        state is left as it was, and no HEC is copied whole."""
+        cfg = self.cfg
+        pipeline = self._resolve_pipeline(ps, seed0, pipeline)
+        if pipeline is not None:
+            mb_iter = pipeline.eval_batches(num_batches, seed=seed0)
+        else:
+            rng = np.random.default_rng(seed0)
+
+            def unstaged():
+                for _ in range(num_batches):
+                    seeds = []
+                    for part in ps.parts:
+                        test = np.flatnonzero(part.test_mask)
+                        rng.shuffle(test)
+                        seeds.append(test[:cfg.batch_size])
+                    yield sample_step(ps, cfg, seeds, rng)
+            mb_iter = self._unstaged(unstaged())
         aep = self.mode == "aep"
+        self.join_push()
         kept = [(st.tags.clone(), st.age.clone())
                 for layer in state["hec"] for st in layer] if aep else []
         kept_hot = [t.age.clone() for t in state["hot"]]
         undo = []
         accs, weights = [], []
-        for k, host in enumerate(plan.batches(schedule,
-                                              EVAL_EPOCH_TAG + seed0)):
-            mb = minibatch_to_device(host, self.device)
+        for k, mb in enumerate(mb_iter):
             if aep:
                 self._consume(state, undo=undo)
             fwd = self._forward(state, data, mb, 10_000 + k, 0.0)

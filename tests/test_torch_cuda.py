@@ -1104,3 +1104,129 @@ def test_device_draw_minibatches_on_card_match_cpu(dev):
     before = sample_draw.sample_draw.launches
     plan.sample_host(0, 0, plan.epoch_schedule(0)[0])
     assert sample_draw.sample_draw.launches - before == 12
+
+
+# ---------------------------------------------------------------------------
+# the pipeline's staging, the push on its side stream, the device trace
+# ---------------------------------------------------------------------------
+def small_pipeline_setup(R=4, batch=16, **pipe):
+    from repro_torch.configs.gnn import (HECConfig, PipelineConfig,
+                                         small_gnn_config)
+    from repro_torch.graph import partition_graph, synthetic_graph
+    g = synthetic_graph(num_vertices=2000, avg_degree=8, num_classes=6,
+                        feat_dim=24, seed=0)
+    ps = partition_graph(g, R, seed=0)
+    cfg = small_gnn_config("graphsage", batch_size=batch, feat_dim=24,
+                           num_classes=6, hidden_size=40,
+                           num_hidden_layers=2, fanouts=(4, 5, 6),
+                           hec=HECConfig(cache_size=4096, ways=4,
+                                         push_limit=128),
+                           pipeline=PipelineConfig(**pipe))
+    return ps, cfg
+
+
+@pytest.mark.parametrize("double_buffer", [True, False])
+def test_staging_survives_overwritten_pinned_host(dev, double_buffer):
+    """``device_stage`` on the card: the staged batches equal the host
+    ones, in order, though the test overwrites every pinned host buffer
+    right after each yield; and an unpinned host batch is refused."""
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.pipeline.staging import device_stage
+    ps, cfg = small_pipeline_setup()
+    plan = SamplingPlan(ps, cfg, 0, pin_memory=True)
+    sched = plan.epoch_schedule(0)
+    assert len(sched) >= 3
+    hosts = [plan.sample_host(0, i, sched[i]) for i in range(3)]
+    want = [{k: [a.clone() for a in v] if isinstance(v, list) else v.clone()
+             for k, v in h.items()} for h in hosts]
+    assert all(a.is_pinned() for h in hosts for v in h.values()
+               for a in (v if isinstance(v, list) else [v]))
+    got = []
+    for mb in device_stage(iter(hosts), double_buffer, device=dev):
+        got.append(mb)
+        for v in hosts[len(got) - 1].values():
+            for a in (v if isinstance(v, list) else [v]):
+                a.fill_(True if a.dtype == torch.bool else -7)
+    torch.cuda.synchronize()
+    assert len(got) == 3
+    for mb, w in zip(got, want):
+        for k in w:
+            for x, y in (zip(mb[k], w[k]) if isinstance(w[k], list)
+                         else [(mb[k], w[k])]):
+                assert x.is_cuda and torch.equal(x.cpu(), y), k
+    unpinned = SamplingPlan(ps, cfg, 0).sample_host(0, 0, sched[0])
+    with pytest.raises(ValueError, match="pinned"):
+        list(device_stage(iter([unpinned]), double_buffer, device=dev))
+
+
+def test_side_stream_push_matches_inline_push(dev, monkeypatch):
+    """Three steps through ``MinibatchPipeline`` with the push on its side
+    stream and inline after the backward: HEC tags and ages, queued tags
+    and pushed rows equal, losses within 1e-4 relative; kernels D and F
+    launch only on the main stream, so D's ticket is never shared with
+    the push stream."""
+    from repro_torch.kernels import sage_agg as sa
+    from repro_torch.pipeline.staging import MinibatchPipeline
+    from repro_torch.train.gnn_trainer import DistTrainer, build_dist_data
+    ps, cfg = small_pipeline_setup()
+    streams = []
+    for mod, name in ((update_fused, "update_fused_bwd"),
+                      (sa, "sage_agg_bwd")):
+        inner = getattr(mod, name)
+
+        def spy(*a, _inner=inner, **kw):
+            streams.append(torch.cuda.current_stream().cuda_stream)
+            return _inner(*a, **kw)
+        spy.launches = 0               # the wrapper counts on its name
+        monkeypatch.setattr(mod, name, spy)
+    runs = []
+    for overlap in (True, False):
+        tr = DistTrainer(cfg, 4, device=dev, overlap=overlap)
+        assert (tr.push_stream is not None) == overlap
+        st = tr.init_state(seed=3)
+        data = build_dist_data(ps, cfg, dev)
+        pipe = MinibatchPipeline(ps, cfg, 0, device=dev)
+        logs = [tr.train_step(st, data, mb, i)
+                for i, mb in zip(range(3), pipe.epoch_batches(0))]
+        tr.join_push()
+        torch.cuda.synchronize()
+        runs.append((logs, st))
+        main = torch.cuda.current_stream().cuda_stream
+        assert streams and set(streams) == {main}
+        if overlap:
+            assert tr.push_stream.cuda_stream != main
+        streams.clear()
+    (la, sa_), (lb, sb) = runs
+    for a, b in zip(la, lb):
+        assert a["aep_push_rows"] == b["aep_push_rows"] > 0
+        assert abs(a["loss"] - b["loss"]) <= 1e-4 * abs(b["loss"])
+    for x, y in zip(sa_["hec"], sb["hec"]):
+        for a, b in zip(x, y):
+            assert torch.equal(a.tags, b.tags) and torch.equal(a.age, b.age)
+    for a, b in zip(sa_["inflight"], sb["inflight"]):
+        assert torch.equal(a["tags"], b["tags"])
+
+
+def test_two_stream_trace_busy_share_at_most_one(dev):
+    """A ``DeviceTrace`` of matmuls on two streams at once: two device
+    tracks, and the busy share (the union of their intervals) <= 1 while
+    the streams' own times may add up to more."""
+    from repro_torch import obs
+    tracer = obs.Tracer(enabled=True)
+    a = torch.randn(2048, 2048, device=dev)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    with obs.DeviceTrace(dev, tracer) as dt:
+        for _ in range(4):
+            for s in (s1, s2):
+                with torch.cuda.stream(s):
+                    for _ in range(8):
+                        a @ a
+    torch.cuda.synchronize()
+    summary = dt.summary()
+    assert len(summary["streams"]) >= 2
+    assert 0.0 < summary["busy_share"] <= 1.0
+    assert summary["busy_us"] <= summary["wall_us"]
+    trace = tracer.export()
+    assert obs.validate_chrome_trace(trace) == len(dt.events) > 0
+    assert obs.busy_us(obs.device_events(trace)) == pytest.approx(
+        obs.busy_us(dt.events))

@@ -165,11 +165,12 @@ def test_eval_minibatches_identical(parts_pair):
     from repro.configs.gnn import small_gnn_config as j_cfg
     from repro.pipeline.staging import MinibatchPipeline
     from repro_torch.configs.gnn import small_gnn_config
-    from repro_torch.pipeline.prefetcher import EVAL_EPOCH_TAG, SamplingPlan
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.pipeline.staging import EVAL_EPOCH_TAG, eval_schedule
     ps, jps = parts_pair
     kw = dict(batch_size=16, feat_dim=8, num_classes=5, fanouts=(3, 4))
     plan = SamplingPlan(ps, small_gnn_config("graphsage", **kw), 123)
-    got = list(plan.batches(plan.eval_schedule(3, 123),
+    got = list(plan.batches(eval_schedule(plan, 3, 123),
                             EVAL_EPOCH_TAG + 123))
     want = list(MinibatchPipeline(jps, j_cfg("graphsage", **kw),
                                   base_seed=123).eval_batches(3, seed=123))

@@ -48,7 +48,8 @@ from repro_torch.comm import HaloExchangeEngine, StackedCollective
 from repro_torch.comm.plan import build_exchange_plan
 from repro_torch.configs.gnn import HECConfig, small_gnn_config
 from repro_torch.graph import partition_graph, synthetic_graph
-from repro_torch.pipeline.prefetcher import EVAL_EPOCH_TAG, SamplingPlan
+from repro_torch.pipeline.prefetcher import SamplingPlan
+from repro_torch.pipeline.staging import EVAL_EPOCH_TAG, eval_schedule
 from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
                                            default_push_uniforms,
                                            minibatch_to_device)
@@ -533,7 +534,7 @@ def evaluate_by_clones(tr, ps, data, st, num_batches):
     tier, and forwards on them."""
     plan = SamplingPlan(ps, tr.cfg, base_seed=123, device=tr.device)
     accs, weights = [], []
-    for k, host in enumerate(plan.batches(plan.eval_schedule(num_batches,
+    for k, host in enumerate(plan.batches(eval_schedule(plan, num_batches,
                                                              123),
                                           EVAL_EPOCH_TAG + 123)):
         mb = minibatch_to_device(host, CPU)

@@ -34,7 +34,8 @@ from repro_torch.configs.gnn import (PipelineConfig, SamplerConfig,
 from repro_torch.graph import partition_graph, synthetic_graph
 from repro_torch.kernels import ref, sample_draw
 from repro_torch.pipeline import threefry
-from repro_torch.pipeline.prefetcher import EVAL_EPOCH_TAG, SamplingPlan
+from repro_torch.pipeline.prefetcher import SamplingPlan
+from repro_torch.pipeline.staging import EVAL_EPOCH_TAG, eval_schedule
 from repro_torch.pipeline.vectorized_sampler import DeviceSampler
 
 POLICIES = ("uniform", "labor", "cv")
@@ -317,7 +318,7 @@ def test_training_minibatches_match_reference(parts_pair, policy, workers):
 def test_eval_minibatches_match_reference(parts_pair, policy):
     from repro.pipeline.staging import MinibatchPipeline
     plan, jplan = plans(parts_pair, policy, 3, base_seed=123)
-    got = list(plan.batches(plan.eval_schedule(3, 123),
+    got = list(plan.batches(eval_schedule(plan, 3, 123),
                             EVAL_EPOCH_TAG + 123))
     want = list(MinibatchPipeline(jplan.ps, jplan.cfg, base_seed=123)
                 .eval_batches(3, seed=123))

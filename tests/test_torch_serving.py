@@ -10,6 +10,7 @@ serving contracts (cached == uncached, invalidation, exactness, admission),
 its device rule, and that it never imports ``jax`` or ``repro``.
 """
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -336,17 +337,20 @@ def test_device_none_means_cuda_and_never_falls_back(exact_parts,
         GNNServeScheduler(cfg, model, part)
 
 
-def test_launcher_flow_on_cpu():
+def test_launcher_flow_on_cpu(tmp_path):
     from repro_torch.launch import gnn_serve
     from repro_torch.configs.gnn import GRAPHSAGE_PAPERS100M
+    from repro_torch.obs import validate_chrome_trace
     cfg = gnn_serve.model_config("graphsage-papers100m")
     assert cfg is GRAPHSAGE_PAPERS100M
     assert (cfg.feat_dim, cfg.hidden_size, cfg.num_layers, cfg.num_classes,
             tuple(cfg.fanouts)) == (128, 256, 3, 172, (5, 10, 15))
+    trace = tmp_path / "trace.json"
     res = gnn_serve.run(gnn_serve.parse_args(
         ["--device", "cpu", "--vertices", "800", "--queries", "96",
-         "--slots", "8", "--profile"]))
-    assert res["cold_profile"]["device_busy_ms"] == 0.0     # no card here
+         "--slots", "8", "--trace-out", str(trace)]))
+    assert res["device_trace"] == {}          # no card here: not measured
+    assert validate_chrome_trace(json.loads(trace.read_text())) > 0
     assert res["cold_ms_per_microbatch"]["serve_sample"] > 0
     assert all(np.isfinite(r.result).all() for r in res["cold"] + res["warm"])
     offline = res["embs"][-1].numpy()

@@ -781,6 +781,12 @@ def test_port_configs_match_reference_defaults():
     p, q = t_cfg.PipelineConfig(), j_cfg.PipelineConfig()
     assert (p.num_workers, p.prefetch_depth) == (q.num_workers,
                                                  q.prefetch_depth)
+    assert (p.enabled, p.double_buffer, p.vectorized) == \
+        (q.enabled, q.double_buffer, q.vectorized) == (True, True, True)
+    for bad in (dict(num_workers=-1), dict(prefetch_depth=0)):
+        for c in (t_cfg, j_cfg):
+            with pytest.raises(ValueError):
+                c.PipelineConfig(**bad)
     assert (p.sampler.policy, p.sampler.device_draw, p.sampler.cv_boost) \
         == (q.sampler.policy, q.sampler.device_draw, q.sampler.cv_boost)
     for policy in ("uniform", "labor", "cv"):
