@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together, into ``build/kernels/``), then runs ten
+source, all started together, into ``build/kernels/``), then runs eleven
 phases on one card, phases 1-4, 7, 9 (b) and 10 at the paper's full GraphSAGE
 width (128 -> 256 -> 256 -> 172, fanouts 5/10/15), phases 5-6 at its full
 GAT width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172, one head at the
@@ -141,11 +141,9 @@ last layer) and phases 8 and 9 (c) at both:
      ``build/phase10/``), each with phase 4's launch counts: (a) the
      default (``MinibatchPipeline``: pinned batches, copies on a copy
      stream one batch ahead, the push on its side stream) against
-     ``PipelineConfig(double_buffer=False)``: the same HEC tag and age
-     digests and pushed rows at every step, the loss of every full step
-     and of the epoch and the parameters (as one vector) within
-     ``FREE_RUN_TOL`` (the 3-seed last step's loss and the worst leaf
-     printed), and from the trace the share of the H2D copy time beside
+     ``PipelineConfig(double_buffer=False)``: the same bits at every
+     step (HEC tag and age digests, every metric), in the epoch's loss
+     and in the parameters, and from the trace the share of the H2D copy time beside
      main-stream kernels and the ``stage`` ms per step; (b) the
      default against ``DistTrainer(overlap=False)`` (the push inline
      after the backward): the same checks, push-stream kernels (the
@@ -160,7 +158,29 @@ last layer) and phases 8 and 9 (c) at both:
      at least two streams, every JSONL line parses, the Prometheus file
      has ``phase_seconds`` of the four phases, the ``EpochBreakdown``
      table prints; (e) one epoch at ``P10_WORKERS`` = 4 prefetch workers,
-     its ``sample`` ms and s/epoch beside (a)'s.
+     its ``sample`` ms and s/epoch beside (a)'s, the same bits as (a);
+ 11. reproducible training and the health and quality planes, the
+     fifteenth to eighteenth main paths: (a) the first ``P11_STEPS`` = 4
+     steps of phase 4's GraphSAGE training through ``DistTrainer.
+     train_epochs``, three times from the same state: twice with both
+     planes off, once with both on and an audit after the epoch (flight
+     files under ``build/phase11/``); the three runs agree bit for bit in
+     every step's metrics, the epoch's loss, the parameters, every HEC's
+     tags, ages and values and the queued pushes, launch counts exact
+     (the "on" run adds only the audit's offline pass, A L times a chunk
+     of each shard); the rank series, the audit's per-layer error and its
+     time printed; (b) the same for GAT at phase 6's settings (the audit
+     through G); (c) phases 3 and 8's GraphSAGE serving launchers with
+     ``--audit-interval 1`` and an SLO of 1 ns: every answer bit-equal to
+     phases 3 and 8's (quality plane off), the single-rank cache warmed
+     from the offline rows and the shards warmed from the sharded offline
+     pass (the hot replicas too) audit to exactly 0.0, and the SLO burn's
+     ``FLIGHT_slo_burn.json`` parses; (d) F and H on collision-heavy
+     inputs at training widths (a source row 5,000 slots point at, one of
+     ``CHUNK`` + 1, -1 pads, indices past N): three launches bit-equal,
+     within tolerance of the plain versions in float64 (a 5,000-term
+     float32 sum parts from the exact one by ~1e-4 in any order), F the
+     plain version's bits on its rows of at most ``CHUNK`` slots.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
@@ -183,9 +203,11 @@ and warm q/s, per-step spans and s/epoch are printed as indicative only:
 each window lasts seconds or less on the host clock.
 
 Tolerances: the serve layer, UPDATE, AGG and GAT AGG sum in another
-float32 order than their plain versions (and the AGG and GAT AGG
-gradients add with atomics), so they are held to |kernel - plain| <= 1e-4
-* max(1, |plain|); the dropout's dropped positions, UPDATE's dZ, AGG's
+float32 order than their plain versions, so they are held to |kernel -
+plain| <= 1e-4 * max(1, |plain|); the AGG and GAT AGG gradients (F, H)
+sum in a fixed order through the slot index, so three launches are held
+bit-equal, and F to its plain version's bits (run on the CPU) on every
+source row of at most ``CHUNK`` slots; the dropout's dropped positions, UPDATE's dZ, AGG's
 counts, the HEC probe + load (B and the batched J) and the fanout draw are
 held bit for bit.  Sharded serving on the card against the CPU (phase 8
 (c)) is held to 1e-4 * max(1, |x|), as the single-rank serving phases.
@@ -683,6 +705,8 @@ def phase3(torch, np, args):
     zero_launches()
     res = gnn_serve.run(largs)
     launches = read_launches()
+    ANSWERS["single-rank"] = (answers(np, res["cold"]),
+                             answers(np, res["warm"]))
     print(f"phase 3: launches on the main path: {launches}")
     for name in ("serve_fused_layer", "hec_lookup"):
         check(launches[name] > 0,
@@ -741,6 +765,7 @@ def wrappers():
     from repro_torch.kernels import sage_agg as sa
     from repro_torch.kernels import sample_draw as sd
     from repro_torch.kernels import serve_fused as sf
+    from repro_torch.kernels import slot_index as si
     from repro_torch.kernels import update_fused as uf
     return {"serve_fused_layer": sf.serve_fused_layer,
             "hec_lookup": hs.hec_lookup,
@@ -751,7 +776,8 @@ def wrappers():
             "gat_edge_fwd": ge.gat_edge_fwd,
             "gat_edge_bwd": ge.gat_edge_bwd,
             "sample_draw": sd.sample_draw,
-            "hec_probe": hs.hec_probe}
+            "hec_probe": hs.hec_probe,
+            "slot_index": si.slot_index}
 
 
 def zero_launches():
@@ -829,11 +855,12 @@ def check_training(np, phase, res, launches, per_step, per_eval):
 
 def phase4_counts():
     """Phase 4's launches: per step C, D, E and B at every layer of every
-    rank and F at layers >= 1, per eval batch C, E and B."""
+    rank, F and its slot index build at layers >= 1, per eval batch C, E
+    and B."""
     R, L = 4, 3
     per_step = {"hec_lookup": L * R, "update_fused_fwd": L * R,
                 "update_fused_bwd": L * R, "sage_agg_fwd": L * R,
-                "sage_agg_bwd": (L - 1) * R}
+                "sage_agg_bwd": (L - 1) * R, "slot_index": (L - 1) * R}
     per_eval = {"hec_lookup": L * R, "update_fused_fwd": L * R,
                 "sage_agg_fwd": L * R}
     return per_step, per_eval
@@ -917,29 +944,81 @@ def agg_case(torch, sa, ref, name, h, nbr, valid, timed=True):
 
 def agg_bwd_case(torch, sa, ref, name, g, nbr, valid, cnt, num_src,
                  timed=True):
-    dh = sa.sage_agg_bwd(g, nbr, valid, cnt, num_src)
+    """Kernel F on one input: three launches through one slot index bit
+    for bit, within tolerance of the plain version on the card (in
+    float64 where a source row has more than ``CHUNK`` slots), and the
+    plain version's bits (run on the CPU, where ``index_add_`` adds in
+    slot order) on every source row of at most ``CHUNK`` slots.  Timed
+    with the index built beforehand; the build is timed apart."""
+    from repro_torch.kernels import slot_index as si
+    ix = si.slot_index(nbr, valid, num_src)
+    runs = [sa.sage_agg_bwd(g, nbr, valid, cnt, num_src, ix)
+            for _ in range(3)]
     torch.cuda.synchronize()
-    ok, err = close_to(dh, ref.sage_agg_bwd_ref(g, nbr, valid, cnt, num_src))
+    dh = runs[0]
+    check(all(torch.equal(dh, r) for r in runs[1:]),
+          f"{name}: F's launches differ in their bits")
+    lens = (ix.offsets[1:] - ix.offsets[:-1]).cpu()
+    # a row of thousands of slots sums in float32 to ~1e-4 in any order:
+    # there the kernel is held to the plain version in float64
+    wide = int(lens.max()) > si.CHUNK if num_src else False
+    want = ref.sage_agg_bwd_ref(g.double(), nbr, valid, cnt.double(),
+                                num_src) if wide \
+        else ref.sage_agg_bwd_ref(g, nbr, valid, cnt, num_src)
+    ok, err = close_to(dh, want)
     check(bool(torch.isfinite(dh).all()) and ok,
-          f"{name}: AGG gradient max |kernel - plain| {err:.3e} over "
-          f"tolerance")
+          f"{name}: AGG gradient max |kernel - plain"
+          f"{' in float64' if wide else ''}| {err:.3e} over tolerance")
+    del want
+    cpu = ref.sage_agg_bwd_ref(g.cpu(), nbr.cpu(), valid.cpu(), cnt.cpu(),
+                               num_src)
+    short = lens <= si.CHUNK
+    check(torch.equal(dh.cpu()[short], cpu[short]),
+          f"{name}: F is not the plain version's bits on its rows of at "
+          f"most {si.CHUNK} slots")
+    del runs, cpu
     M, f = nbr.shape
     D = g.shape[1]
     row = {"shape": f"g {M}x{D}, nbr {M}x{f}, dh {num_src}x{D}",
-           "max_abs_err": err, "library_ms": None}
+           "max_abs_err": err, "repeats_bitwise": 3,
+           "rows_bitwise_plain": int(short.sum()), "rows": num_src,
+           "longest_row_slots": int(lens.max()) if num_src else 0}
+    if wide:
+        row["held_to"] = "the plain version in float64"
     if timed:
-        # g, nbr, the slots' valid flags and cnt read once, dh written
-        # whole; one divide per g element and one add per included one
-        idx = nbr.long()
-        used = (idx >= 0) & valid[idx.clamp_min(0)]
-        nbytes = (M * D * 4 + M * f * 4 + int((idx >= 0).sum()) + M * 4
+        # g and cnt read once, the transposed index (offsets, chunk bases,
+        # the kept slots), dh written whole; one divide and one add per
+        # kept element
+        kept = int(ix.offsets[-1])
+        nbytes = (M * D * 4 + M * 4 + 2 * (num_src + 1) * 4 + kept * 4
                   + num_src * D * 4)
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, int(used.sum()) * D + M * D)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * kept * D)
         row["ms"], row["call_ms"] = time_ms(
-            torch, lambda: sa.sage_agg_bwd(g, nbr, valid, cnt, num_src))
+            torch, lambda: sa.sage_agg_bwd(g, nbr, valid, cnt, num_src, ix))
+        row["index_ms"], row["index_call_ms"] = time_ms(
+            torch, lambda: si.slot_index(nbr, valid, num_src))
         row["plain_ms"], row["plain_call_ms"] = time_ms(
             torch, lambda: ref.sage_agg_bwd_ref(g, nbr, valid, cnt, num_src))
+        # one PyTorch call: index_add_ of the quotients in deterministic
+        # mode (its sort-based path), the quotients made beforehand
+        idx = nbr.long().clamp(0, max(num_src - 1, 0)).reshape(-1)
+        keep = ((nbr >= 0) & (nbr < num_src)
+                & valid[nbr.long().clamp(0, num_src - 1)]).reshape(-1)
+        quot = ((g / cnt.clamp_min(1.0)[:, None])[:, None, :]
+                .expand(M, f, D).reshape(-1, D) * keep[:, None].float())
+        dst = torch.zeros((num_src, D), dtype=g.dtype, device=g.device)
+        torch.use_deterministic_algorithms(True)
+        try:
+            lib = dst.clone().index_add_(0, idx, quot)
+            ok, _ = close_to(lib, dh)
+            check(ok, f"{name}: index_add_ of the quotients is not F")
+            row["library_ms"], _ = time_ms(
+                torch, lambda: dst.clone().index_add_(0, idx, quot))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        row["library_call"] = ("Tensor.index_add_ of the [M*f, D] quotients "
+                               "under torch.use_deterministic_algorithms"
+                               "(True), a clone of zeros included")
     return row
 
 
@@ -1034,7 +1113,14 @@ def print_row(kernel, row, phase="phase 4"):
           + (f", library {lib:.4f}" if lib is not None else "")
           + f", bound {row['bound_ms']:.4f} ({row['bound_by']})"
           + (f", FFMA bound {ffma:.4f}" if ffma is not None else "")
-          + f"; per call kernel {row['call_ms']:.4f}")
+          + (f", slot index build {row['index_ms']:.4f}"
+             if "index_ms" in row else "")
+          + f"; per call kernel {row['call_ms']:.4f}"
+          + (f"; {row['repeats_bitwise']} launches bit-equal, longest "
+             f"source row {row['longest_row_slots']} slots"
+             if "repeats_bitwise" in row else "")
+          + (f", {row['rows_bitwise_plain']} of {row['rows']} rows the "
+             f"plain version's bits" if "rows_bitwise_plain" in row else ""))
 
 
 def phase4_kernels(torch, np, res):
@@ -1450,40 +1536,74 @@ def gat_case(torch, ge, ref, name, z, e_u, e_v, nbr, valid, dst_idx=None,
 
 
 def gat_bwd_case(torch, ge, ref, name, g, z, e_u, e_v, nbr, valid,
-                 timed=True):
-    got = ge.gat_edge_bwd(g, z, e_u, e_v, nbr, valid)
+                 dst_idx=None, timed=True):
+    """Kernel H on one input: three launches through one slot index bit
+    for bit, within tolerance of the plain version (in float64 where a
+    source row has more than ``CHUNK`` slots).  Timed with the index
+    built beforehand; the build is timed apart."""
+    from repro_torch.kernels import slot_index as si
+    N, H, dh = z.shape
+    ix = si.slot_index(nbr, valid, N)
+    dix = ge.dst_index(dst_idx, e_v.shape[0]) if dst_idx is not None \
+        else None
+    runs = [ge.gat_edge_bwd(g, z, e_u, e_v, nbr, valid, dst_idx, ix, dix)
+            for _ in range(3)]
     torch.cuda.synchronize()
-    want = ref.gat_edge_bwd_ref(g, z, e_u, e_v, nbr, valid)
+    got = runs[0]
+    check(all(torch.equal(a, b) for r in runs[1:] for a, b in zip(got, r)),
+          f"{name}: H's launches differ in their bits")
+    del runs
+    lens = ix.offsets[1:] - ix.offsets[:-1]
+    longest = int(lens.max()) if N else 0
+    # a row of thousands of slots sums in float32 to ~1e-4 in any order
+    # (the plain version's atomics included): there both are held to the
+    # plain version in float64
+    wide = longest > si.CHUNK
+    want = ref.gat_edge_bwd_ref(
+        *[t.double() for t in (g, z, e_u, e_v)], nbr, valid, dst_idx) \
+        if wide else ref.gat_edge_bwd_ref(g, z, e_u, e_v, nbr, valid,
+                                          dst_idx)
     errs = []
     for label, a, b in zip(("dz", "de_u", "de_v"), got, want):
         ok, err = close_to(a, b)
         check(bool(torch.isfinite(a).all()) and ok,
-              f"{name}: GAT AGG gradient {label} max |kernel - plain| "
-              f"{err:.3e} over tolerance")
+              f"{name}: GAT AGG gradient {label} max |kernel - plain"
+              f"{' in float64' if wide else ''}| {err:.3e} over tolerance")
         errs.append(err)
-    N, H, dh = z.shape
     M, f = nbr.shape
-    row = {"shape": f"g {M}x{H * dh}, nbr {M}x{f} -> dz {N}x{H}x{dh}",
-           "max_abs_err": max(errs), "library_ms": None}
+    row = {"shape": f"g {M}x{H * dh}, nbr {M}x{f} -> dz {N}x{H}x{dh}"
+                    + (", dst_idx" if dst_idx is not None else ""),
+           "max_abs_err": max(errs), "library_ms": None,
+           "repeats_bitwise": 3, "longest_row_slots": longest}
+    if wide:
+        row["held_to"] = "the plain version in float64"
     del got, want, a, b
     if timed:
         # g, the included sources' z and e_u rows, the slots' valid flags,
-        # nbr and e_v read once; dz, de_u and de_v written whole; per
-        # included slot a dot product and a scaled add per z element
+        # nbr and e_v read once, the transposed index (offsets, chunk
+        # bases, kept slots) read once; the scratch alpha and ds per
+        # included slot and head written once and read once per kept
+        # slot; dz, de_u and de_v written whole.  Per included slot a dot
+        # product and per kept slot a scaled add per z element
         idx = nbr.long()
         used = (idx >= 0) & valid[idx.clamp(0, N - 1)]
         rows = idx.clamp(0, N - 1)[used].unique().numel()
+        inc, kept = int(used.sum()), int(ix.offsets[-1])
         nbytes = (M * H * dh * 4 + rows * (H * dh + H) * 4
                   + int((idx >= 0).sum()) + M * f * 4 + M * H * 4
+                  + 2 * (N + 1) * 4 + kept * 4
+                  + 2 * inc * H * 4 + 2 * kept * H * 4
                   + N * H * dh * 4 + N * H * 4 + e_v.shape[0] * H * 4)
         row["bound_ms"], row["bound_by"] = bound(
-            nbytes, int(used.sum()) * (4.0 * H * dh + 12 * H))
+            nbytes, inc * (2.0 * H * dh + 12 * H) + kept * 2.0 * H * dh)
         row["ms"], row["call_ms"] = time_ms(torch, lambda: ge.gat_edge_bwd(
-            g, z, e_u, e_v, nbr, valid))
+            g, z, e_u, e_v, nbr, valid, dst_idx, ix, dix))
+        row["index_ms"], row["index_call_ms"] = time_ms(
+            torch, lambda: si.slot_index(nbr, valid, N))
         # about 80 torch ops per call: 3 calls fit in the launch queue
         row["plain_ms"], row["plain_call_ms"] = time_ms(
-            torch, lambda: ref.gat_edge_bwd_ref(g, z, e_u, e_v, nbr, valid),
-            iters=3)
+            torch, lambda: ref.gat_edge_bwd_ref(g, z, e_u, e_v, nbr, valid,
+                                                dst_idx), iters=3)
     return row
 
 
@@ -1608,11 +1728,11 @@ def phase5(torch, np, args):
 
 
 def phase6_main_path(torch, np, vertices):
-    """(b) of phase 6: GAT; per step G and H at every layer of every rank
-    and B at every layer, per eval batch G and B."""
+    """(b) of phase 6: GAT; per step G, H and its slot index build at every
+    layer of every rank and B at every layer, per eval batch G and B."""
     R, L = 4, 3                              # TRAIN_ARGS' ranks and layers
     per_step = {"hec_lookup": L * R, "gat_edge_fwd": L * R,
-                "gat_edge_bwd": L * R}
+                "gat_edge_bwd": L * R, "slot_index": L * R}
     per_eval = {"hec_lookup": L * R, "gat_edge_fwd": L * R}
     torch.cuda.reset_peak_memory_stats()
     # argparse keeps the last of a repeated flag: these override TRAIN_ARGS
@@ -1830,7 +1950,8 @@ def phase7_main_path(torch, np, res4):
     R, L = 4, cfg.num_layers
     per_step = {"hec_lookup": L * R, "update_fused_fwd": L * R,
                 "update_fused_bwd": L * R, "sage_agg_fwd": L * R,
-                "sage_agg_bwd": (L - 1) * R, "sample_draw": L * R}
+                "sage_agg_bwd": (L - 1) * R, "slot_index": (L - 1) * R,
+                "sample_draw": L * R}
     per_eval = {"hec_lookup": L * R, "update_fused_fwd": L * R,
                 "sage_agg_fwd": L * R, "sample_draw": L * R}
     torch.cuda.reset_peak_memory_stats()
@@ -2480,7 +2601,8 @@ def phase9_main_path(torch, np, ps, card):
     from repro_torch.train.gnn_trainer import DistTrainer, build_dist_data
     R, L = 4, 3
     per_step = {"update_fused_fwd": L * R, "update_fused_bwd": L * R,
-                "sage_agg_fwd": L * R, "sage_agg_bwd": (L - 1) * R}
+                "sage_agg_fwd": L * R, "sage_agg_bwd": (L - 1) * R,
+                "slot_index": (L - 1) * R}
     per_eval = {"update_fused_fwd": L * R, "sage_agg_fwd": L * R}
     out = {}
     for mode in ("sync", "drop"):
@@ -2749,34 +2871,27 @@ def is_bwd(event) -> bool:
 class StepRecorder:
     """Between ``start`` and ``stop`` every ``DistTrainer.train_step`` also
     records its metrics and, per HEC, a digest of its tags and of its ages
-    (an int64 weighted sum: equal tensors give equal digests), so two runs
-    are compared step for step without a copy of 12 GB of HECs.  The
-    digests stay on the card until ``stop``: a host read per step would
-    wait inside the ``step`` span."""
+    (``bit_digest``), so two runs are compared step for step without a
+    copy of 12 GB of HECs.  The digests stay on the card until ``stop``: a
+    host read per step would wait inside the ``step`` span."""
 
     def __init__(self, torch):
         from repro_torch.train.gnn_trainer import DistTrainer
         self.torch, self.cls = torch, DistTrainer
-        self.steps, self._w = [], {}
-
-    def digest(self, t):
-        torch = self.torch
-        key = (t.numel(), t.device)
-        if key not in self._w:
-            g = torch.Generator().manual_seed(t.numel())
-            self._w[key] = torch.randint(1, 2 ** 31 - 1, (t.numel(),),
-                                         generator=g).to(t.device)
-        return ((t.reshape(-1).long() + 2) * self._w[key]).sum()
+        self.steps = []
 
     def start(self):
         orig = self.orig = self.cls.train_step
+        torch = self.torch
 
         def train_step(tr, state, data, mb, seed):
             m = orig(tr, state, data, mb, seed)
             hecs = [s for layer in state["hec"] for s in layer]
             self.steps.append({"m": m,
-                               "tags": [self.digest(s.tags) for s in hecs],
-                               "ages": [self.digest(s.age) for s in hecs]})
+                               "tags": [bit_digest(torch, s.tags)
+                                        for s in hecs],
+                               "ages": [bit_digest(torch, s.age)
+                                        for s in hecs]})
             return m
         self.cls.train_step = train_step
         return self
@@ -2948,40 +3063,30 @@ def phase10_run(torch, np, key, name, card, pipeline=None, overlap=True):
 
 
 def phase10_same(torch, phase, a, b):
-    """Two runs on one minibatch stream: per step the HEC tag and age
-    digests and the pushed rows equal; the epoch's loss, every full
-    step's loss and the final parameters (all leaves as one vector)
-    within ``FREE_RUN_TOL`` relative (F's atomics and the ReLU kinks part
-    two card runs, and Adam turns a near-zero gradient entry's noise into
-    a step of up to lr, so a small leaf parts further: its gap is
-    printed).  A step of fewer than half a full batch's examples (the
-    epoch's last: 3 seeds) takes its loss over so few terms that one
-    term's shift moves it ~1,000 times as far as a full step's; its gap
-    is printed, not held.  Returns the held gap, the short steps' and
-    the worst leaf's."""
+    """Two runs on one minibatch stream give the same bits: per step the
+    HEC tag and age digests and every metric (loss, accuracy, gradient
+    norm, pushed rows and bytes, hits, occupancy), the epoch's loss and
+    the final parameters.  Every sum on the step's path runs in a fixed
+    order (F and H gather through the slot index, D's stripes in stripe
+    order), so nothing is held to a tolerance.  Returns the number of
+    steps compared."""
     check(len(a["steps"]) == len(b["steps"]) > 0, f"{phase}: "
           f"{len(a['steps'])} vs {len(b['steps'])} steps")
-    full = max(x["m"]["examples"] for x in a["steps"])
-    gap = short = 0.0
     for i, (x, y) in enumerate(zip(a["steps"], b["steps"])):
-        check(x["tags"] == y["tags"] and x["ages"] == y["ages"]
-              and x["m"]["aep_push_rows"] == y["m"]["aep_push_rows"]
-              and x["m"]["examples"] == y["m"]["examples"],
-              f"{phase}: step {i}: HEC tags, ages, pushed rows or "
-              f"examples differ")
-        d = abs(x["m"]["loss"] - y["m"]["loss"]) / abs(y["m"]["loss"])
-        if 2 * x["m"]["examples"] >= full:
-            gap = max(gap, d)
-        else:
-            short = max(short, d)
-    ha, hb = a["history"]["loss"], b["history"]["loss"]
-    flat = [torch.cat([p.reshape(-1) for p in r["params"]]) for r in (a, b)]
-    gap = max(gap, abs(ha - hb) / abs(hb), rel_norm(*flat))
-    leaf = max((rel_norm(p, q), k) for k, (p, q) in
-               enumerate(zip(a["params"], b["params"])))
-    check(gap <= FREE_RUN_TOL, f"{phase}: losses or parameters part by "
-          f"{gap:.3e} relative (worst leaf {leaf[1]}: {leaf[0]:.3e})")
-    return gap, short, leaf
+        check(x["tags"] == y["tags"] and x["ages"] == y["ages"],
+              f"{phase}: step {i}: HEC tags or ages differ")
+        diff = {k: (x["m"][k], y["m"].get(k)) for k in x["m"]
+                if x["m"][k] != y["m"].get(k)}
+        check(not diff and set(x["m"]) == set(y["m"]),
+              f"{phase}: step {i}: metrics differ: {diff}")
+    check(a["history"]["loss"] == b["history"]["loss"],
+          f"{phase}: epoch losses {a['history']['loss']!r} vs "
+          f"{b['history']['loss']!r}")
+    leaves = [k for k, (p, q) in enumerate(zip(a["params"], b["params"]))
+              if not torch.equal(p, q)]
+    check(not leaves, f"{phase}: parameter leaves {leaves} differ "
+          f"(worst {max(rel_norm(a['params'][k], b['params'][k]) for k in leaves) if leaves else 0:.3e})")
+    return len(a["steps"])
 
 
 def phase10_main_path(torch, np, card):
@@ -3002,32 +3107,30 @@ def phase10_main_path(torch, np, card):
                                         prefetch_depth=P10_WORKERS))}
     a, s, i, w = (runs[k] for k in ("default", "sync_copy", "inline_push",
                                     "workers"))
-    gap, short, leaf = phase10_same(torch, "phase 10 (a)", a, s)
+    n = phase10_same(torch, "phase 10 (a)", a, s)
     print(f"phase 10 (a): double-buffered vs in-order copies: the same "
-          f"tags, ages and pushed rows at every step, losses and "
-          f"parameters within {gap:.2e} (the 3-seed step's loss "
-          f"{short:.2e}, leaf {leaf[1]} {leaf[0]:.2e}); stage {a['stage_ms']:.2f} vs "
+          f"bits at all {n} steps (tags, ages, every metric), in the "
+          f"epoch's loss and in the parameters; stage {a['stage_ms']:.2f} vs "
           f"{s['stage_ms']:.2f} ms per step, H2D copy time beside "
           f"main-stream kernels {100 * a['copy_share']:.1f}% vs "
           f"{100 * s['copy_share']:.1f}%; {a['history']['t_wall']:.2f} vs "
           f"{s['history']['t_wall']:.2f} s/epoch [{card}]")
-    gap, short, leaf = phase10_same(torch, "phase 10 (b)", a, i)
+    n = phase10_same(torch, "phase 10 (b)", a, i)
     print(f"phase 10 (b): push on its side stream vs inline after the "
-          f"backward: the same tags, ages and pushed rows at every step, "
-          f"losses and parameters within {gap:.2e} (the 3-seed step's loss "
-          f"{short:.2e}, leaf {leaf[1]} {leaf[0]:.2e}); measured overlap "
+          f"backward: the same bits at all {n} steps, in the epoch's loss "
+          f"and in the parameters; measured overlap "
           f"{100 * a['push_share']:.1f}% of {a['push_ms']:.3f} ms per step "
           f"beside StepModel's {100 * a['model_eff']:.1f}%; step "
           f"{a['step_ms']:.1f} vs {i['step_ms']:.1f} ms, device busy "
           f"{100 * a['busy']:.1f}% vs {100 * i['busy']:.1f}% of the step "
           f"spans [{card}]")
-    gap, _, _ = phase10_same(torch, "phase 10 (e)", a, w)
+    n = phase10_same(torch, "phase 10 (e)", a, w)
     print(f"phase 10 (e): {P10_WORKERS} prefetch workers vs 1: sample "
           f"{w['sample_ms']:.1f} vs {a['sample_ms']:.1f} ms per step (per "
           f"worker, in parallel), step {w['step_ms']:.1f} vs "
           f"{a['step_ms']:.1f} ms, {w['history']['t_wall']:.2f} vs "
-          f"{a['history']['t_wall']:.2f} s/epoch; same stream (gap "
-          f"{gap:.2e}) [{card}]")
+          f"{a['history']['t_wall']:.2f} s/epoch; the same bits at all "
+          f"{n} steps [{card}]")
     return {k: r["launches"] for k, r in runs.items()}
 
 
@@ -3133,6 +3236,362 @@ def phase10_unstaged(torch, np):
           f"{held:.2e}; {filled} HEC tags, the ages and queued tags equal; "
           f"the card's free run on the same minibatches within {free:.2e} "
           f"({time.perf_counter() - t0:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: training that repeats bit for bit, and the two planes
+# ---------------------------------------------------------------------------
+P11_DIR = os.path.join(ROOT, "build", "phase11")
+P11_STEPS = 4               # (a), (b): steps of each of the three runs
+ANSWERS = {}                # phases 3 and 8's answers, for (c)
+
+
+class FewSteps:
+    """A minibatch source for ``train_epochs``: the first ``n`` batches of
+    epoch 0 of the trainer's own sampler (``SamplingPlan``, base seed 0),
+    each copied to the card when the loop asks for it."""
+
+    def __init__(self, ps, cfg, n, device):
+        import itertools
+
+        from repro_torch.pipeline.prefetcher import SamplingPlan
+        plan = SamplingPlan(ps, cfg, 0)
+        self.hosts = list(itertools.islice(
+            plan.batches(plan.epoch_schedule(0), 0), n))
+        self.device = device
+
+    def epoch_batches(self, ep):
+        from repro_torch.pipeline.staging import minibatch_to_device
+        for host in self.hosts:
+            yield minibatch_to_device(host, self.device)
+
+
+def bit_digest(torch, t, chunk=1 << 24):
+    """An int64 weighted sum of a tensor's 32-bit words, chunk by chunk on
+    the card: equal tensors give equal digests, and a change of any bit
+    changes it."""
+    flat = t.detach().reshape(-1)
+    flat = flat.view(torch.int32) if flat.element_size() == 4 \
+        else flat.long()
+    w = bit_digest.w.get(flat.device)
+    if w is None:
+        g = torch.Generator().manual_seed(11)
+        w = bit_digest.w[flat.device] = torch.randint(
+            1, 2 ** 31 - 1, (chunk,), generator=g).to(flat.device)
+    acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for k, i in enumerate(range(0, flat.numel(), chunk)):
+        part = flat[i:i + chunk].long() + 2
+        acc += (part * w[:part.numel()]).sum() * (k + 1)
+    return acc
+
+
+bit_digest.w = {}
+
+
+def state_digests(torch, state):
+    """Digests of everything a training run leaves: parameters, every
+    HEC's tags, ages and values, the hot tier, the in-flight queues (the
+    pushes)."""
+    hecs = [s for layer in state["hec"] for s in layer]
+    d = {"params": [bit_digest(torch, p)
+                    for p in state["model"].parameter_list()],
+         "tags": [bit_digest(torch, s.tags) for s in hecs],
+         "ages": [bit_digest(torch, s.age) for s in hecs],
+         "values": [bit_digest(torch, s.values) for s in hecs],
+         "hot": [bit_digest(torch, getattr(t, f)) for t in state["hot"]
+                 for f in ("age", "values")],
+         "pushes": [bit_digest(torch, q[k]) for q in state["inflight"]
+                    for k in sorted(q)]}
+    return {k: [int(x) for x in v] for k, v in d.items()}
+
+
+def phase11_train(torch, np, model, card):
+    """(a) GraphSAGE at phase 4's settings, (b) GAT at phase 6's: the
+    first ``P11_STEPS`` steps of epoch 0 trained three times from the same
+    state, twice with both planes off and once with both on (and an audit
+    after the epoch, its flight directory under ``build/phase11``).  All
+    three runs give the same bits in every step's metrics, the epoch's
+    loss, the parameters, every HEC's tags, ages and values and the
+    queued pushes; the launches per step are phase 4's (6's) in every run,
+    and the "on" run adds only the audit's offline pass.  Prints the rank
+    series, the audit's per-layer error and its time.  Returns the "on"
+    run's launches."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.launch import train
+    from repro_torch.train.gnn_trainer import DistTrainer, build_dist_data
+    phase = f"phase 11 ({'a' if model == 'graphsage' else 'b'}) {model}"
+    argv = TRAIN_ARGS + ["--vertices", str(TRAIN_VERTICES)]
+    if model == "gat":
+        argv += ["--model", "gat", "--lr", "0.001", "--hec-size",
+                 str(GAT_HEC_SIZE)]
+    args = train.parse_args(argv)
+    cfg = train.gnn_config(args)
+    g = synthetic_graph(num_vertices=args.vertices, avg_degree=args.degree,
+                        num_classes=args.classes, feat_dim=args.feat_dim,
+                        seed=args.seed)
+    ps = partition_graph(g, args.ranks, seed=args.seed)
+    R, L = args.ranks, cfg.num_layers
+    data = build_dist_data(ps, cfg, "cuda")
+    src = FewSteps(ps, cfg, P11_STEPS, "cuda")
+    os.makedirs(P11_DIR, exist_ok=True)
+    if model == "graphsage":
+        per_step, _ = phase4_counts()
+        audit_kernel = "serve_fused_layer"
+    else:
+        per_step = {"hec_lookup": L * R, "gat_edge_fwd": L * R,
+                    "gat_edge_bwd": L * R, "slot_index": L * R}
+        audit_kernel = "gat_edge_fwd"
+    runs = []
+    for label in ("off", "off again", "on"):
+        obs.configure()
+        planes, audit_s = {}, []
+        if label == "on":
+            health = obs.HealthPlane(
+                obs.HealthConfig(flight_dir=tempfile.mkdtemp(dir=P11_DIR)),
+                num_ranks=R, expected_halo_rows=[p.num_halo
+                                                 for p in ps.parts])
+            planes = dict(health=health, quality=obs.QualityPlane(
+                obs.QualityConfig(audit_interval=1), health=health))
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        tr = DistTrainer(cfg=cfg, num_ranks=R, device="cuda", **planes)
+        if planes:
+            audit = tr.audit
+
+            def timed_audit(*a, _audit=audit, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rep = _audit(*a, **kw)
+                torch.cuda.synchronize()
+                audit_s.append(time.perf_counter() - t0)
+                return rep
+            tr.audit = timed_audit
+        state = tr.init_state(seed=args.seed)
+        t0 = time.perf_counter()
+        state, hist = tr.train_epochs(ps, data, state, 1, pipeline=src)
+        tr.join_push()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        run = {"label": label, "log": list(tr.step_log),
+               "loss": hist[0]["loss"], "launches": launches,
+               "digests": state_digests(torch, state), "secs": secs,
+               "peak": torch.cuda.max_memory_allocated()}
+        steps = len(tr.step_log)
+        check(steps == P11_STEPS, f"{phase} {label}: {steps} steps")
+        for n in launches:
+            if planes and n == audit_kernel:      # held below
+                continue
+            want = steps * per_step.get(n, 0)
+            check(launches[n] == want, f"{phase} {label}: {n} launched "
+                  f"{launches[n]} times, expected {want}")
+        if planes:
+            q, h = planes["quality"], planes["health"]
+            check(q.audits_run == 1 and len(audit_s) == 1,
+                  f"{phase}: {q.audits_run} audits")
+            rep = q.last_report
+            reg = obs.get().registry
+            series = {n: obs.rank_series(reg, n, R).tolist()
+                      for n in ("rank_examples", "rank_sample_rows",
+                                "rank_halo_rows", "rank_hec_hits",
+                                "rank_push_rows", "rank_push_bytes")}
+            check(series["rank_examples"] and sum(
+                series["rank_examples"]) == sum(m["examples"]
+                                                 for m in tr.step_log),
+                  f"{phase}: the rank series do not sum the steps' examples")
+            check(rep.mean_err is not None and np.isfinite(rep.mean_err)
+                  and rep.per_layer[0]["err_max"] == 0.0,
+                  f"{phase}: audit {rep.to_json()}")
+            check(h.summary()["windows"] == 1, f"{phase}: health windows "
+                  f"{h.summary()['windows']}")
+            chunks = sum(-(-p.num_solid // OFFLINE_CHUNK) for p in ps.parts)
+            extra = launches[audit_kernel] - steps * per_step.get(
+                audit_kernel, 0)
+            check(extra == L * chunks, f"{phase}: the audit launched "
+                  f"{audit_kernel} {extra} times, expected {L * chunks}")
+            run["audit"] = {"s": audit_s[0], "report": rep.to_json(),
+                            "series": series, "extra_launches": extra}
+        runs.append(run)
+        del tr, state, hist
+        torch.cuda.empty_cache()
+    base = runs[0]
+    for r in runs[1:]:
+        check(r["log"] == base["log"] and r["loss"] == base["loss"],
+              f"{phase}: run '{r['label']}' parts from run 'off' in a "
+              f"step's metrics or the epoch's loss")
+        diff = [k for k in base["digests"]
+                if r["digests"][k] != base["digests"][k]]
+        check(not diff, f"{phase}: run '{r['label']}' parts from run 'off' "
+              f"in {diff}")
+    on = runs[-1]["audit"]
+    rep = on["report"]
+    print(f"{phase}: three runs of {P11_STEPS} steps (planes off, off, on) "
+          f"give the same bits: losses {[m['loss'] for m in base['log']]}, "
+          f"{sum(len(v) for v in base['digests'].values())} digests of "
+          f"parameters, HEC tags, ages and values, hot tier and pushes; "
+          f"launches per run {runs[0]['launches']}")
+    print(f"{phase}: rank series of the epoch: {on['series']}")
+    print(f"{phase}: audit after the epoch in {on['s']:.3f} s (host clock, "
+          f"{on['extra_launches']} launches of {audit_kernel}): mean "
+          f"rel-L2 {rep['mean_err']:.6f}; per layer " + "; ".join(
+              f"l{l}: n {v['n']}, mean {v.get('err_mean', 0.0):.6f}, p99 "
+              f"{v.get('err_p99', 0.0):.6f}, max {v.get('err_max', 0.0):.6f}"
+              for l, v in rep["layers"].items())
+          + f"; peak memory {runs[-1]['peak'] / 2 ** 30:.2f} GiB [{card}]")
+    return runs[-1]["launches"], on["s"]
+
+
+def answers(np, reqs):
+    """A pass's answers as one array, in request order."""
+    return np.stack([r.result for r in reqs]) if reqs else None
+
+
+def phase11_serve(torch, np, args, card):
+    """(c) single-rank and sharded serving through their launchers
+    (GraphSAGE) with ``--audit-interval 1`` and an SLO of 1 ns: every
+    answer bit-equal to a run with the quality plane off (phase 3's for
+    the single rank; for the shards, a run just before at round batch 1,
+    so that a pass runs rounds enough for the burn's window of two); the
+    single-rank cache warmed from the offline rows and the shards warmed
+    from the sharded offline pass (the hot replicas too) audit to exactly
+    0.0; the SLO burn fires and its ``FLIGHT_slo_burn.json`` parses.
+    Returns the launches of the two runs with the planes and the fresh
+    sharded audit's seconds."""
+    import tempfile
+
+    from repro_torch.launch import gnn_serve, gnn_serve_dist
+    from repro_torch.serve.gnn.distributed import layerwise_embeddings_dist
+    os.makedirs(P11_DIR, exist_ok=True)
+    common = ["--preset", "graphsage-papers100m", "--device", "cuda",
+              "--vertices", str(args.vertices), "--queries",
+              str(args.queries)]
+    planes = ["--audit-interval", "1", "--slo-p99-ms", "0.000001",
+              "--flight-dir"]
+    sharded = common + ["--round-batch", "1"]
+    res = gnn_serve_dist.run(gnn_serve_dist.parse_args(sharded))
+    ANSWERS["sharded, round batch 1"] = (answers(np, res["serve"]),
+                                         answers(np, res["repeat"]))
+    del res
+    out = {}
+    for name, launcher, argv in (
+            ("single-rank", gnn_serve, common + ["--slots", str(SLOTS)]),
+            ("sharded, round batch 1", gnn_serve_dist, sharded)):
+        fd = tempfile.mkdtemp(dir=P11_DIR)
+        phase = f"phase 11 (c) {name}"
+        zero_launches()
+        res = launcher.run(launcher.parse_args(argv + planes + [fd]))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        passes = ("cold", "warm") if name == "single-rank" \
+            else ("serve", "repeat")
+        for p, want in zip(passes, ANSWERS[name]):
+            got = answers(np, res[p])
+            check(got is not None and got.shape == want.shape and
+                  np.array_equal(got.view(np.int32), want.view(np.int32)),
+                  f"{phase}: the {p} pass's answers differ from the run "
+                  f"with the quality plane off")
+        srv = res["srv"]
+        t_audit = None
+        if name == "single-rank":
+            fresh = res["audits"][-1]
+            check(fresh.mean_err == 0.0 and all(
+                v["n"] > 0 and v["err_max"] == 0.0
+                for v in fresh.per_layer.values()),
+                f"{phase}: the warmed cache audits to {fresh.to_json()}")
+        else:
+            cfg, ps = res["cfg"], res["ps"]
+            srv.update_params(srv.model)
+            ed = layerwise_embeddings_dist(cfg, srv.model, ps)
+            srv.cache.warm(ed, np.arange(len(ps.owner)))
+            if srv.hot is not None:
+                srv.hot.warm(ed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fresh = srv.audit()
+            torch.cuda.synchronize()
+            t_audit = time.perf_counter() - t0
+            check(fresh.mean_err == 0.0 and all(
+                v["n"] > 0 and v["err_max"] == 0.0
+                for v in fresh.per_layer.values())
+                and (fresh.hot is None or fresh.hot["err_max"] == 0.0),
+                f"{phase}: fresh shards audit to {fresh.to_json()}")
+        with open(os.path.join(fd, "FLIGHT_slo_burn.json")) as f:
+            dump = json.load(f)
+        check(dump["detection"]["detector"] == "slo_burn"
+              and dump["num_entries"] > 0,
+              f"{phase}: FLIGHT_slo_burn.json holds {sorted(dump)}")
+        print(f"{phase}: answers of both passes bit-equal to the run with "
+              f"the quality plane off; audits after the passes "
+              + ", ".join(f"{a.mean_err:.6f}" for a in res["audits"])
+              + f"; fresh audit {fresh.mean_err} over "
+              f"{sum(v['n'] for v in fresh.per_layer.values())} lines"
+              + (f" and {fresh.hot['n']} hot replicas" if fresh.hot
+                 else "")
+              + (f" in {t_audit:.3f} s (host clock)" if t_audit else "")
+              + f"; SLO burn fired after {dump['detection']['epoch'] + 1} "
+              f"rounds, its flight file {dump['num_entries']} entries; "
+              f"launches {launches} [{card}]")
+        out[name] = {"launches": launches, "audit_s": t_audit}
+        del res, srv
+        torch.cuda.empty_cache()
+    out["sharded"] = out.pop("sharded, round batch 1")
+    return out
+
+
+def phase11_kernels(torch, np):
+    """(d) F and H on collision-heavy inputs at training widths: a hub
+    source row that 5,000 slots point at, a second of CHUNK + 1, -1 pads
+    and indices past N: three launches bit-equal, within tolerance of the
+    plain versions in float64 (a 5,000-term float32 sum parts from the
+    exact one by ~1e-4 in any order, the plain version's atomics
+    included), F the plain version's bits on its short rows."""
+    from repro_torch.kernels import gat_edge as ge
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sage_agg as sa
+    from repro_torch.kernels import slot_index as si
+    rng = np.random.default_rng(11)
+
+    def hub_nbr(N, M, f):
+        nbr = rng.integers(-1, N + 3, (M, f)).astype(np.int32)
+        flat = nbr.reshape(-1)
+        pick = rng.choice(flat.size, 5000 + si.CHUNK + 1, replace=False)
+        flat[pick[:5000]], flat[pick[5000:]] = 7, 8
+        return torch.as_tensor(nbr, device="cuda")
+
+    dev = torch.device("cuda")
+    N, M, f, D = 176_000, 16_000, 10, 256
+    nbr = hub_nbr(N, M, f)
+    valid = torch.as_tensor(rng.random(N) > 0.15, device=dev)
+    valid[[7, 8]] = True
+    cnt = ((nbr >= 0) & valid[nbr.long().clamp(0, N - 1)]).sum(1).float()
+    g = torch.randn(M, D, device=dev)
+    row_f = agg_bwd_case(torch, sa, ref, "phase 11 (d) F", g, nbr, valid,
+                         cnt, N, timed=False)
+    rows_h = []
+    for (N, M, f, H, dh), dst in (((20_000, 4_000, 5, 4, 256), False),
+                                  ((20_000, 4_000, 5, 1, 172), True)):
+        nbr = hub_nbr(N, M, f)
+        valid = torch.as_tensor(rng.random(N) > 0.15, device=dev)
+        valid[[7, 8]] = True
+        z = torch.randn(N, H, dh, device=dev)
+        e_u, e_v = torch.randn(N, H, device=dev), torch.randn(N, H,
+                                                               device=dev)
+        d = torch.as_tensor(rng.integers(-2, N + 2, M).astype(np.int32),
+                            device=dev) if dst else None
+        rows_h.append(gat_bwd_case(torch, ge, ref, "phase 11 (d) H",
+                                   torch.randn(M, H * dh, device=dev), z,
+                                   e_u, e_v, nbr, valid, d, timed=False))
+    for label, r in [("F", row_f)] + [("H", r) for r in rows_h]:
+        print(f"phase 11 (d): {label} {r['shape']}: longest source row "
+              f"{r['longest_row_slots']} slots, {r['repeats_bitwise']} "
+              f"launches bit-equal, max|d| vs "
+              f"{r.get('held_to', 'the plain version')} "
+              f"{r['max_abs_err']:.3e}"
+              + (f", {r['rows_bitwise_plain']} of {r['rows']} rows the "
+                 f"plain version's bits" if "rows" in r else ""))
 
 
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
@@ -3285,6 +3744,9 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             res8, launches8, rec8, probes8, lookups8 = phase8_main_path(
                 torch, np, args, preset, tag)
+            if model == "graphsage":
+                ANSWERS["sharded"] = (answers(np, res8["serve"]),
+                                      answers(np, res8["repeat"]))
             print(f"{tag}: done in {time.perf_counter() - t0:.1f}s")
             t0 = time.perf_counter()
             rows_j, rows_b8, rows_f = phase8_kernels(
@@ -3319,15 +3781,29 @@ def main(argv=None) -> int:
     print(f"phase 9 (b): done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     launches10 = phase10_main_path(torch, np, card)
+    print(f"phase 10 (a, b, d, e): done in {time.perf_counter() - t0:.1f}s")
+    launches11, audit_s11 = {}, {}
+    for model in ("graphsage", "gat"):
+        t0 = time.perf_counter()
+        launches11[model], audit_s11[model] = phase11_train(torch, np, model,
+                                                            card)
+        print(f"phase 11 ({'a' if model == 'graphsage' else 'b'}): done in "
+              f"{time.perf_counter() - t0:.1f}s")
     reuse.stop()
     del ps4
-    print(f"phase 10 (a, b, d, e): done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase9_check(torch, np)
     print(f"phase 9 (c): done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase10_unstaged(torch, np)
     print(f"phase 10 (c): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        serve11 = phase11_serve(torch, np, args, card)
+    print(f"phase 11 (c): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase11_kernels(torch, np)
+    print(f"phase 11 (d): done in {time.perf_counter() - t0:.1f}s")
 
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]
@@ -3344,8 +3820,18 @@ def main(argv=None) -> int:
                "gat_serve": launches5["hec_lookup"],
                "gat_train": launches6["hec_lookup"],
                "sharded_serve": sage8["launches"]["hec_lookup"],
-               "gat_sharded_serve": gat8["launches"]["hec_lookup"]}
+               "gat_sharded_serve": gat8["launches"]["hec_lookup"],
+               "train_planes": launches11["graphsage"]["hec_lookup"],
+               "gat_train_planes": launches11["gat"]["hec_lookup"],
+               "serve_planes": serve11["single-rank"]["launches"][
+                   "hec_lookup"],
+               "sharded_serve_planes": serve11["sharded"]["launches"][
+                   "hec_lookup"]}
     b_rows = [(rows_b, "serve"), (rows4["hec_lookup"], "train"),
+              (rows4["hec_lookup"], "train_planes"),
+              (rows6["hec_lookup"], "gat_train_planes"),
+              (rows_b, "serve_planes"),
+              (sage8["rows_b"], "sharded_serve_planes"),
               (rows4["hec_lookup"], "train_hot"),
               *[(rows4["hec_lookup"], f"train_pipeline_{k}")
                 for k in launches10],
@@ -3356,10 +3842,17 @@ def main(argv=None) -> int:
                   "first minibatch), each layer standing for an equal "
                   "share of the launches")
     a_sharded = sage8["launches"]["serve_fused_layer"]
+    # phase 11's runs: the training audit's offline pass, and the serving
+    # runs with the quality plane (their shapes are phases 3 and 8's)
+    a_planes = {"train_audit": launches11["graphsage"]["serve_fused_layer"],
+                "serve_planes": serve11["single-rank"]["launches"][
+                    "serve_fused_layer"],
+                "sharded_serve_planes": serve11["sharded"]["launches"][
+                    "serve_fused_layer"]}
     rows = [
         summarize("serve_fused_layer", online + offline + sage8["rows_f"],
                   {"serve_fused_layer": launches["serve_fused_layer"]
-                   + a_sharded},
+                   + a_sharded + sum(a_planes.values())},
                   [launches_online // len(online)] * len(online)
                   + [(launches_offline + (a_sharded - sage8["online"]))
                      / len(offline)] * len(offline)
@@ -3378,7 +3871,8 @@ def main(argv=None) -> int:
                   "or lookup shapes share its launches (phase 9's hot-tier "
                   "training and phase 10's runs those of phase 4)")]
     rows[0]["launches_by_path"] = {
-        "serve": launches["serve_fused_layer"], "sharded_serve": a_sharded}
+        "serve": launches["serve_fused_layer"], "sharded_serve": a_sharded,
+        **a_planes}
     rows[0]["bound_route"] = ("3xTF32 on the tensor cores (bound_ms), beside "
                               "FFMA on the CUDA cores (bound_ffma_ms)")
     rows[0]["library_call"] = ("torch.addmm(b, cat([mean, self], 1), cat([Wn, "
@@ -3388,6 +3882,7 @@ def main(argv=None) -> int:
     train_paths = {"train": launches4, "train_sync": launches9["sync"],
                    "train_drop": launches9["drop"],
                    "train_hot": launches9["hot"],
+                   "train_planes": launches11["graphsage"],
                    **{f"train_pipeline_{k}": ls
                       for k, ls in launches10.items()}}
     for name in ("update_fused_fwd", "update_fused_bwd", "sage_agg_fwd",
@@ -3399,6 +3894,14 @@ def main(argv=None) -> int:
             "training runs and phase 10's four take the same shapes)"))
         rows[-1]["launches_by_path"] = {p: ls[name]
                                         for p, ls in train_paths.items()}
+    f_row = next(r for r in rows if r["name"] == "sage_agg_bwd")
+    f_row["index_builds"] = sum(ls["slot_index"]
+                                for ls in train_paths.values())
+    f_row["index_ms"] = sum(r["index_ms"] for r in rows4["sage_agg_bwd"]) \
+        / len(rows4["sage_agg_bwd"])
+    f_row["launch_scheme"] = ("one CUDA launch per call, through the slot "
+                              "index its forward built (index_builds, "
+                              "index_ms: torch.sort and searchsorted)")
     d_row = next(r for r in rows if r["name"] == "update_fused_bwd")
     d_row["launch_scheme"] = ("one CUDA launch per call: the last block to "
                               "finish sums the stripes' column sums")
@@ -3415,7 +3918,8 @@ def main(argv=None) -> int:
     rows.append(summarize(
         "gat_edge_fwd", g_online + g_offline + rows6["gat_edge_fwd"]
         + gat8["rows_f"],
-        {"gat_edge_fwd": launches5["gat_edge_fwd"] + g_train + g_sharded},
+        {"gat_edge_fwd": launches5["gat_edge_fwd"] + g_train + g_sharded
+         + launches11["gat"]["gat_edge_fwd"]},
         [microbatches5] * len(g_online)
         + [chunks5 + gat8["chunks"]] * len(g_offline)
         + [g_train / len(rows6["gat_edge_fwd"])] * len(rows6["gat_edge_fwd"])
@@ -3426,15 +3930,31 @@ def main(argv=None) -> int:
         "each training layer shape for a third of the training launches, "
         "each sharded layer shape (rank 0 of one round) for its rounds' "
         "launches", max_abs_err=offline_err5))
-    rows[-1]["launches_by_path"] = {"gat_serve": launches5["gat_edge_fwd"],
+    rows[-1]["launches_by_path"] = {"gat_train_planes": launches11["gat"][
+                                        "gat_edge_fwd"],
+                                    "gat_serve": launches5["gat_edge_fwd"],
                                     "gat_train": g_train,
                                     "gat_sharded_serve": g_sharded}
-    rows.append(summarize("gat_edge_bwd", rows6["gat_edge_bwd"], launches6,
+    h_paths = {"gat_train": launches6, "gat_train_planes": launches11["gat"]}
+    rows.append(summarize("gat_edge_bwd", rows6["gat_edge_bwd"],
+                          {"gat_edge_bwd": sum(ls["gat_edge_bwd"]
+                                               for ls in h_paths.values())},
                           [1] * len(rows6["gat_edge_bwd"]), layer_mean))
+    rows[-1]["launches_by_path"] = {p: ls["gat_edge_bwd"]
+                                    for p, ls in h_paths.items()}
+    rows[-1]["index_builds"] = sum(ls["slot_index"]
+                                   for ls in h_paths.values())
+    rows[-1]["index_ms"] = sum(r["index_ms"] for r in rows6["gat_edge_bwd"]) \
+        / len(rows6["gat_edge_bwd"])
+    rows[-1]["launch_scheme"] = ("two CUDA launches per call (H1 per dst "
+                                 "row, H2 per source row through the slot "
+                                 "index its forward built), counted as one")
     rows.append(summarize("sample_draw", rows7, launches7,
                           [1] * len(rows7), layer_mean + ", under cv"))
     j_paths = {"sharded_serve": sage8["launches"]["hec_probe"],
-               "gat_sharded_serve": gat8["launches"]["hec_probe"]}
+               "gat_sharded_serve": gat8["launches"]["hec_probe"],
+               "sharded_serve_planes": serve11["sharded"]["launches"][
+                   "hec_probe"]}
     rows.append(summarize(
         "hec_probe", sage8["rows_j"] + gat8["rows_j"] + [ragged_j],
         {"hec_probe": sum(j_paths.values())},

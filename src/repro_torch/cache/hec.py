@@ -179,6 +179,25 @@ def hec_occupancy(state: HECState) -> float:
     return float((state.tags >= 0).float().mean())
 
 
+# -- host-side reads (the quality plane's) -----------------------------------
+def hec_valid_ages(state) -> np.ndarray:
+    """Ages of the tagged lines, flattened on the host; a stacked state,
+    or a list of per-rank states, flattens rank by rank.  Never mutates
+    the cache."""
+    from repro_torch.obs.quality import valid_ages
+    return valid_ages(state)
+
+
+def hec_entries(state, sample: Optional[int] = None,
+                rng: Optional[np.random.Generator] = None):
+    """Host-side ``(vids, values, ages)`` of the valid lines (of every
+    rank's, rank by rank, for a stacked state or a per-rank list);
+    ``sample`` caps the count (uniform without replacement from ``rng``),
+    and only the sampled value rows leave the device."""
+    from repro_torch.obs.quality import cache_entries
+    return cache_entries(state, sample=sample, rng=rng)
+
+
 @dataclasses.dataclass(frozen=True)
 class ServeCacheConfig:
     """Serving-cache parameters (per layer)."""
@@ -364,6 +383,13 @@ class EmbeddingCache:
         self.fast_path_hits = 0
         self.halo_seen = self.halo_local = 0
         self.halo_fetched = self.halo_requested = self.halo_l0 = 0
+
+    def cached_entries(self, layer: int, sample: Optional[int] = None,
+                       rng: Optional[np.random.Generator] = None):
+        """``(vids, values, ages)`` of layer ``layer``'s valid lines — the
+        exactness audit's sampling hook (vids in this cache's tag space:
+        VID_o when stacked, local otherwise)."""
+        return hec_entries(self.states[layer], sample=sample, rng=rng)
 
     def occupancy(self) -> List[float]:
         return [hec_occupancy(st) for st in self.states]

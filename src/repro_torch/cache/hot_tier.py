@@ -22,8 +22,10 @@ As in ``repro_torch.cache.hec``, ``tier_tick`` and ``tier_store`` update
 the state **in place** (and return it).  :class:`HotTierCache` is the
 serving object: per-layer replicas stacked ``[R, ...]``, the host
 validity mirror, metrics and the model-version drop.  The quality
-plane's replica-age reads (``replica_age_stats``,
-``publish_replica_ages``) are not ported yet.
+plane reads replica ages host-side (``replica_age_stats``,
+``publish_replica_ages``, ``HotTierCache.publish_ages``) and samples
+fresh replicas for its audit (``tier_entries``); none of them writes the
+tier.
 """
 from __future__ import annotations
 
@@ -143,6 +145,48 @@ def tier_entries(state: HotTierState, hot_vids: np.ndarray,
     return hot_vids[idx % K], vals[idx], age[idx].astype(np.int64)
 
 
+def replica_age_stats(states: Sequence[HotTierState],
+                      life_span: Optional[int] = None) -> dict:
+    """Per-layer replica age and refresh-lag stats, read host-side:
+    ``hot_replica_filled_frac_l{l}``, and over the filled slots
+    ``hot_refresh_lag_l{l}`` (their mean age), ``hot_replica_age_max_l{l}``
+    and, with a ``life_span``, ``hot_replica_stale_frac_l{l}`` (the share a
+    training lookup would reject); layers numbered from 1."""
+    out = {}
+    for l, st in enumerate(states, start=1):
+        age = st.age.cpu().numpy().reshape(-1)
+        filled = age < NEVER
+        out[f"hot_replica_filled_frac_l{l}"] = (
+            float(filled.mean()) if age.size else 0.0)
+        if filled.any():
+            fa = age[filled]
+            out[f"hot_refresh_lag_l{l}"] = float(fa.mean())
+            out[f"hot_replica_age_max_l{l}"] = float(fa.max())
+            if life_span is not None:
+                out[f"hot_replica_stale_frac_l{l}"] = \
+                    float((fa > life_span).mean())
+    return out
+
+
+def publish_replica_ages(states: Sequence[HotTierState],
+                         life_span: Optional[int] = None) -> dict:
+    """:func:`replica_age_stats` as gauges, and the filled slots' ages of
+    every layer and rank into the ``hot_replica_age`` histogram, in the
+    active registry; returns the stats."""
+    stats = replica_age_stats(states, life_span=life_span)
+    reg = obs.get().registry
+    if not reg.enabled:
+        return stats
+    for name, v in stats.items():
+        reg.gauge(name).set(v)
+    for st in states:
+        age = st.age.cpu().numpy().reshape(-1)
+        filled = age < NEVER
+        if filled.any():
+            reg.histogram("hot_replica_age").observe_many(age[filled])
+    return stats
+
+
 class HotTierCache:
     """Per-layer hot-tier replicas stacked ``[R, K, dim]`` for sharded
     serving.
@@ -243,6 +287,10 @@ class HotTierCache:
             out[f"hot_valid_l{k + 1}"] = (
                 float(self.valid[k].mean()) if self.num_slots else 0.0)
         return out
+
+    def publish_ages(self) -> dict:
+        """Publish this cache's replica ages (serving: no life-span)."""
+        return publish_replica_ages(self.states)
 
     def reset_counters(self):
         self.hot_hits = 0

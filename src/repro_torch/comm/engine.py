@@ -42,6 +42,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import obs
@@ -402,17 +403,29 @@ class HaloExchangeEngine:
         dim = h_solid[0].shape[1]
         rows_out: List[torch.Tensor] = []
         nbytes = 0
+        rank_rows = np.zeros(R, np.int64)
+        rank_bytes = np.zeros(R, np.int64)
         with obs.span("offline_exchange"):
             for j in range(R):
                 rows = torch.zeros((int(plan.num_halo[j]), dim),
                                    dtype=torch.float32, device=dev)
                 for i in range(R):
-                    if i == j or not len(plan.send_local[i][j]):
+                    n = len(plan.send_local[i][j])
+                    if i == j or not n:
                         continue
                     payload = h_solid[i][send[i][j]]
                     rows[recv[i][j]] = payload
-                    nbytes += payload.numel() * payload.element_size() \
-                        + len(plan.send_local[i][j]) * 4
+                    moved = payload.numel() * payload.element_size() + n * 4
+                    nbytes += moved
+                    rank_rows[j] += n
+                    rank_bytes[j] += moved
                 rows_out.append(rows)
         obs.count("offline_exchange_bytes", nbytes)
+        # the receivers' rows and bytes of this exchange, as rank series
+        # (the live counterpart of ExchangePlan.expected_inbound_rows)
+        reg = obs.get().registry
+        if reg.enabled:
+            obs.publish_rank_series(
+                reg, {"rank_exchange_rows": rank_rows,
+                      "rank_exchange_bytes": rank_bytes})
         return rows_out, nbytes

@@ -97,6 +97,7 @@ class ExchangePlan:
     num_ranks: int
     push_mask: np.ndarray          # [R, R, P] bool (P = padded VID_p width)
     num_halo: np.ndarray           # [R] int64: halo replicas per rank
+    pair_rows: np.ndarray          # [R, R] int64: |db_halo(i, j)|
     solid_sorted_vids: np.ndarray  # [R, S] int32, sentinel pad
     solid_sorted_idx: np.ndarray   # [R, S] int32
     # offline-exchange index vectors (None when host_indices=False):
@@ -111,6 +112,14 @@ class ExchangePlan:
     @property
     def hot_size(self) -> int:
         return len(self.hot_vids)
+
+    def expected_inbound_rows(self) -> np.ndarray:
+        """[R] plan-time halo rows each rank receives in one full exchange
+        (the off-diagonal column sums of ``pair_rows``): the edge-cut
+        profile the health plane's drift detector compares the live
+        per-rank halo rows against."""
+        inbound = self.pair_rows.sum(axis=0) - np.diag(self.pair_rows)
+        return inbound.astype(np.int64)
 
     def device_tables(self, device) -> dict:
         """The ``[R, ...]``-stacked tables the training step reads; with a
@@ -146,10 +155,12 @@ def build_exchange_plan(ps: PartitionSet, host_indices: bool = True,
                   for _ in range(R)] if host_indices else None
     recv_pos = [[np.empty(0, np.int64)] * R
                 for _ in range(R)] if host_indices else None
+    pair_rows = np.zeros((R, R), np.int64)
     for i in range(R):
         pi = ps.parts[i]
         for j in range(R):
             vids = ps.db_halo(i, j)
+            pair_rows[i, j] = len(vids)
             if i != j and len(vids):
                 # db vids are owned by i: membership over i's solid VID_p;
                 # hot vids leave the pairwise contract
@@ -166,6 +177,6 @@ def build_exchange_plan(ps: PartitionSet, host_indices: bool = True,
     return ExchangePlan(
         num_ranks=R, push_mask=push_mask,
         num_halo=np.array([p.num_halo for p in ps.parts], np.int64),
-        solid_sorted_vids=svids, solid_sorted_idx=sidx,
+        pair_rows=pair_rows, solid_sorted_vids=svids, solid_sorted_idx=sidx,
         send_local=send_local, recv_pos=recv_pos,
         hot_vids=hot_vids, hot_owner=hot_owner)

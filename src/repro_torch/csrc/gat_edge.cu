@@ -12,8 +12,10 @@
 //
 //   da[m,j,h]  = <g[m,h,:], z[i_j,h,:]>
 //   dl         = alpha (da - sum_j alpha da),  ds = s >= 0 ? dl : 0.2 dl
-//   dz[i_j]   += alpha g[m],  de_u[i_j,h] += ds,  de_v[d,h] += sum_j ds
-//                                                                  (kernel H)
+//   dz[i]      = sum_{(m,j) in T(i)} alpha[m,j,h] g[m,h,:],
+//   de_u[i,h]  = sum_{(m,j) in T(i)} ds[m,j,h],
+//   de_v[d,h]  = sum_{m : d(m) = d} sum_j ds[m,j,h]                (kernel H)
+//   T(i)       = { (m,j) : nbr[m,j] == i < N && valid[i] }
 //
 // A row whose every slot is excluded gives zeros and no gradient.  The
 // index clamp is jnp's gather clamp (as kernel E's); as in the gradient
@@ -29,8 +31,9 @@
 // Bound on the H100 (3.35 TB/s): bytes.  G reads each included neighbor's
 // z row once (M*f*H*dh*4 bytes at most: 3.6 GB at layer 0 of the paper's
 // GAT, 176,000 x 5 x 1,024) and writes M*H*dh floats; it does two flops
-// per element read.  H reads the same rows and g, and scatters as many
-// floats into dz as G reads.
+// per element read.  H reads the same rows, g, e_u, e_v and the
+// transposed index, writes dz, de_u and de_v, and writes and reads its
+// scratch (alpha and ds per slot and head) once.
 //
 // Design of G.  The bound is the gather of z rows, so the design keeps
 // many of them in flight and reads everything else once:
@@ -59,23 +62,35 @@
 // chunked kernel ("chunked", the same arithmetic): the softmax's max and
 // sum per head over all slots, then alpha chunk by chunk of FC slots.
 //
-// Design of H (first version, right before fast), as kernel E's: one
-// warp per dst row, up to 8 rows per block, nothing carried between
-// blocks.  The reference pre-gathers z[nbr] ([M, f, H*dh], 3.6 GB per
-// rank at layer 0); here each warp gathers its row's neighbors itself,
-// so no such tensor exists.  The fanout f is not bounded, so nothing is
-// sized by f: the warp first takes the max and the sum of the softmax per
-// head over all slots (lanes stride the slots, then a butterfly), then
-// walks the fanout in chunks of FC slots, computing the chunk's
-// alpha[FC][H] and clamped indices into its shared memory.  H stores da
-// for every slot (scratch [M, f, H] from the caller) in a first pass,
-// since the softmax's gradient needs sum_j alpha da before any ds; its
-// scatters are float atomics (float4 ones on sm_90), so dz, de_u and
-// (with dst) de_v are summed in a run-dependent order and held to a
-// tolerance.
+// Design of H: two passes in a fixed order, no float atomics.  The
+// forward builds the transposed index T of nbr (kernels/slot_index.py,
+// slot_index.cuh: the kept slots of each source row in ascending m*f + j)
+// and, when dst is given, of dst.
+//  - H1, a warp per dst row (up to 8 rows a block; the reference
+//    pre-gathers z[nbr], [M, f, H*dh], 3.6 GB per rank at layer 0, and
+//    here each warp gathers its row's neighbours itself).  The fanout is
+//    not bounded, so nothing is sized by f: the warp takes the softmax's
+//    max and sum per head over all slots (lanes stride the slots, then a
+//    butterfly), then walks the fanout in chunks of FC slots with the
+//    chunk's alpha[FC][H] and clamped sources in its shared memory.  Pass
+//    1 stores da of every included slot (scratch [M, f, H]) and sums
+//    sum_j alpha da per head in slot order (lane 0); pass 2 overwrites da
+//    with ds, stores alpha beside it and sums the row's ds per head in
+//    slot order, one lane a head, into de_v[m] (or, with dst, the row's
+//    scratch sum).
+//  - H2, a warp per source row of T (or per chunk of CHUNK slots of a
+//    hub row, the chunks' partials added in chunk order by the row's last
+//    chunk): dz[i] = sum alpha g[m] over the row's slots in order from
+//    0.0 (float4 along H*dh, 8 rows in flight, products rounded before
+//    the add, as the plain version's), de_u[i] = sum ds in order; with
+//    dst, one more unit per e_v row sums its rows' scratch sums through
+//    the transpose of dst, in ascending m.
+// So H gives the same bits on every run.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "slot_index.cuh"
 
 namespace {
 
@@ -184,9 +199,12 @@ struct Vec<float> {
   static constexpr int W = 1;
   __device__ static float zero() { return 0.f; }
   __device__ static void fma(float& acc, float a, float v) { acc += a * v; }
-  __device__ static float scale(float a, float v) { return a * v; }
   __device__ static float dot(float a, float b) { return a * b; }
-  __device__ static void atomic_add(float* p, float v) { atomicAdd(p, v); }
+  __device__ static void mul_add(float& acc, float a, float v) {
+    acc = __fadd_rn(acc, __fmul_rn(a, v));
+  }
+  __device__ static void add(float& acc, float v) { acc += v; }
+  __device__ static float ld_cg(const float* p) { return __ldcg(p); }
 };
 template <>
 struct Vec<float4> {
@@ -198,23 +216,22 @@ struct Vec<float4> {
     acc.z += a * v.z;
     acc.w += a * v.w;
   }
-  __device__ static float4 scale(float a, float4 v) {
-    return make_float4(a * v.x, a * v.y, a * v.z, a * v.w);
-  }
   __device__ static float dot(float4 a, float4 b) {
     return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
   }
-  __device__ static void atomic_add(float4* p, float4 v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-    atomicAdd(p, v);
-#else
-    float* q = reinterpret_cast<float*>(p);
-    atomicAdd(q, v.x);
-    atomicAdd(q + 1, v.y);
-    atomicAdd(q + 2, v.z);
-    atomicAdd(q + 3, v.w);
-#endif
+  __device__ static void mul_add(float4& acc, float a, float4 v) {
+    acc.x = __fadd_rn(acc.x, __fmul_rn(a, v.x));
+    acc.y = __fadd_rn(acc.y, __fmul_rn(a, v.y));
+    acc.z = __fadd_rn(acc.z, __fmul_rn(a, v.z));
+    acc.w = __fadd_rn(acc.w, __fmul_rn(a, v.w));
   }
+  __device__ static void add(float4& acc, float4 v) {
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  __device__ static float4 ld_cg(const float4* p) { return __ldcg(p); }
 };
 
 // Kernel G's one-pass form.  Per warp, shared memory holds lg[f*H] (the
@@ -376,16 +393,18 @@ gat_fwd_chunked_kernel(const T* __restrict__ z, const float* __restrict__ eu,
   }
 }
 
-// Kernel H.  extra arrays: tsum[H] (sum_j alpha da), dsum[H] (sum_j ds).
+// Kernel H1 (a warp per dst row).  extra arrays: tsum[H] (sum_j alpha
+// da), dsum[H] (sum_j ds; entry h only ever touched by lane h % 32).
 template <typename T>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
-gat_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
-               const float* __restrict__ eu, const float* __restrict__ ev,
-               const int32_t* __restrict__ nbr, const bool* __restrict__ valid,
-               const int32_t* __restrict__ dst, float* __restrict__ da,
-               T* __restrict__ dz, float* __restrict__ deu,
-               float* __restrict__ dev, int N, int Nev, int M, int f, int H,
-               int dh, int warps) {
+gat_bwd_rows_kernel(const T* __restrict__ g, const T* __restrict__ z,
+                    const float* __restrict__ eu, const float* __restrict__ ev,
+                    const int32_t* __restrict__ nbr,
+                    const bool* __restrict__ valid,
+                    const int32_t* __restrict__ dst, float* __restrict__ ds,
+                    float* __restrict__ alpha, float* __restrict__ rowsum,
+                    float* __restrict__ dev, int N, int Nev, int M, int f,
+                    int H, int dh, int warps) {
   extern __shared__ float smem[];
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m = blockIdx.x * warps + w;
@@ -402,7 +421,8 @@ gat_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
   softmax_stats(sm, row, f, N, valid, eu, ev, d, H, lane);
   const int dhv = dh / Vec<T>::W, HDV = H * dhv;
   const T* grow = g + (size_t)m * HDV;
-  float* darow = da + (size_t)m * f * H;
+  float* dsrow = ds + (size_t)m * f * H;
+  float* arow = alpha + (size_t)m * f * H;
   // pass 1: da of every included slot, and sum_j alpha da per head
   for (int c0 = 0; c0 < f; c0 += FC) {
     const int nc = min(FC, f - c0);
@@ -419,42 +439,173 @@ gat_bwd_kernel(const T* __restrict__ g, const T* __restrict__ z,
           part += Vec<T>::dot(grow[q], zrow[q]);
         part = warp_sum(part);
         if (lane == 0) {
-          darow[(size_t)(c0 + j) * H + h] = part;
+          dsrow[(size_t)(c0 + j) * H + h] = part;
           tsum[h] += sm.alpha[j * H + h] * part;
         }
       }
     }
   }
-  // pass 2: ds into de_u and the row's de_v sum, alpha g into dz
+  // pass 2: ds over da and alpha beside it for every included slot, and
+  // the row's sum of ds per head, each head's in slot order by one lane
   for (int c0 = 0; c0 < f; c0 += FC) {
     const int nc = min(FC, f - c0);
     __syncwarp();
     fill_chunk(sm, row, c0, nc, N, valid, eu, H, lane);
     __syncwarp();
-    for (int p = lane; p < nc * H; p += 32) {
-      const int j = p / H, h = p - j * H;
-      const int i = sm.idx[j];
-      if (i < 0) continue;
-      const float s = eu[(size_t)i * H + h] + sm.ev[h];
-      const float dl = sm.alpha[p] * (darow[(size_t)(c0 + j) * H + h] - tsum[h]);
-      const float ds = s >= 0.f ? dl : 0.2f * dl;
-      if (row[c0 + j] < N) atomicAdd(deu + (size_t)i * H + h, ds);
-      atomicAdd(dsum + h, ds);
-    }
-    for (int j = 0; j < nc; ++j) {
-      const int i = sm.idx[j];
-      if (i < 0 || row[c0 + j] >= N) continue;    // uniform across the warp
-      T* dzrow = dz + (size_t)i * HDV;
-      for (int q = lane; q < HDV; q += 32)
-        Vec<T>::atomic_add(dzrow + q,
-                           Vec<T>::scale(sm.alpha[j * H + q / dhv], grow[q]));
+    for (int h = lane; h < H; h += 32) {
+      float acc = dsum[h];
+      for (int j = 0; j < nc; ++j) {
+        const int i = sm.idx[j];
+        if (i < 0) continue;
+        const size_t p = (size_t)(c0 + j) * H + h;
+        const float s = eu[(size_t)i * H + h] + sm.ev[h];
+        const float a = sm.alpha[j * H + h];
+        const float dl = a * (dsrow[p] - tsum[h]);
+        const float dsv = s >= 0.f ? dl : 0.2f * dl;
+        dsrow[p] = dsv;
+        arow[p] = a;
+        acc += dsv;
+      }
+      dsum[h] = acc;
     }
   }
   __syncwarp();
-  for (int h = lane; h < H; h += 32) {
-    if (dst) atomicAdd(dev + (size_t)d * H + h, dsum[h]);
-    else dev[(size_t)m * H + h] = dsum[h];
+  float* out = dst ? rowsum : dev;
+  for (int h = lane; h < H; h += 32) out[(size_t)m * H + h] = dsum[h];
+}
+
+// Kernel H2: warp w is unit w of the transposed index of nbr (a source
+// row of at most CHUNK slots, or one chunk of a longer row) for dz and
+// de_u; with dst, warps past them take one e_v row each.  A partial row
+// of `part` holds H*dh floats of dz, then H of de_u, padded to a multiple
+// of 4 floats.
+template <typename T, int Q>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+gat_bwd_src_kernel(const T* __restrict__ g, const float* __restrict__ ds,
+                   const float* __restrict__ alpha,
+                   const int32_t* __restrict__ off,
+                   const int32_t* __restrict__ slots,
+                   const int32_t* __restrict__ lbase,
+                   const int32_t* __restrict__ voff,
+                   const int32_t* __restrict__ vrows,
+                   const float* __restrict__ rowsum, float* part, int* ticket,
+                   T* __restrict__ dz, float* __restrict__ deu,
+                   float* __restrict__ dev, int N, int Nev, int f, int H,
+                   int dh, int lbound) {
+  constexpr int E = 8 / Q;                      // rows in flight
+  const long long w = (long long)blockIdx.x * MAX_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= (long long)N + lbound) {
+    // de_v through the transpose of dst: row d's rows in ascending m
+    const long long d = w - N - lbound;
+    if (!voff || d >= Nev) return;
+    for (int h = lane; h < H; h += 32) {
+      float acc = 0.f;
+      for (int k = voff[d]; k < voff[d + 1]; ++k)
+        acc += rowsum[(size_t)vrows[k] * H + h];
+      dev[(size_t)d * H + h] = acc;
+    }
+    return;
   }
+  slot_index::Unit t;
+  if (!slot_index::unit_of(w, off, lbase, N, &t)) return;
+  const int dhv = dh / Vec<T>::W, HDV = H * dhv, HD = H * dh;
+  const int W = HD + (H + 3) / 4 * 4;           // floats per partial row
+  const bool whole = t.nch == 1;
+  float* pout = part + (size_t)(t.lb + t.chunk) * W;
+  T* zout = whole ? dz + (size_t)t.row * HDV : reinterpret_cast<T*>(pout);
+  float* uout = whole ? deu + (size_t)t.row * H : pout + HD;
+  for (int q0 = 0; q0 < HDV; q0 += 32 * Q) {
+    bool on[Q];
+    int hq[Q];
+    T acc[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int col = q0 + lane + 32 * q;
+      on[q] = col < HDV;
+      hq[q] = on[q] ? col / dhv : 0;
+      acc[q] = Vec<T>::zero();
+    }
+    for (int k0 = t.a; k0 < t.b; k0 += 32) {
+      const int n = min(32, t.b - k0);
+      const int s_l = lane < n ? slots[k0 + lane] : 0;
+      for (int e0 = 0; e0 < n; e0 += E) {
+        T v[E][Q];
+        float a[E][Q];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int s = __shfl_sync(0xffffffffu, s_l, (e0 + e) & 31);
+          if (e0 + e < n) {
+            const T* grow = g + (size_t)(s / f) * HDV + q0 + lane;
+#pragma unroll
+            for (int q = 0; q < Q; ++q) {
+              if (on[q]) {
+                v[e][q] = grow[32 * q];
+                a[e][q] = alpha[(size_t)s * H + hq[q]];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if (e0 + e < n) {
+#pragma unroll
+            for (int q = 0; q < Q; ++q)
+              if (on[q]) Vec<T>::mul_add(acc[q], a[e][q], v[e][q]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      if (on[q]) zout[q0 + lane + 32 * q] = acc[q];
+  }
+  for (int h = lane; h < H; h += 32) {
+    float acc = 0.f;
+    for (int k = t.a; k < t.b; ++k) acc += ds[(size_t)slots[k] * H + h];
+    uout[h] = acc;
+  }
+  if (whole || !slot_index::last_chunk(t, ticket, lane)) return;
+  // the row's last chunk: its partials in chunk order, from 0.0
+  const float* p0 = part + (size_t)t.lb * W;
+  T* zrow = dz + (size_t)t.row * HDV;
+  for (int q = lane; q < HDV; q += 32) {
+    T acc = Vec<T>::zero();
+    for (int c = 0; c < t.nch; ++c)
+      Vec<T>::add(acc, Vec<T>::ld_cg(
+          reinterpret_cast<const T*>(p0 + (size_t)c * W) + q));
+    zrow[q] = acc;
+  }
+  for (int h = lane; h < H; h += 32) {
+    float acc = 0.f;
+    for (int c = 0; c < t.nch; ++c)
+      acc += __ldcg(p0 + (size_t)c * W + HD + h);
+    deu[(size_t)t.row * H + h] = acc;
+  }
+}
+
+template <typename T>
+void launch_src(const void* g, const void* ds, const void* alpha,
+                const void* off, const void* slots, const void* lbase,
+                const void* voff, const void* vrows, const void* rowsum,
+                void* part, void* ticket, void* dz, void* deu, void* dev,
+                int N, int Nev, int f, int H, int dh, int lbound,
+                cudaStream_t s) {
+  const long long units = (long long)N + lbound + (voff ? Nev : 0);
+  const int blocks = (int)((units + MAX_WARPS - 1) / MAX_WARPS);
+  const int HDV = H * (dh / Vec<T>::W);
+#define SRC_ARGS                                                           \
+  (const T*)g, (const float*)ds, (const float*)alpha, (const int32_t*)off, \
+      (const int32_t*)slots, (const int32_t*)lbase, (const int32_t*)voff,  \
+      (const int32_t*)vrows, (const float*)rowsum, (float*)part,           \
+      (int*)ticket, (T*)dz, (float*)deu, (float*)dev, N, Nev, f, H, dh,    \
+      lbound
+  if (HDV > 32) {
+    gat_bwd_src_kernel<T, 2><<<blocks, MAX_WARPS * 32, 0, s>>>(SRC_ARGS);
+  } else {
+    gat_bwd_src_kernel<T, 1><<<blocks, MAX_WARPS * 32, 0, s>>>(SRC_ARGS);
+  }
+#undef SRC_ARGS
 }
 
 // Rows per block so that their shared memory fits in 48 KB; 0 if one
@@ -527,32 +678,54 @@ extern "C" int gat_edge_fwd(const void* z, const void* eu, const void* ev,
   return (int)cudaGetLastError();
 }
 
-// Kernel H.  `da` [M, f, H] is scratch; `dz` [N, H*dh], `deu` [N, H] and
-// `dev` [Nev, H] must be zero (the caller allocates them zeroed).
+// Kernel H, its two launches.  `ds` and `alpha` [M, f, H] are scratch,
+// `rowsum` [M, H] too where `dst` is given (else null); `off` [N + 1],
+// `slots` [M * f] and `lbase` [N + 1] are the transposed index of nbr
+// (slot_index.cuh) and `lbound` its bound on long chunks, `part`
+// [lbound, H*dh + H rounded up to a multiple of 4] scratch and `ticket` [lbound] zero; `voff` [Nev + 1]
+// and `vrows` [M] the transpose of dst (null without dst).  Every row of
+// `dz` [N, H*dh] and `deu` [N, H] is written; `dev` [Nev, H] must be zero
+// without dst (rows past M stay so), and is written whole with it.
 extern "C" int gat_edge_bwd(const void* g, const void* z, const void* eu,
                             const void* ev, const void* nbr, const void* valid,
-                            const void* dst, void* da, void* dz, void* deu,
-                            void* dev, int N, int Nev, int M, int f, int H,
-                            int dh, void* stream) {
+                            const void* dst, void* ds, void* alpha,
+                            void* rowsum, const void* off, const void* slots,
+                            const void* lbase, const void* voff,
+                            const void* vrows, void* part, void* ticket,
+                            void* dz, void* deu, void* dev, int N, int Nev,
+                            int M, int f, int H, int dh, int lbound,
+                            void* stream) {
   const int warps = rows_per_block(H, 2);
-  if (warps == 0) return (int)cudaErrorInvalidValue;
+  if (warps == 0 || N < 1 || lbound < 0 || (dst && (!rowsum || !voff)))
+    return (int)cudaErrorInvalidValue;
   const int blocks = (M + warps - 1) / warps;
   const size_t smem = (size_t)warps * warp_smem_floats(H, 2) * sizeof(float);
   const bool vec = dh % 4 == 0 && aligned16(g) && aligned16(z)
-                   && aligned16(dz);
+                   && aligned16(dz) && aligned16(part) && H * dh % 4 == 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (vec) {
-    gat_bwd_kernel<float4><<<blocks, warps * 32, smem, s>>>(
+    gat_bwd_rows_kernel<float4><<<blocks, warps * 32, smem, s>>>(
         (const float4*)g, (const float4*)z, (const float*)eu,
         (const float*)ev, (const int32_t*)nbr, (const bool*)valid,
-        (const int32_t*)dst, (float*)da, (float4*)dz, (float*)deu,
+        (const int32_t*)dst, (float*)ds, (float*)alpha, (float*)rowsum,
         (float*)dev, N, Nev, M, f, H, dh, warps);
   } else {
-    gat_bwd_kernel<float><<<blocks, warps * 32, smem, s>>>(
+    gat_bwd_rows_kernel<float><<<blocks, warps * 32, smem, s>>>(
         (const float*)g, (const float*)z, (const float*)eu, (const float*)ev,
         (const int32_t*)nbr, (const bool*)valid, (const int32_t*)dst,
-        (float*)da, (float*)dz, (float*)deu, (float*)dev, N, Nev, M, f, H, dh,
-        warps);
+        (float*)ds, (float*)alpha, (float*)rowsum, (float*)dev, N, Nev, M, f,
+        H, dh, warps);
+  }
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  if (vec) {
+    launch_src<float4>(g, ds, alpha, off, slots, lbase, voff, vrows, rowsum,
+                       part, ticket, dz, deu, dev, N, Nev, f, H, dh, lbound,
+                       s);
+  } else {
+    launch_src<float>(g, ds, alpha, off, slots, lbase, voff, vrows, rowsum,
+                      part, ticket, dz, deu, dev, N, Nev, f, H, dh, lbound,
+                      s);
   }
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,8 @@
 //   forward   mean[m] = sum_{j in J(m)} h[nbr[m,j]] / max(|J(m)|, 1),
 //             cnt[m]  = |J(m)|,   J(m) = { j : nbr[m,j] >= 0 && valid[nbr[m,j]] }
 //                                                                   (kernel E)
-//   backward  dh[nbr[m,j]] += g[m] / max(cnt[m], 1)  for j in J(m),
-//             nbr[m,j] < N                                          (kernel F)
+//   backward  dh[i] = sum_{(m,j) in T(i)} g[m] / max(cnt[m], 1),
+//             T(i) = { (m,j) : nbr[m,j] == i < N && valid[i] }       (kernel F)
 //
 // The sums run in slot order from 0, as the Pallas kernel's grid does, and
 // the mean is a true division.  In the forward an index past the last row
@@ -19,8 +19,8 @@
 // Bound on the H100 (3.35 TB/s): bytes.  E reads each included neighbor
 // row once (at most M*f*D*4 bytes, 0.45 GB at layer 0 of the paper's
 // GraphSAGE: 176,000 x 5 x 128) and writes M*D floats; it adds one float
-// per byte read.  F reads g and writes dh (N*D floats, zeroed by the
-// caller) and adds as many floats as E reads.
+// per byte read.  F reads g, cnt and the transposed index and writes dh
+// (N*D floats) and adds as many floats as E reads.
 //
 // Design of E, kernel A's gather (serve_fused.cu) without its products.
 // The first design (one warp per dst row, every lane walking the row's
@@ -49,24 +49,30 @@
 // padding, and the rows gathered), within 1.6x of the bound; at layer 2
 // the launch (PERF.md).
 //
-// F scatters with float atomicAdd (one warp per dst row, 8 rows per
-// block), so its sums come in a run-dependent order: it is held to a
-// tolerance, not bit for bit.
+// Design of F: a gather by source row in a fixed order, not a scatter.
+// The forward builds the transposed index T (kernels/slot_index.py: the
+// kept slots of each source row in ascending m*f + j, an integer sort,
+// slot_index.cuh); a warp owns one source row (all its columns, float4
+// along D where D % 4 == 0 and the bases are 16-byte aligned) and walks
+// its slots in order, lane j loading slot j's id and count of a 32-slot
+// chunk, then 8 rows of g in flight before the adds, each a true
+// division by max(cnt, 1) then an add into the running sum from 0.0.  So
+// each dh[i] is the CPU plain version's index_add_ (which adds the same
+// quotients in the same order) bit for bit, and the same on every run.
+// A row of more than CHUNK (128) slots is cut into chunks of 128, each a
+// warp's; the last chunk of the row to finish (a ticket) adds their
+// partial sums in chunk order, so a hub stays the same from run to run
+// but is not the plain version's one-by-one sum.  No float atomics.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "slot_index.cuh"
+
 namespace {
 
-constexpr int WARPS = 8;          // dst rows per block (F), warps (E)
+constexpr int WARPS = 8;          // warps per block
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int IN_FLIGHT = 8;      // loads of h a lane has in flight (E)
-
-__device__ __forceinline__ bool included(const int32_t* row, int j, int N,
-                                         const bool* valid, int* idx) {
-  const int i = min(row[j], N - 1);
-  *idx = i;
-  return i >= 0 && valid[i];
-}
+constexpr int IN_FLIGHT = 8;      // row loads a lane has in flight
 
 template <int VW> struct Vec;
 template <> struct Vec<4> {
@@ -203,23 +209,125 @@ void launch_fwd(const float* h, const int32_t* nbr, const bool* valid,
   }
 }
 
+template <int VW> struct Quot;
+template <> struct Quot<4> {
+  static __device__ __forceinline__ void add(float4& a, const float4& v,
+                                             float c) {
+    a.x += v.x / c;
+    a.y += v.y / c;
+    a.z += v.z / c;
+    a.w += v.w / c;
+  }
+  static __device__ __forceinline__ float4 ld_cg(const float* p) {
+    return __ldcg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void st(float* p, const float4& a) {
+    *reinterpret_cast<float4*>(p) = a;
+  }
+};
+template <> struct Quot<1> {
+  static __device__ __forceinline__ void add(float& a, float v, float c) {
+    a += v / c;
+  }
+  static __device__ __forceinline__ float ld_cg(const float* p) {
+    return __ldcg(p);
+  }
+  static __device__ __forceinline__ void st(float* p, float a) { *p = a; }
+};
+
+// Kernel F.  Warp w is unit w of the transposed index (slot_index.cuh):
+// a source row of at most CHUNK slots, or one chunk of a longer row.
+template <int VW, int Q>
 __global__ void __launch_bounds__(WARPS * 32)
-sage_agg_bwd_kernel(const float* __restrict__ g,
-                    const int32_t* __restrict__ nbr,
-                    const bool* __restrict__ valid,
-                    const float* __restrict__ cnt, float* __restrict__ dh,
-                    int N, int M, int f, int D) {
-  const int m = blockIdx.x * WARPS + threadIdx.x / 32;
+sage_agg_bwd_kernel(const float* __restrict__ g, const float* __restrict__ cnt,
+                    const int32_t* __restrict__ off,
+                    const int32_t* __restrict__ slots,
+                    const int32_t* __restrict__ lbase, float* part,
+                    int* ticket, float* __restrict__ dh, int N, int f,
+                    int D) {
+  using V = Vec<VW>;
+  using P = Quot<VW>;
+  constexpr int E = IN_FLIGHT / Q;              // rows in flight
+  const long long w = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (m >= M) return;
-  const int32_t* row = nbr + (size_t)m * f;
-  const float denom = fmaxf(cnt[m], 1.f);
-  const float* grow = g + (size_t)m * D;
-  int idx;
-  for (int j = 0; j < f; ++j) {
-    if (row[j] >= N || !included(row, j, N, valid, &idx)) continue;
-    float* dst = dh + (size_t)idx * D;
-    for (int d = lane; d < D; d += 32) atomicAdd(dst + d, grow[d] / denom);
+  slot_index::Unit t;
+  if (!slot_index::unit_of(w, off, lbase, N, &t)) return;
+  const bool whole = t.nch == 1;
+  float* out = whole ? dh + (size_t)t.row * D
+                     : part + (size_t)(t.lb + t.chunk) * D;
+  for (int p0 = 0; p0 < D; p0 += 32 * Q * VW) {
+    bool on[Q];
+    typename V::T acc[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      on[q] = p0 + (lane + 32 * q) * VW < D;
+      acc[q] = V::zero();
+    }
+    for (int k0 = t.a; k0 < t.b; k0 += 32) {
+      const int n = min(32, t.b - k0);
+      int m_l = 0;
+      float c_l = 1.f;
+      if (lane < n) {
+        m_l = slots[k0 + lane] / f;
+        c_l = fmaxf(cnt[m_l], 1.f);
+      }
+      for (int e0 = 0; e0 < n; e0 += E) {
+        typename V::T v[E][Q];
+        float c[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int m = __shfl_sync(FULL, m_l, (e0 + e) & 31);
+          c[e] = __shfl_sync(FULL, c_l, (e0 + e) & 31);
+          if (e0 + e < n) {
+            const float* row = g + (size_t)m * D + p0;
+#pragma unroll
+            for (int q = 0; q < Q; ++q)
+              if (on[q]) v[e][q] = V::ld(row + (lane + 32 * q) * VW);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if (e0 + e < n) {
+#pragma unroll
+            for (int q = 0; q < Q; ++q)
+              if (on[q]) P::add(acc[q], v[e][q], c[e]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      if (on[q]) P::st(out + p0 + (lane + 32 * q) * VW, acc[q]);
+  }
+  if (whole || !slot_index::last_chunk(t, ticket, lane)) return;
+  // the row's last chunk: its partials in chunk order, from 0.0
+  float* dst = dh + (size_t)t.row * D;
+  for (int p0 = 0; p0 < D; p0 += 32 * Q * VW) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int col = p0 + (lane + 32 * q) * VW;
+      if (col >= D) continue;
+      typename V::T acc = V::zero();
+      for (int c = 0; c < t.nch; ++c)
+        V::add(acc, P::ld_cg(part + (size_t)(t.lb + c) * D + col));
+      P::st(dst + col, acc);
+    }
+  }
+}
+
+template <int VW>
+void launch_bwd(const float* g, const float* cnt, const int32_t* off,
+                const int32_t* slots, const int32_t* lbase, float* part,
+                int* ticket, float* dh, int N, int f, int D, int lbound,
+                cudaStream_t stream) {
+  const long long units = (long long)N + lbound;
+  const int blocks = (int)((units + WARPS - 1) / WARPS);
+  if (D > 32 * VW) {
+    sage_agg_bwd_kernel<VW, 2><<<blocks, WARPS * 32, 0, stream>>>(
+        g, cnt, off, slots, lbase, part, ticket, dh, N, f, D);
+  } else {
+    sage_agg_bwd_kernel<VW, 1><<<blocks, WARPS * 32, 0, stream>>>(
+        g, cnt, off, slots, lbase, part, ticket, dh, N, f, D);
   }
 }
 
@@ -249,13 +357,27 @@ extern "C" int sage_agg_fwd(const void* h, const void* nbr, const void* valid,
   return (int)cudaGetLastError();
 }
 
-// Kernel F.  `dh` [N, D] must be zero (the caller allocates it zeroed).
-extern "C" int sage_agg_bwd(const void* g, const void* nbr, const void* valid,
-                            const void* cnt, void* dh, int N, int M, int f,
-                            int D, void* stream) {
-  const int blocks = (M + WARPS - 1) / WARPS;
-  sage_agg_bwd_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const float*)g, (const int32_t*)nbr, (const bool*)valid,
-      (const float*)cnt, (float*)dh, N, M, f, D);
+// Kernel F.  `off` [N + 1], `slots` [M * f] and `lbase` [N + 1] are the
+// transposed index (slot_index.cuh), `lbound` its bound on long chunks;
+// `part` [lbound, D] is scratch and `ticket` [lbound] must be zero.  Every
+// row of `dh` [N, D] is written.
+extern "C" int sage_agg_bwd(const void* g, const void* cnt, const void* off,
+                            const void* slots, const void* lbase, void* part,
+                            void* ticket, void* dh, int N, int f, int D,
+                            int lbound, void* stream) {
+  if (N < 1 || D < 1 || f < 1 || lbound < 0) return (int)cudaErrorInvalidValue;
+  const bool vec = (D % 4 == 0) && ((uintptr_t)g % 16 == 0)
+                   && ((uintptr_t)dh % 16 == 0) && ((uintptr_t)part % 16 == 0);
+  if (vec) {
+    launch_bwd<4>((const float*)g, (const float*)cnt, (const int32_t*)off,
+                  (const int32_t*)slots, (const int32_t*)lbase, (float*)part,
+                  (int*)ticket, (float*)dh, N, f, D, lbound,
+                  (cudaStream_t)stream);
+  } else {
+    launch_bwd<1>((const float*)g, (const float*)cnt, (const int32_t*)off,
+                  (const int32_t*)slots, (const int32_t*)lbase, (float*)part,
+                  (int*)ticket, (float*)dh, N, f, D, lbound,
+                  (cudaStream_t)stream);
+  }
   return (int)cudaGetLastError();
 }

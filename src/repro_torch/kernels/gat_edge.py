@@ -8,7 +8,11 @@ kernels read ``z[nbr]`` and ``e_u[nbr]`` themselves, so no ``[M, f, H *
 dh]`` tensor is made.  :func:`gat_edge_aggregate` is differentiable: a
 ``torch.autograd.Function`` whose backward launches kernel H, which
 recomputes the softmax from ``e_u``/``e_v`` (the forward keeps no
-``[M, f, H]`` tensor).  Kernel G takes one of three forms by shape
+``[M, f, H]`` tensor).  H runs in two passes in a fixed order, so its
+gradient is the same on every run: H1 per dst row, H2 per source row
+through the transposed slot index (:mod:`~repro_torch.kernels.
+slot_index`, and that of ``dst_idx`` where given), which the forward
+builds on the card when a gradient is needed.  Kernel G takes one of three forms by shape
 (:func:`fwd_plan`): a warp per row ("row"), a warp per part of a row's
 columns ("split", where M rows alone cannot fill the card), or, for rows
 of hundreds of slots, the first version's chunked form ("chunked").
@@ -27,14 +31,15 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gat_edge_bwd_ref, gat_edge_ref
+from repro_torch.kernels.slot_index import SlotIndex, slot_index
 
 __all__ = ["gat_edge_aggregate", "gat_edge_fwd", "gat_edge_bwd",
-           "gat_edge_ref", "gat_edge_bwd_ref", "fwd_plan"]
+           "gat_edge_ref", "gat_edge_bwd_ref", "fwd_plan", "dst_index"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "gat_edge_fwd": ([_P] * 7 + [_I] * 8 + [_P], _I),
-    "gat_edge_bwd": ([_P] * 11 + [_I] * 6 + [_P], _I),
+    "gat_edge_bwd": ([_P] * 20 + [_I] * 7 + [_P], _I),
 }
 
 
@@ -122,12 +127,23 @@ def gat_edge_fwd(z: torch.Tensor, e_u: torch.Tensor, e_v: torch.Tensor,
 gat_edge_fwd.launches = 0
 
 
+def dst_index(dst_idx: torch.Tensor, num_ev: int) -> SlotIndex:
+    """The transpose of ``dst_idx`` (clamped to ``[0, num_ev)``, as the
+    kernels read it): the rows of each ``e_v`` row in ascending order."""
+    return slot_index(dst_idx.clamp(0, max(num_ev - 1, 0))[:, None], None,
+                      num_ev)
+
+
 def gat_edge_bwd(g: torch.Tensor, z: torch.Tensor, e_u: torch.Tensor,
                  e_v: torch.Tensor, nbr_idx: torch.Tensor,
                  src_valid: torch.Tensor,
-                 dst_idx: Optional[torch.Tensor] = None):
+                 dst_idx: Optional[torch.Tensor] = None,
+                 index: Optional[SlotIndex] = None,
+                 dindex: Optional[SlotIndex] = None):
     """Kernel H: g [M, H * dh] (dL/dout) and G's inputs -> (dz [N, H, dh],
-    de_u [N, H], de_v [Nev, H])."""
+    de_u [N, H], de_v [Nev, H]).  ``index`` is the transposed slot index
+    of ``nbr_idx`` and ``dindex`` that of ``dst_idx`` (:func:`dst_index`),
+    each built here when None."""
     if g.device.type == "cpu":
         return gat_edge_bwd_ref(g, z, e_u, e_v, nbr_idx, src_valid, dst_idx)
     if g.device.type != "cuda":
@@ -135,20 +151,41 @@ def gat_edge_bwd(g: torch.Tensor, z: torch.Tensor, e_u: torch.Tensor,
     N, Nev, M, f, H, dh = _check(z, e_u, e_v, nbr_idx, src_valid, dst_idx)
     dev = z.device
     _build.check_tensor("g", g, torch.float32, (M, H * dh), dev)
-    dz = torch.zeros((N, H, dh), dtype=torch.float32, device=dev)
-    de_u = torch.zeros((N, H), dtype=torch.float32, device=dev)
+    if M == 0 or f == 0 or H * dh == 0 or N == 0:
+        return (torch.zeros((N, H, dh), dtype=torch.float32, device=dev),
+                torch.zeros((N, H), dtype=torch.float32, device=dev),
+                torch.zeros((Nev, H), dtype=torch.float32, device=dev))
+    if index is None:
+        index = slot_index(nbr_idx, src_valid, N)
+    if index.num_src != N or index.slots.numel() != M * f:
+        raise ValueError("gat_edge_bwd: the slot index is of another matrix")
+    if dst_idx is not None and dindex is None:
+        dindex = dst_index(dst_idx, Nev)
+    dz = torch.empty((N, H, dh), dtype=torch.float32, device=dev)
+    de_u = torch.empty((N, H), dtype=torch.float32, device=dev)
     de_v = torch.zeros((Nev, H), dtype=torch.float32, device=dev)
-    if M == 0 or f == 0 or H * dh == 0:
-        return dz, de_u, de_v
-    da = torch.empty((M, f, H), dtype=torch.float32, device=dev)
+    ds = torch.empty((M, f, H), dtype=torch.float32, device=dev)
+    alpha = torch.empty((M, f, H), dtype=torch.float32, device=dev)
+    rowsum = torch.empty((M, H), dtype=torch.float32, device=dev) \
+        if dst_idx is not None else None
+    width = H * dh + -(-H // 4) * 4          # a partial row, 16-byte rows
+    part = torch.empty((index.lbound, width), dtype=torch.float32,
+                       device=dev)
+    ticket = torch.zeros(index.lbound, dtype=torch.int32, device=dev)
     lib = _build.load("gat_edge", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.gat_edge_bwd(g.data_ptr(), z.data_ptr(), e_u.data_ptr(),
-                              e_v.data_ptr(), nbr_idx.data_ptr(),
-                              src_valid.data_ptr(), _ptr(dst_idx),
-                              da.data_ptr(), dz.data_ptr(), de_u.data_ptr(),
-                              de_v.data_ptr(), N, Nev, M, f, H, dh, stream)
+        rc = lib.gat_edge_bwd(
+            g.data_ptr(), z.data_ptr(), e_u.data_ptr(), e_v.data_ptr(),
+            nbr_idx.data_ptr(), src_valid.data_ptr(), _ptr(dst_idx),
+            ds.data_ptr(), alpha.data_ptr(), _ptr(rowsum),
+            index.offsets.data_ptr(), index.slots.data_ptr(),
+            index.lbase.data_ptr(),
+            None if dindex is None else dindex.offsets.data_ptr(),
+            None if dindex is None else dindex.slots.data_ptr(),
+            part.data_ptr(), ticket.data_ptr(), dz.data_ptr(),
+            de_u.data_ptr(), de_v.data_ptr(), N, Nev, M, f, H, dh,
+            index.lbound, stream)
     if rc != 0:
         raise RuntimeError(f"gat_edge_bwd: launch failed with CUDA error {rc}")
     gat_edge_bwd.launches += 1
@@ -164,6 +201,11 @@ class GatEdge(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z, e_u, e_v, nbr_idx, src_valid, dst_idx):
         ctx.save_for_backward(z, e_u, e_v, nbr_idx, src_valid, dst_idx)
+        ctx.index = ctx.dindex = None
+        if z.is_cuda and any(ctx.needs_input_grad[:3]):
+            ctx.index = slot_index(nbr_idx, src_valid, z.shape[0])
+            if dst_idx is not None:
+                ctx.dindex = dst_index(dst_idx, e_v.shape[0])
         return gat_edge_fwd(z, e_u, e_v, nbr_idx, src_valid, dst_idx)
 
     @staticmethod
@@ -172,7 +214,9 @@ class GatEdge(torch.autograd.Function):
             return (None,) * 6
         z, e_u, e_v, nbr_idx, src_valid, dst_idx = ctx.saved_tensors
         dz, de_u, de_v = gat_edge_bwd(g.contiguous(), z, e_u, e_v, nbr_idx,
-                                      src_valid, dst_idx)
+                                      src_valid, dst_idx, ctx.index,
+                                      ctx.dindex)
+        ctx.index = ctx.dindex = None
         need = ctx.needs_input_grad
         return (dz if need[0] else None, de_u if need[1] else None,
                 de_v if need[2] else None, None, None, None)

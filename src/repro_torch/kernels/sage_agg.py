@@ -7,8 +7,12 @@ Replaces the TPU kernel ``repro/kernels/sage_agg.py:sage_agg``.
 column slice a warp owns, from the shape and the card's SM count.
 :func:`sage_agg` is differentiable in ``h_src``: a
 ``torch.autograd.Function`` that keeps E's neighbor count for the
-backward.  Autograd calls the backward only where ``h_src`` needs a
-gradient, so layer 0 (the features) never launches F.
+backward and, on the card where ``h_src`` needs a gradient, builds the
+transposed slot index (:mod:`~repro_torch.kernels.slot_index`) that F
+gathers through: F sums each source row's slots in a fixed order, so
+its gradient is the same on every run.  Autograd calls the backward
+only where ``h_src`` needs a gradient, so layer 0 (the features) never
+builds the index or launches F.
 
 The wrappers launch the kernels for CUDA tensors and run the plain
 versions ``sage_agg_ref``/``sage_agg_bwd_ref`` (re-exported here) for CPU
@@ -18,11 +22,13 @@ wrapper counts its kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sage_agg_bwd_ref, sage_agg_ref
+from repro_torch.kernels.slot_index import SlotIndex, slot_index
 
 __all__ = ["sage_agg", "sage_agg_fwd", "sage_agg_bwd", "agg_form",
            "sage_agg_ref", "sage_agg_bwd_ref"]
@@ -30,7 +36,7 @@ __all__ = ["sage_agg", "sage_agg_fwd", "sage_agg_bwd", "agg_form",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "sage_agg_fwd": ([_P] * 5 + [_I] * 6 + [_P], _I),
-    "sage_agg_bwd": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    "sage_agg_bwd": ([_P] * 8 + [_I] * 4 + [_P], _I),
 }
 SLICE = 128                      # E's column slices are multiples of this
 WAVE_WARPS_PER_SM = 32           # warps per SM of one wave, by design
@@ -100,9 +106,11 @@ sage_agg_fwd.launches = 0
 
 def sage_agg_bwd(g: torch.Tensor, nbr_idx: torch.Tensor,
                  src_valid: torch.Tensor, cnt: torch.Tensor,
-                 num_src: int) -> torch.Tensor:
+                 num_src: int, index: Optional[SlotIndex] = None
+                 ) -> torch.Tensor:
     """Kernel F: g [M, D]; nbr_idx [M, f]; src_valid [num_src]; cnt [M]
-    (E's count) -> dh [num_src, D]."""
+    (E's count); ``index`` the transposed slot index of ``nbr_idx`` (built
+    here when None) -> dh [num_src, D]."""
     if g.device.type == "cpu":
         return sage_agg_bwd_ref(g, nbr_idx, src_valid, cnt, num_src)
     if g.device.type != "cuda":
@@ -113,15 +121,24 @@ def sage_agg_bwd(g: torch.Tensor, nbr_idx: torch.Tensor,
     D = g.shape[1]
     _build.check_tensor("g", g, torch.float32, (M, D), dev)
     _build.check_tensor("cnt", cnt, torch.float32, (M,), dev)
-    dh = torch.zeros((num_src, D), dtype=torch.float32, device=dev)
-    if M == 0 or D == 0:
-        return dh
+    if M == 0 or D == 0 or f == 0 or num_src == 0:
+        return torch.zeros((num_src, D), dtype=torch.float32, device=dev)
+    if index is None:
+        index = slot_index(nbr_idx, src_valid, num_src)
+    if index.num_src != num_src or index.slots.numel() != M * f:
+        raise ValueError("sage_agg_bwd: the slot index is of another matrix")
+    dh = torch.empty((num_src, D), dtype=torch.float32, device=dev)
+    part = torch.empty((index.lbound, D), dtype=torch.float32, device=dev)
+    ticket = torch.zeros(index.lbound, dtype=torch.int32, device=dev)
     lib = _build.load("sage_agg", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.sage_agg_bwd(g.data_ptr(), nbr_idx.data_ptr(),
-                              src_valid.data_ptr(), cnt.data_ptr(),
-                              dh.data_ptr(), num_src, M, f, D, stream)
+        rc = lib.sage_agg_bwd(g.data_ptr(), cnt.data_ptr(),
+                              index.offsets.data_ptr(),
+                              index.slots.data_ptr(), index.lbase.data_ptr(),
+                              part.data_ptr(), ticket.data_ptr(),
+                              dh.data_ptr(), num_src, f, D, index.lbound,
+                              stream)
     if rc != 0:
         raise RuntimeError(f"sage_agg_bwd: launch failed with CUDA error {rc}")
     sage_agg_bwd.launches += 1
@@ -139,13 +156,17 @@ class SageAgg(torch.autograd.Function):
         mean, cnt = sage_agg_fwd(h_src, nbr_idx, src_valid)
         ctx.save_for_backward(nbr_idx, src_valid, cnt)
         ctx.num_src = h_src.shape[0]
+        ctx.index = slot_index(nbr_idx, src_valid, ctx.num_src) \
+            if h_src.is_cuda and ctx.needs_input_grad[0] else None
         return mean
 
     @staticmethod
     def backward(ctx, g):
         nbr_idx, src_valid, cnt = ctx.saved_tensors
         dh = sage_agg_bwd(g.contiguous(), nbr_idx, src_valid, cnt,
-                          ctx.num_src) if ctx.needs_input_grad[0] else None
+                          ctx.num_src, ctx.index) \
+            if ctx.needs_input_grad[0] else None
+        ctx.index = None
         return dh, None, None
 
 

@@ -1,5 +1,6 @@
 """The launchers' shared observability flags (the reference launchers'
-``--trace-out/--metrics-out/--prom-out`` plumbing):
+``--trace-out/--metrics-out/--prom-out`` plumbing and their health and
+quality planes):
 
   --trace-out PATH    Chrome trace-event JSON of the phase spans; on the
                       card also the device's kernels and copies (one
@@ -7,6 +8,16 @@
                       is printed, as the union of device intervals
   --metrics-out PATH  the registry as JSONL
   --prom-out PATH     the registry in Prometheus text format
+  --flight-dir DIR    where the health plane dumps FLIGHT_*.json on a
+                      detection or an escaped exception (default .)
+  --audit-interval N  the exactness audit every N epochs (training) or
+                      after each serve pass (serving); 0 = off
+  --quality-budget E  arm the quality-budget detector (audit mean error
+                      over E for two audits dumps FLIGHT_quality.json)
+  --slo-p99-ms T      (serving) arm the SLO-burn detector at this p99
+
+:func:`build_planes` builds the two planes from these flags, as the
+reference launchers do.
 """
 from __future__ import annotations
 
@@ -27,6 +38,67 @@ def add_obs_flags(ap: argparse.ArgumentParser):
     ap.add_argument("--prom-out", default=None, metavar="PATH",
                     help="write the registry in Prometheus text format "
                          "(node-exporter textfile collector)")
+
+
+def add_plane_flags(ap: argparse.ArgumentParser, serving: bool):
+    """The health and quality planes' flags (``--slo-p99-ms`` on the
+    serving launchers only)."""
+    ap.add_argument("--flight-dir", default=".", metavar="DIR",
+                    help="where the health plane dumps FLIGHT_*.json on a "
+                         "detection or an escaped exception")
+    ap.add_argument("--audit-interval", type=int, default=0, metavar="N",
+                    help="N > 0: run the exactness audit (sampled cached "
+                         "embeddings against an offline recompute, "
+                         "relative L2 error) every N epochs, or after each "
+                         "serve pass")
+    ap.add_argument("--quality-budget", type=float, default=None,
+                    metavar="ERR",
+                    help="arm the quality-budget detector: audit mean "
+                         "error persistently above ERR dumps "
+                         "FLIGHT_quality.json")
+    if serving:
+        ap.add_argument("--slo-p99-ms", type=float, default=None,
+                        help="arm the SLO-burn detector with this p99 "
+                             "target")
+
+
+def build_planes(args, num_ranks: int, expected_halo_rows=None,
+                 prom: Optional[obs.PromFileWriter] = None,
+                 quality_always: bool = False):
+    """``(health, quality)`` from the plane flags: a health plane always
+    (its edge-cut drift detector armed by ``expected_halo_rows``, its SLO
+    burn by ``--slo-p99-ms``), a quality plane where ``quality_always``
+    (training: staleness every epoch) or ``--audit-interval`` asks."""
+    slo = getattr(args, "slo_p99_ms", None)
+    health = obs.HealthPlane(
+        obs.HealthConfig(flight_dir=args.flight_dir,
+                         slo_p99_s=None if slo is None else slo / 1e3,
+                         quality_budget=args.quality_budget),
+        num_ranks=num_ranks, expected_halo_rows=expected_halo_rows)
+    quality = obs.QualityPlane(
+        obs.QualityConfig(audit_interval=args.audit_interval),
+        health=health, prom=prom) \
+        if quality_always or args.audit_interval else None
+    return health, quality
+
+
+def print_audit(label: str, report):
+    """One line of an audit's result."""
+    fmt = "n/a" if report.mean_err is None else f"{report.mean_err:.5f}"
+    print(f"audit:      [{label}] mean rel-L2 err={fmt} over "
+          f"{sum(v['n'] for v in report.per_layer.values())} sampled lines")
+
+
+def print_health(health):
+    """The health plane's summary and its flight files."""
+    hs = health.summary()
+    fmt = lambda v: "n/a" if v is None else f"{v:.3f}"  # noqa: E731
+    print(f"health:     {hs['windows']} windows observed, halo skew="
+          f"{fmt(hs['skew'])}, edge-cut drift={fmt(hs['edge_cut_drift'])}, "
+          f"slo burn={fmt(hs['slo_burn'])}, {len(hs['detections'])} "
+          f"detections")
+    for p in hs["flight_paths"]:
+        print(f"flight:     {p}")
 
 
 def configure_obs(args) -> obs.Observability:

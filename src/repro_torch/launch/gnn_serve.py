@@ -6,6 +6,8 @@
       [--vertices 20000] [--slots 32] [--queries 1024] [--overlap 0.5]
       [--cache-size 65536] [--no-prewarm] [--device cuda]
       [--trace-out PATH] [--metrics-out PATH] [--prom-out PATH]
+      [--flight-dir DIR] [--slo-p99-ms T] [--audit-interval N]
+      [--quality-budget ERR]
 
 Flow: synthetic power-law graph -> single-partition serving graph ->
 ``GNNServeScheduler`` (fixed-slot microbatches, HEC-backed cache) serves a
@@ -24,7 +26,11 @@ layer), and fix the model.  The weights are the reference launcher's:
 (``models/gnn/init.py``).  ``--trace-out`` traces the timed passes (on
 the card with the device's kernels and copies, and prints the device
 busy share of the cold pass as the union of device intervals);
-``--metrics-out`` and ``--prom-out`` write the registry.
+``--metrics-out`` and ``--prom-out`` write the registry.  As in the
+reference, a health plane watches every round (SLO burn with
+``--slo-p99-ms``, flight dumps under ``--flight-dir``), and with
+``--audit-interval`` a quality plane audits the cache after each pass
+(a cache warmed from the offline rows audits to exactly 0.0).
 """
 from __future__ import annotations
 
@@ -35,8 +41,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.launch.common import (add_obs_flags, configure_obs,
-                                       device_trace, finish_obs, prom_writer,
+from repro_torch.launch.common import (add_obs_flags, add_plane_flags,
+                                       build_planes, configure_obs,
+                                       device_trace, finish_obs, print_audit,
+                                       print_health, prom_writer,
                                        report_device)
 
 PRESETS = ("small", "graphsage-papers100m", "gat-papers100m")
@@ -59,6 +67,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="cuda (default) or cpu (plain PyTorch versions of "
                          "the kernels)")
     add_obs_flags(ap)
+    add_plane_flags(ap, serving=True)
     return ap.parse_args(argv)
 
 
@@ -119,12 +128,14 @@ def run(args: argparse.Namespace) -> dict:
           f"->{cfg.num_classes}{heads}, fanouts {tuple(cfg.fanouts)}) on "
           f"{device}")
     model = build_model(cfg, seed=0, device=device)
+    prom = prom_writer(args)
+    health, quality = build_planes(args, 1, prom=prom)
     srv = GNNServeScheduler(
         cfg, model, part,
         GNNServeConfig(num_slots=args.slots,
                        cache=ServeCacheConfig(cache_size=args.cache_size,
                                               ways=8)),
-        device=device)
+        device=device, health=health, quality=quality)
     vids = workload(part.num_solid, args.queries, args.overlap)
 
     # warm-up outside any reported timing (first launches build and load
@@ -135,8 +146,17 @@ def run(args: argparse.Namespace) -> dict:
     srv.reset_frontend()
 
     reg = configure_obs(args).registry
-    prom = prom_writer(args)
-    with device_trace(args, device) as trace:
+    audits = []
+
+    def maybe_audit(label):
+        if quality is not None:
+            audits.append(srv.audit())
+            print_audit(label, audits[-1])
+            if prom is not None:
+                prom.maybe_write(reg)
+
+    with device_trace(args, device) as trace, \
+            health.guard("serve_rounds"):
         t0 = time.perf_counter()
         cold = [srv.submit(v) for v in vids]
         srv.pump()
@@ -149,7 +169,8 @@ def run(args: argparse.Namespace) -> dict:
                             "serve_sync_host")}
     out = {"srv": srv, "cfg": cfg, "part": part, "vids": vids,
            "cold": cold, "cold_qps": args.queries / t_cold,
-           "cold_metrics": m, "cold_ms_per_microbatch": breakdown}
+           "cold_metrics": m, "cold_ms_per_microbatch": breakdown,
+           "health": health, "quality": quality, "audits": audits}
     print(f"cold:       {args.queries} queries in {t_cold:.3f}s "
           f"({args.queries / t_cold:.0f} q/s), {m['steps_run']} "
           f"microbatches; hit rates "
@@ -161,6 +182,7 @@ def run(args: argparse.Namespace) -> dict:
         f"{ph.removeprefix('serve_')} {ms:.2f}" for ph, ms in
         breakdown.items()) + " ms per microbatch (host clock)")
     out["device_trace"] = report_device(trace, "cold pass")
+    maybe_audit("cold")
 
     if not args.no_prewarm:
         srv.update_params(model)
@@ -173,11 +195,12 @@ def run(args: argparse.Namespace) -> dict:
               f"vertices in {t_warm_build:.3f}s")
         fp0 = srv.metrics()["fast_path_hits"]
         srv.reset_frontend()
-        t0 = time.perf_counter()
-        warm = [srv.submit(v) for v in vids]
-        srv.pump()
-        _sync(device)
-        t_warm = time.perf_counter() - t0
+        with health.guard("serve_rounds"):
+            t0 = time.perf_counter()
+            warm = [srv.submit(v) for v in vids]
+            srv.pump()
+            _sync(device)
+            t_warm = time.perf_counter() - t0
         m = srv.metrics()
         out.update(embs=embs, warm=warm, warm_qps=args.queries / t_warm,
                    warm_metrics=m)
@@ -186,6 +209,8 @@ def run(args: argparse.Namespace) -> dict:
               f"{m['fast_path_hits'] - fp0} fast-path answers, "
               f"{m['steps_run']} microbatches -> "
               f"{t_cold / t_warm:.1f}x cold throughput")
+        maybe_audit("warm")
+    print_health(health)
     finish_obs(prom)
     return out
 

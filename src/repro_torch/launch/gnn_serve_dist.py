@@ -8,7 +8,8 @@
       [--overlap 0.5] [--cache-size 65536] [--policy degree]
       [--prewarm-frac F] [--hot-size 2048] [--no-dedup] [--round-batch 4]
       [--device cuda] [--trace-out PATH] [--metrics-out PATH]
-      [--prom-out PATH]
+      [--prom-out PATH] [--flight-dir DIR] [--slo-p99-ms T]
+      [--audit-interval N] [--quality-budget ERR]
 
 Flow (the reference launcher's, with its defaults): synthetic power-law
 graph -> min-cut partitions -> ``DistGNNServeScheduler`` (a warm-up pass
@@ -22,9 +23,12 @@ now resident.  Presets as in ``repro_torch.launch.gnn_serve``; weights
 the reference launcher's, from ``jax.random.key(0)``.  ``--trace-out``
 traces the run (on the card with the device's kernels and copies, and
 prints the device busy share of the two passes as the union of device
-intervals); ``--metrics-out`` and ``--prom-out`` write the registry.  The
-health and quality flags (``--flight-dir``, ``--slo-p99-ms``,
-``--audit-interval``, ``--quality-budget``) come with those planes.
+intervals); ``--metrics-out`` and ``--prom-out`` write the registry.  As
+in the reference, a health plane watches every round's per-rank series
+(load skew, edge-cut drift against the partition's halo profile, SLO
+burn with ``--slo-p99-ms``, hot-tier decay; flight dumps under
+``--flight-dir``), and with ``--audit-interval`` a quality plane audits
+every shard's cache and the hot replicas after each pass.
 """
 from __future__ import annotations
 
@@ -34,8 +38,10 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.launch.common import (add_obs_flags, configure_obs,
-                                       device_trace, finish_obs, prom_writer,
+from repro_torch.launch.common import (add_obs_flags, add_plane_flags,
+                                       build_planes, configure_obs,
+                                       device_trace, finish_obs, print_audit,
+                                       print_health, prom_writer,
                                        report_device)
 from repro_torch.launch.gnn_serve import PRESETS, model_config, workload
 
@@ -70,6 +76,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="cuda (default) or cpu (plain PyTorch versions of "
                          "the kernels)")
     add_obs_flags(ap)
+    add_plane_flags(ap, serving=True)
     return ap.parse_args(argv)
 
 
@@ -105,6 +112,11 @@ def run(args: argparse.Namespace) -> dict:
           f"->{cfg.num_classes}{heads}, fanouts {tuple(cfg.fanouts)}) on "
           f"{device}")
     model = build_model(cfg, seed=0, device=device)
+    # the partition's halo rows per rank (ExchangePlan.
+    # expected_inbound_rows) arm the edge-cut drift detector
+    health, quality = build_planes(
+        args, R, expected_halo_rows=[p.num_halo for p in ps.parts],
+        prom=prom)
     srv = DistGNNServeScheduler(
         cfg, model, ps,
         DistServeConfig(num_slots=args.slots, halo_slots=args.halo_slots,
@@ -112,7 +124,7 @@ def run(args: argparse.Namespace) -> dict:
                                                ways=8),
                         hot_size=args.hot_size, dedup=not args.no_dedup,
                         round_batch=args.round_batch),
-        device=device)
+        device=device, health=health, quality=quality)
     if srv.hot is not None:
         print(f"hot tier:   {srv.hot.num_slots} hub vertices replicated on "
               f"every shard; dedup={not args.no_dedup}, "
@@ -127,7 +139,8 @@ def run(args: argparse.Namespace) -> dict:
     srv.cache.reset_counters()
     srv.reset_frontend()
     out = {"srv": srv, "cfg": cfg, "ps": ps, "vids": vids,
-           "warmup_metrics": warmup_metrics, "prewarmed": 0}
+           "warmup_metrics": warmup_metrics, "prewarmed": 0,
+           "health": health, "quality": quality, "audits": []}
 
     if args.policy != "none":
         t0 = time.perf_counter()
@@ -138,7 +151,8 @@ def run(args: argparse.Namespace) -> dict:
         print(f"pre-warm:   policy={args.policy} stored {n} vertices/layer "
               f"across {R} shards in {time.perf_counter() - t0:.3f}s")
 
-    with device_trace(args, device) as trace:
+    with device_trace(args, device) as trace, \
+            health.guard("serve_rounds"):
         for name in ("serve", "repeat"):
             if name == "repeat":
                 srv.cache.reset_counters()
@@ -168,9 +182,13 @@ def run(args: argparse.Namespace) -> dict:
                       f"replica, {m['hot_fast_path_hits']} tier fast-path "
                       f"answers, {m['dedup_merged']} queries deduped into "
                       f"shared slots")
+            if quality is not None:
+                out["audits"].append(srv.audit())
+                print_audit(name, out["audits"][-1])
     print(f"speedup:    {out['repeat_qps'] / out['serve_qps']:.1f}x the "
           f"first pass's q/s")
     out["device_trace"] = report_device(trace, "serve and repeat passes")
+    print_health(health)
     finish_obs(prom)
     return out
 

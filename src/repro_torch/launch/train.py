@@ -14,7 +14,11 @@ plain PyTorch versions of the kernels.  ``--trace-out``,
 ``--metrics-out`` and ``--prom-out`` write the phase spans (on the card
 with the device's kernels and copies, one track per CUDA stream, and the
 device busy share printed), the registry as JSONL and in Prometheus
-text.  The health, quality and resilience flags are not offered yet.
+text.  As in the reference, a health plane (rank series, skew and
+edge-cut drift against the partition's halo profile, flight dumps under
+``--flight-dir``) and a quality plane (HEC staleness every epoch, the
+exactness audit every ``--audit-interval`` epochs, ``--quality-budget``)
+ride along; they only read.  The resilience flags are not offered yet.
 As in the reference, the initial weights come from
 ``jax.random.key(--seed)`` (drawn without jax) and the AEP push draws
 the reference's uniforms, so both launchers train the same model on the
@@ -36,9 +40,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from repro_torch.launch.common import (add_obs_flags, configure_obs,
-                                       device_trace, finish_obs, prom_writer,
-                                       report_device)
+from repro_torch.launch.common import (add_obs_flags, add_plane_flags,
+                                       build_planes, configure_obs,
+                                       device_trace, finish_obs, print_health,
+                                       prom_writer, report_device)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -72,6 +77,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
     add_obs_flags(g)
+    add_plane_flags(g, serving=False)
     return ap.parse_args(argv)
 
 
@@ -131,8 +137,14 @@ def run_gnn(args, pipeline=None, overlap: bool = True) -> dict:
     if pipeline is not None:
         cfg = dataclasses.replace(cfg, pipeline=pipeline)
     data = build_dist_data(ps, cfg, device)
+    # the partition's halo rows per rank (ExchangePlan.
+    # expected_inbound_rows) arm the edge-cut drift detector
+    health, quality = build_planes(
+        args, args.ranks, expected_halo_rows=[p.num_halo for p in ps.parts],
+        prom=prom, quality_always=True)
     tr = DistTrainer(cfg=cfg, num_ranks=args.ranks, mode=args.mode,
-                     device=device, overlap=overlap)
+                     device=device, overlap=overlap, health=health,
+                     quality=quality)
     state = tr.init_state(seed=args.seed)
     with device_trace(args, device) as trace:
         t0 = time.time()
@@ -143,6 +155,11 @@ def run_gnn(args, pipeline=None, overlap: bool = True) -> dict:
     print(f"done: {args.epochs} epochs in {dt:.1f}s "
           f"({dt / args.epochs:.2f}s/epoch); test_acc={acc:.3f}")
     dev = report_device(trace, "training and evaluate", spans=("step",))
+    print_health(health)
+    qs = quality.summary()
+    if qs["audits_run"]:
+        print(f"quality:    audits={qs['audits_run']} last mean rel-L2 "
+              f"err={qs['last_mean_err']} hidden={qs['last_hidden_err']}")
     finish_obs(prom)
     if args.ckpt:
         tr.join_push()
@@ -150,7 +167,8 @@ def run_gnn(args, pipeline=None, overlap: bool = True) -> dict:
         print("saved", args.ckpt)
     return {"graph": g, "ps": ps, "cfg": cfg, "trainer": tr, "data": data,
             "state": state, "history": hist, "test_acc": acc,
-            "train_seconds": dt, "device_trace": dev}
+            "train_seconds": dt, "device_trace": dev, "health": health,
+            "quality": quality}
 
 
 def main(argv: Optional[Sequence[str]] = None):

@@ -12,7 +12,22 @@ swapped with ``configure``, owns
     per CUDA stream,
   * :class:`EpochBreakdown` / :class:`StepModel` — per-epoch sample /
     host-prep / H2D / forward / push / backward shares and the modeled
-    overlap efficiency.
+    overlap efficiency,
+  * the **cluster health plane** (:mod:`~repro_torch.obs.cluster`,
+    :mod:`~repro_torch.obs.detect`, :mod:`~repro_torch.obs.sentinel`):
+    per-rank series summed into rank-labeled counters and sum/mean/max/
+    skew cluster views, the straggler, load-skew, edge-cut-drift,
+    SLO-burn, hot-tier-decay and quality-budget detectors, and the
+    bounded flight recorder that dumps ``FLIGHT_<reason>.json`` on a
+    detection or an escaped exception (:class:`HealthPlane`, wired by
+    ``DistTrainer(health=...)`` and the serve schedulers' ``health=``),
+  * the **embedding quality plane** (:mod:`~repro_torch.obs.quality`):
+    per-layer HEC and hot-tier staleness histograms, the online
+    exactness audit (sampled cached embeddings against exact offline
+    recomputation, relative L2) and the per-epoch convergence series
+    (:class:`QualityPlane`, wired by ``DistTrainer(quality=...)`` and the
+    schedulers' ``quality=``; the training audit armed by
+    ``--audit-interval``).
 
 Instrumented code calls the module-level helpers::
 
@@ -23,9 +38,8 @@ Instrumented code calls the module-level helpers::
 
 With everything disabled (``ObsConfig(enabled=False)``) ``span`` returns
 one shared no-op object and the instruments are no-ops; observability
-only reads host clocks and counters, so outputs are the same with it on,
-off or tracing.  The health plane (``cluster``, ``detect``,
-``sentinel``) and the quality plane (``quality``) are not ported yet.
+only reads host clocks, counters and cache state, so outputs are the same
+with it on, off or tracing.
 """
 from __future__ import annotations
 
@@ -36,13 +50,26 @@ from typing import List, Optional
 from repro_torch.obs.breakdown import (MEASURED_PHASES,  # noqa: F401
                                        REPORT_PHASES, EpochBreakdown,
                                        StepModel)
+from repro_torch.obs.cluster import (RankAccumulator,  # noqa: F401
+                                     SeriesView, publish_rank_series,
+                                     rank_series, skew_ratio)
+from repro_torch.obs.detect import (Detection,  # noqa: F401
+                                    EdgeCutDriftDetector,
+                                    HotTierDecayDetector, LoadSkewDetector,
+                                    QualityBudgetDetector, SLOBurnDetector,
+                                    StragglerDetector)
 from repro_torch.obs.device_trace import (DeviceTrace,  # noqa: F401
                                           busy_us, device_events,
                                           device_summary,
                                           stream_overlap_us)
+from repro_torch.obs.quality import (AuditReport,  # noqa: F401
+                                     QualityConfig, QualityPlane,
+                                     relative_l2)
 from repro_torch.obs.registry import (Counter, Gauge,  # noqa: F401
                                       Histogram, MetricsRegistry,
                                       PromFileWriter, hit_rate_metrics)
+from repro_torch.obs.sentinel import (FlightRecorder,  # noqa: F401
+                                      HealthConfig, HealthPlane)
 from repro_torch.obs.tracing import (Tracer,  # noqa: F401
                                      validate_chrome_trace)
 

@@ -42,9 +42,17 @@ Not carried over: the reference's ``fused_kernel`` and ``probe_kernel``
 switches — on the card the forward always runs A or G and the responder
 always runs J, as the single-rank port always runs A.  Degraded-mode
 serving (``failover=True``, the breaker of ``resilience/failover.py``)
-and the ``health=``/``quality=`` planes with ``audit`` belong to the
-planes slice (slice 6): ``failover=True`` raises ``NotImplementedError``;
-``cache_fetch`` already takes the ``alive`` mask.
+waits for the resilience slice: ``failover=True`` raises
+``NotImplementedError``; ``cache_fetch`` already takes the ``alive`` mask.
+
+The planes, as the reference's: every round's per-rank stats (already
+on the host after the round's one copy) become rank-labeled series and
+cluster views (``_record_rank_round``) and, with ``health=``, one window
+of the health plane's detectors (load skew, SLO burn, hot-tier decay);
+``quality=`` is read by :meth:`audit`, which samples every shard's
+cached lines and the hot replicas and holds them against the sharded
+offline embeddings (fresh shards audit to exactly 0.0).  Neither writes
+the caches or the answers.
 """
 from __future__ import annotations
 
@@ -85,7 +93,7 @@ class DistServeConfig:
     hot_size: int = 0              # K: replicated hot-tier slots (0 = off)
     dedup: bool = False            # cross-query neighborhood dedup
     round_batch: int = 1           # rounds fused into one step/collective
-    failover: bool = False         # degraded-mode serving: slice 6
+    failover: bool = False         # degraded-mode serving: resilience
 
 
 def build_serve_data(ps: PartitionSet, device) -> dict:
@@ -147,13 +155,19 @@ class DistGNNServeScheduler(ServeFrontend):
 
     def __init__(self, cfg, model, ps: PartitionSet,
                  serve_cfg: Optional[DistServeConfig] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 health: Optional["obs.HealthPlane"] = None,
+                 quality: Optional["obs.QualityPlane"] = None):
         self.scfg = serve_cfg or DistServeConfig()
         if self.scfg.failover:
             raise NotImplementedError(
                 "failover=True (degraded-mode serving with the rank "
-                "breaker) is not ported yet: it comes with the planes, "
-                "slice 6")
+                "breaker) is not ported yet: it comes with the resilience "
+                "plane, the second part of the planes slice (slice 6)")
+        self.health = health \
+            if health is not None and health.enabled else None
+        self.quality = quality \
+            if quality is not None and quality.enabled else None
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ps = ps
@@ -430,6 +444,78 @@ class DistGNNServeScheduler(ServeFrontend):
         return out
 
     # -- internals ------------------------------------------------------------
+    def audit(self, epoch: Optional[int] = None):
+        """On-demand exactness audit across every shard: sample cached
+        lines per layer (tags are VID_o, so the sharded offline pass's
+        global ``[V, d]`` embeddings index them directly), recompute them
+        exactly (``layerwise_embeddings_dist``: A or G, as the pre-warm),
+        and publish the relative L2 error, with the hot replicas'
+        divergence.  Shards warmed from the offline pass audit to exactly
+        0.0."""
+        q = self.quality
+        if q is None:
+            raise ValueError("audit needs DistGNNServeScheduler(quality=...)")
+        from repro_torch.serve.gnn.distributed.offline import \
+            layerwise_embeddings_dist
+        exact = layerwise_embeddings_dist(self.cfg, self.model, self.ps)
+
+        def rows(k, vids):
+            return exact[k].index_select(0, torch.as_tensor(
+                vids, dtype=torch.long, device=exact[k].device)).cpu().numpy()
+        layer_samples = []
+        for k in range(self.cache.num_layers):
+            vids, cached, ages = self.cache.cached_entries(
+                k, sample=q.cfg.audit_samples, rng=q.rng)
+            layer_samples.append((k + 1, cached, rows(k, vids), ages))
+        hot_samples = None
+        if self.hot is not None:
+            # per-layer pairs: the layers' widths differ, so the plane
+            # concatenates error vectors, not rows
+            hot_samples = []
+            for k, st in enumerate(self.hot.states):
+                vids, vals, _ = hot_lib.tier_entries(st, self.hot.hot_vids)
+                if len(vids):
+                    hot_samples.append((vals, rows(k, vids)))
+            self.hot.publish_ages()
+        q.publish_staleness(self.cache.states, layer_of=lambda i: i + 1)
+        return q.run_audit(self.steps_run if epoch is None else epoch,
+                           layer_samples, hot_samples=hot_samples,
+                           source="serve_dist")
+
+    def _record_rank_round(self, stats: dict, wall_s: float):
+        """The round's per-rank stats (host arrays of the round's one
+        copy) as rank-labeled series and cluster views, and one window of
+        the health plane."""
+        reg = obs.get().registry
+        if not (reg.enabled or self.health):
+            return
+        dims = serve_layer_dims(self.cfg)
+        R = self.num_ranks
+        sum_layers = lambda a: a.sum(axis=1).astype(np.float64) \
+            if a.ndim == 2 and a.shape[1] else np.zeros(R)  # noqa: E731
+        fetched = stats["halo_fetched"]
+        # a fetched row carries the layer's embedding and a 4-byte vid tag
+        bytes_per_rank = np.zeros(R)
+        for i in range(fetched.shape[1] if fetched.ndim == 2 else 0):
+            bytes_per_rank += fetched[:, i].astype(np.float64) \
+                * (dims[i] * 4 + 4)
+        totals = {
+            "rank_serve_lookups": sum_layers(stats["lookups"]),
+            "rank_serve_hits": sum_layers(stats["hits"]),
+            "rank_serve_halo_rows": sum_layers(stats["halo_seen"]),
+            "rank_serve_halo_local": sum_layers(stats["halo_local"]),
+            "rank_serve_halo_fetched": sum_layers(fetched),
+            "rank_serve_halo_requested": sum_layers(stats["halo_requested"]),
+            "rank_serve_halo_bytes": bytes_per_rank,
+            "rank_serve_hot_hits": sum_layers(stats["hot_hits"]),
+            "rank_serve_round_seconds": np.full(R, wall_s),
+        }
+        if reg.enabled:
+            obs.publish_rank_series(reg, totals)
+        if self.health:
+            self.health.observe_round(totals, wall_s=wall_s,
+                                      latency_hist=self.latency)
+
     def _split_fast_path(self, rank: int, wave):
         """(answerable without compute, needs compute): output-cache
         resident on the owner, or valid in the owner's hot replica."""
@@ -543,8 +629,10 @@ class DistGNNServeScheduler(ServeFrontend):
                     obs.count("hot_hits", n_hot)
                     self.hot.sync_host(host[len(host) - len(ages):])
             self.steps_run += 1
+            wall = time.perf_counter() - t0
             self.round_log.append({**{n: stats[n].tolist() for n in names},
-                                   "wall_s": time.perf_counter() - t0})
+                                   "wall_s": wall})
+            self._record_rank_round(stats, wall)
             for r, groups in enumerate(round_groups):
                 for i, (local, reqs) in enumerate(groups):
                     if not out_valid[r, i]:

@@ -29,8 +29,15 @@ Admission control (``max_queue_depth``: ``submit`` raises
 ``AdmissionRejected``), per-request latency p50/p99 and cross-query dedup
 (``dedup=True``: same-vid queries pending together share one slot) follow
 the reference; :class:`ServeFrontend` holds the request lifecycle the
-sharded scheduler (``serve/gnn/distributed``) shares.  The health and
-quality planes are not ported yet.
+sharded scheduler (``serve/gnn/distributed``) shares.
+
+The planes, as the reference's: ``health=`` (an ``obs.HealthPlane``, one
+rank) sees every round's lookups, hits and seconds and the latency
+histogram (SLO burn), from numbers the round already copies to the host;
+``quality=`` (an ``obs.QualityPlane``) is read by :meth:`audit`, which
+samples cached lines of every layer and holds them against the exact
+offline embeddings (a cache warmed from them audits to exactly 0.0).
+Neither writes the cache or the answers.
 """
 from __future__ import annotations
 
@@ -137,10 +144,16 @@ class ServeFrontend:
 class GNNServeScheduler(ServeFrontend):
     def __init__(self, cfg, model, part: Partition,
                  serve_cfg: Optional[GNNServeConfig] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 health: Optional["obs.HealthPlane"] = None,
+                 quality: Optional["obs.QualityPlane"] = None):
         if part.num_halo:
             raise ValueError("serving is single-partition")
         self.device = resolve_device(device)
+        self.health = health \
+            if health is not None and health.enabled else None
+        self.quality = quality \
+            if quality is not None and quality.enabled else None
         self.cfg = cfg
         self.scfg = serve_cfg or GNNServeConfig()
         self.part = part
@@ -207,6 +220,30 @@ class GNNServeScheduler(ServeFrontend):
         out = self.cache.metrics()
         out.update(self._frontend_metrics(len(self.queue)))
         return out
+
+    def audit(self, epoch: Optional[int] = None):
+        """On-demand exactness audit: sample cached lines of every serving
+        layer, recompute their exact ``h^k`` by the offline layer-wise pass
+        (the same kernels, A or G, as the pre-warm), publish the relative
+        L2 error and the staleness ages.  Serving caches exact
+        activations (no dropout, exact leaves), so a cache warmed from the
+        offline embeddings audits to exactly 0.0.  Cache layer ``k``
+        (0-based) holds ``h^{k+1}``; tags are local vids."""
+        q = self.quality
+        if q is None:
+            raise ValueError("audit needs GNNServeScheduler(quality=...)")
+        from repro_torch.serve.gnn.offline import layerwise_embeddings
+        exact = layerwise_embeddings(self.cfg, self.model, self.part)
+        layer_samples = []
+        for k in range(self.cache.num_layers):
+            vids, cached, ages = self.cache.cached_entries(
+                k, sample=q.cfg.audit_samples, rng=q.rng)
+            rows = exact[k].index_select(0, torch.as_tensor(
+                vids, dtype=torch.long, device=exact[k].device))
+            layer_samples.append((k + 1, cached, rows.cpu().numpy(), ages))
+        q.publish_staleness(self.cache.states, layer_of=lambda i: i + 1)
+        return q.run_audit(self.steps_run if epoch is None else epoch,
+                           layer_samples, source="serve")
 
     # -- device step ---------------------------------------------------------
     def _tensor(self, x: np.ndarray, dtype) -> torch.Tensor:
@@ -304,6 +341,7 @@ class GNNServeScheduler(ServeFrontend):
     def _run_microbatch(self, groups: List):
         """One serve step over the groups' unique vids; every request in a
         group receives the same slot's answer (dedup scatter-back)."""
+        t_round0 = time.perf_counter()
         with obs.span("serve_round"):
             mb = self._sample([vid for vid, _ in groups])
             states = self.cache.states
@@ -314,7 +352,8 @@ class GNNServeScheduler(ServeFrontend):
                 out, out_valid, hits, lookups = self._step(states, mb)
                 out = out.cpu().numpy()         # waits for the device
                 out_valid = out_valid.cpu().numpy()
-            self.cache.record(hits.cpu().numpy(), lookups.cpu().numpy())
+            hits, lookups = hits.cpu().numpy(), lookups.cpu().numpy()
+            self.cache.record(hits, lookups)
             if self.scfg.cache.enabled:
                 with obs.span("serve_sync_host"):
                     self.cache.sync_host()
@@ -326,3 +365,14 @@ class GNNServeScheduler(ServeFrontend):
                         f"not served")
                 for req in reqs:
                     self._finish(req, out[i], "compute")
+        if self.health:
+            self.observe_round(hits, lookups, time.perf_counter() - t_round0)
+
+    def observe_round(self, hits: np.ndarray, lookups: np.ndarray,
+                      wall: float):
+        """The round's window for the health plane (one rank)."""
+        self.health.observe_round(
+            {"rank_serve_lookups": np.asarray([float(lookups.sum())]),
+             "rank_serve_hits": np.asarray([float(hits.sum())]),
+             "rank_serve_round_seconds": np.asarray([wall])},
+            wall_s=wall, latency_hist=self.latency)

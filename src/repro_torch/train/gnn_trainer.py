@@ -61,8 +61,20 @@ The HEC states, the hot tier and the queues are updated in place where
 the reference returns new ones.  ``evaluate`` runs each batch from the
 training state as it is: it keeps the HEC tags and ages (and the tier's
 ages), journals the value rows the consume overwrites, and puts all of
-it back after the batch.  The NaN guard and fault codes, and the health
-and quality planes wait for later slices.
+it back after the batch.  The NaN guard and fault codes wait for the
+resilience slice.
+
+The health and quality planes (``health=``, ``quality=``) only read:
+every step computes its per-rank series (``rank_stats``: examples,
+sampled rows, halo rows, HEC and hot hits, pushed rows and bytes, each
+``[R]`` before the sum over ranks) on the device whether or not a plane
+is on, and copies them to the host with the step's metrics in ONE
+device-to-host copy; ``train_epochs`` sums them per epoch, publishes
+rank-labeled series and feeds the health plane's detectors, and the
+quality plane reads the caches' ages and, on its interval, runs
+:meth:`DistTrainer.audit` (sampled cached rows against exact offline
+embeddings).  So the step's outputs, and its kernel launches, are the
+same with the planes off or on.
 """
 from __future__ import annotations
 
@@ -215,13 +227,18 @@ class DistTrainer:
     (N0,))`` is the hot tier's, the reference's ``PRNGKey(11)`` stream.
     ``overlap`` (``aep``): push between the forward and the backward, on
     the card on ``push_stream`` (else inline after the backward).
-    ``step_log`` keeps every training step's metrics."""
+    ``step_log`` keeps every training step's metrics and ``rank_stats``
+    the last step's per-rank series.  ``health`` (an ``obs.HealthPlane``)
+    and ``quality`` (an ``obs.QualityPlane``) are the planes, read-only
+    on the training state."""
     cfg: GNNConfig
     num_ranks: int
     mode: str = "aep"
     device: DeviceLike = None
     push_uniforms: Optional[PushUniforms] = None
     overlap: bool = True
+    health: Optional["obs.HealthPlane"] = None
+    quality: Optional["obs.QualityPlane"] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -241,6 +258,7 @@ class DistTrainer:
                             and self.device.type == "cuda" else None)
         self._pushed = None            # the push stream's last event
         self.step_log: List[dict] = []
+        self.rank_stats: dict = {}
 
     # -- state ---------------------------------------------------------------
     def init_state(self, seed: int = 0, params: Optional[dict] = None,
@@ -551,10 +569,44 @@ class DistTrainer:
             metrics[f"hec_halos_l{l}"] = psum([f.hits[l][1] for f in fwd])
             if state["hot"]:
                 metrics[f"hot_hits_l{l}"] = psum([f.hits[l][2] for f in fwd])
+        occ = [(st.tags >= 0).float().mean() for layer in hec for st in layer]
+        stats = self._rank_stats(mb, fwd, push, bool(state["hot"]))
+        # ONE device-to-host copy of the metrics, the occupancies and the
+        # per-rank series (float64 holds every value exactly)
+        parts = list(metrics.values()) + occ + list(stats.values())
+        host = torch.cat([t.reshape(-1).double() for t in parts]).cpu()
+        vals = host.tolist()
+        out = dict(zip(metrics, vals))
+        i = len(metrics)
+        R = self.num_ranks
         for l in range(L):
-            metrics[f"hec_occ_l{l}"] = float(np.mean(
-                [hec_lib.hec_occupancy(st) for st in hec[l]]))
-        return {k: float(v) for k, v in metrics.items()}
+            out[f"hec_occ_l{l}"] = float(np.mean(vals[i:i + R]))
+            i += R
+        self.rank_stats = {}
+        for k in stats:
+            self.rank_stats[k] = host[i:i + R].numpy()
+            i += R
+        return out
+
+    def _rank_stats(self, mb: dict, fwd: List[RankForward],
+                    push: Optional[dict], hot: bool) -> dict:
+        """The step's per-rank series before the sum over ranks (the
+        reference's ``rank_stats``), each ``[R]`` float32 on the device."""
+        stack = lambda xs: torch.stack(xs).float()  # noqa: E731
+        stats = {
+            "rank_examples": stack([f.n_valid for f in fwd]),
+            "rank_sample_rows": sum(m.sum(1) for m in mb["node_mask"])
+            .float(),
+            "rank_halo_rows": stack([sum(h[1] for h in f.hits) for f in fwd]),
+            "rank_hec_hits": stack([sum(h[0] for h in f.hits) for f in fwd]),
+        }
+        if hot:
+            stats["rank_hot_hits"] = stack([sum(h[2] for h in f.hits)
+                                            for f in fwd])
+        if push is not None:
+            stats["rank_push_rows"] = push["push_rows"].float()
+            stats["rank_push_bytes"] = push["push_bytes"].float()
+        return stats
 
     # -- epochs ------------------------------------------------------------
     def _resolve_pipeline(self, ps: PartitionSet, seed0: int, pipeline):
@@ -589,45 +641,89 @@ class DistTrainer:
         reg = obs.get().registry
         phases = obs.MEASURED_PHASES
         s_policy = cfg.pipeline.sampler.policy
+        health = self.health \
+            if self.health is not None and self.health.enabled else None
+        quality = self.quality \
+            if self.quality is not None and self.quality.enabled else None
+        acc = obs.RankAccumulator(self.num_ranks) \
+            if reg.enabled or health else None
+        guard = health.guard("train_step_loop") if health \
+            else contextlib.nullcontext()
         history = []
-        for ep in range(start_epoch, start_epoch + num_epochs):
-            if (pipeline is not None and s_policy == "cv"
-                    and cfg.pipeline.sampler.device_draw):
-                # control-variate sampling: the draw's weights prefer
-                # vertices with a live line in the HEC as it is now
-                pipeline.set_cv_residency(self._cv_residency(ps, state))
-            if pipeline is not None:
-                mb_iter = pipeline.epoch_batches(ep)
-            else:
-                from repro_torch.train.data import gnn_epoch_iterator
-                mb_iter = self._unstaged(
-                    host for host, _ in gnn_epoch_iterator(ps, cfg, rng))
-            ep_metrics = []
-            ph0 = {p: reg.value("phase_seconds", phase=p) for p in phases}
-            wall0 = time.perf_counter()
-            for mb in mb_iter:
-                with obs.span("step", epoch=ep, step=state["step"]):
-                    m = self.train_step(state, data, mb, state["step"])
-                ep_metrics.append(m)
-                self.step_log.append(m)
-            mean = _epoch_mean(ep_metrics)
-            mean["sampler_policy"] = s_policy
-            if reg.enabled:
-                reg.counter("train_epochs_total",
-                            sampler_policy=s_policy).inc()
-                for p in phases:
-                    mean[f"t_{p}"] = \
-                        reg.value("phase_seconds", phase=p) - ph0[p]
-                mean["t_wall"] = time.perf_counter() - wall0
-            history.append(mean)
-            if log_every and (ep % log_every == 0
-                              or ep == start_epoch + num_epochs - 1):
-                hl = " ".join(
-                    f"l{l}:{mean.get(f'hec_hits_l{l}', 0) / max(mean.get(f'hec_halos_l{l}', 1), 1):.2f}"  # noqa: E501
-                    for l in range(cfg.num_layers))
-                print(f"[{self.mode}] epoch {ep}: loss={mean['loss']:.4f} "
-                      f"acc={mean['acc']:.3f} hit-rates {hl}")
+        with guard:
+            for ep in range(start_epoch, start_epoch + num_epochs):
+                history.append(self._epoch(ps, data, state, ep, pipeline,
+                                           rng, reg, phases, s_policy, acc,
+                                           health, quality))
+                mean = history[-1]
+                if log_every and (ep % log_every == 0
+                                  or ep == start_epoch + num_epochs - 1):
+                    hl = " ".join(
+                        f"l{l}:{mean.get(f'hec_hits_l{l}', 0) / max(mean.get(f'hec_halos_l{l}', 1), 1):.2f}"  # noqa: E501
+                        for l in range(cfg.num_layers))
+                    print(f"[{self.mode}] epoch {ep}: "
+                          f"loss={mean['loss']:.4f} acc={mean['acc']:.3f} "
+                          f"hit-rates {hl}")
         return state, history
+
+    def _epoch(self, ps, data, state, ep, pipeline, rng, reg, phases,
+               s_policy, acc, health, quality) -> dict:
+        """One epoch of :meth:`train_epochs`; returns its history row."""
+        cfg = self.cfg
+        if (pipeline is not None and s_policy == "cv"
+                and cfg.pipeline.sampler.device_draw):
+            # control-variate sampling: the draw's weights prefer
+            # vertices with a live line in the HEC as it is now
+            pipeline.set_cv_residency(self._cv_residency(ps, state))
+        if pipeline is not None:
+            mb_iter = pipeline.epoch_batches(ep)
+        else:
+            from repro_torch.train.data import gnn_epoch_iterator
+            mb_iter = self._unstaged(
+                host for host, _ in gnn_epoch_iterator(ps, cfg, rng))
+        ep_metrics = []
+        ph0 = {p: reg.value("phase_seconds", phase=p) for p in phases}
+        wall0 = time.perf_counter()
+        t_step = 0.0
+        for mb in mb_iter:
+            ts0 = time.perf_counter()
+            with obs.span("step", epoch=ep, step=state["step"]):
+                m = self.train_step(state, data, mb, state["step"])
+            t_step += time.perf_counter() - ts0
+            ep_metrics.append(m)
+            self.step_log.append(m)
+            if acc is not None:
+                acc.add(self.rank_stats)
+        mean = _epoch_mean(ep_metrics)
+        mean["sampler_policy"] = s_policy
+        wall = time.perf_counter() - wall0
+        if reg.enabled:
+            reg.counter("train_epochs_total", sampler_policy=s_policy).inc()
+            for p in phases:
+                mean[f"t_{p}"] = reg.value("phase_seconds", phase=p) - ph0[p]
+            mean["t_wall"] = wall
+        if acc is not None:
+            totals = acc.finish()
+            # R ranks in one process share one clock: each is credited
+            # the epoch's step time (a multi-process run feeds its own)
+            totals["rank_step_seconds"] = np.full(self.num_ranks, t_step,
+                                                  np.float64)
+            if reg.enabled:
+                obs.publish_rank_series(reg, totals)
+            if health:
+                health.observe_epoch(totals, wall_s=wall)
+        if quality:
+            # staleness off the live caches and the convergence point;
+            # the audit (an offline forward pass) on its interval only
+            self.join_push()
+            quality.observe_epoch(ep, metrics=mean)
+            quality.publish_staleness(state["hec"])
+            if state["hot"]:
+                hot_lib.publish_replica_ages(state["hot"],
+                                             life_span=cfg.hec.life_span)
+            if quality.should_audit(ep):
+                self.audit(ps, data, state, epoch=ep)
+        return mean
 
     def _unstaged(self, hosts):
         """Host minibatches copied to the device one by one, in step
@@ -652,6 +748,57 @@ class DistTrainer:
                 res_o[t[t < V]] = True
             masks.append(res_o[np.clip(p.vid_p_to_o(), 0, V - 1)])
         return masks
+
+    @torch.no_grad()
+    def audit(self, ps: PartitionSet, data: Optional[dict], state: dict,
+              epoch: int = 0):
+        """The online exactness audit (``quality`` needed): sample cached
+        lines of each layer's HECs (every rank's, rank by rank) and the
+        fresh hot-tier replicas, recompute their exact ``h^l`` by the
+        sharded offline inference (``layerwise_embeddings_dist``: kernel A
+        for GraphSAGE, G for GAT, on the trainer's own model), and publish
+        the relative L2 error.  ``HEC_0`` holds raw features (exact at any
+        age); hidden layers hold minibatch activations with the live
+        dropout, so even a fresh line carries the sampling error against
+        full-graph inference.  Reads the training state, never writes it;
+        the sampling draws from the plane's own generator."""
+        q = self.quality
+        if q is None:
+            raise ValueError("audit needs DistTrainer(quality=...)")
+        cfg = self.cfg
+        self.join_push()
+        V = len(ps.owner)
+        feats = np.zeros((V, cfg.feat_dim), np.float32)
+        for p in ps.parts:
+            feats[p.solid_vids] = np.asarray(p.features, np.float32)
+        exact = [torch.as_tensor(feats)]
+        if cfg.num_layers > 1:
+            from repro_torch.serve.gnn.distributed.offline import \
+                layerwise_embeddings_dist
+            exact += layerwise_embeddings_dist(
+                cfg, state["model"], ps)[:cfg.num_layers - 1]
+
+        def rows(l, vids):
+            idx = torch.as_tensor(vids, dtype=torch.long,
+                                  device=exact[l].device)
+            return exact[l].index_select(0, idx).cpu().numpy()
+        layer_samples = []
+        for l in range(cfg.num_layers):
+            vids, cached, ages = hec_lib.hec_entries(
+                state["hec"][l], sample=q.cfg.audit_samples, rng=q.rng)
+            layer_samples.append((l, cached, rows(l, vids), ages))
+        hot_samples = None
+        if state["hot"] and data is not None and "hot_vids" in data:
+            hv = data["hot_vids"][0].cpu().numpy()   # every rank's the same
+            hot_samples = []
+            for l, st in enumerate(state["hot"]):
+                vids, vals, _ = hot_lib.tier_entries(
+                    st, hv, life_span=cfg.hec.life_span)
+                if len(vids):
+                    width = exact[l].shape[1]
+                    hot_samples.append((vals[:, :width], rows(l, vids)))
+        return q.run_audit(epoch, layer_samples, hot_samples=hot_samples,
+                           source="train")
 
     @torch.no_grad()
     def evaluate(self, ps: PartitionSet, data: dict, state: dict,

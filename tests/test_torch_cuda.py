@@ -8,9 +8,12 @@ a machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerance: the serve layer, UPDATE (forward and backward), AGG and GAT
-AGG sum float32 in another order than their plain versions, and the AGG
-and GAT AGG gradients add with atomics in a run-dependent order, so
-|kernel - plain| <= 1e-4 * max(1, |plain|); the dropout's zero pattern,
+AGG sum float32 in another order than their plain versions, so
+|kernel - plain| <= 1e-4 * max(1, |plain|); the AGG and GAT AGG
+gradients (F and H) sum in a fixed order, so they repeat bit for bit
+from launch to launch, F is its plain version's bits wherever a source
+row has at most ``slot_index.CHUNK`` slots, and two trainings from the
+same state give the same bits; the dropout's zero pattern,
 UPDATE's dZ (and its db from one call to the next), the HEC probe + load
 (single and batched) and the fanout draw are held bit for bit, UPDATE's
 forward bit for bit to its pinned outputs, and AGG's forward (mean and
@@ -24,7 +27,8 @@ import torch
 
 from repro_torch.cache import hec
 from repro_torch.kernels import (_build, gat_edge, hec_search, ref, sage_agg,
-                                 sample_draw, serve_fused, update_fused)
+                                 sample_draw, serve_fused, slot_index,
+                                 update_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -1230,3 +1234,153 @@ def test_two_stream_trace_busy_share_at_most_one(dev):
     assert obs.validate_chrome_trace(trace) == len(dt.events) > 0
     assert obs.busy_us(obs.device_events(trace)) == pytest.approx(
         obs.busy_us(dt.events))
+
+
+# ---------------------------------------------------------------------------
+# fixed-order gradients (F, H): the same bits on every launch and run
+# ---------------------------------------------------------------------------
+def hub_nbr(rng, N, M, f, hub=7, hub_slots=4500):
+    """Collision-heavy slots: one source row that more than 4,096 slots
+    point at, a second of CHUNK + 1, -1 pads and indices past N."""
+    nbr = rng.integers(-1, N + 3, (M, f)).astype(np.int32)
+    flat = nbr.reshape(-1)
+    pick = rng.choice(flat.size, hub_slots + slot_index.CHUNK + 1,
+                      replace=False)
+    flat[pick[:hub_slots]] = hub
+    flat[pick[hub_slots:]] = hub + 1
+    return nbr
+
+
+def inflated(ix, by=3):
+    """The same index with a larger bound on long chunks: another grid."""
+    return slot_index.SlotIndex(ix.offsets, ix.slots, ix.lbase, ix.num_src,
+                                ix.lbound * by + 5)
+
+
+@pytest.mark.parametrize("N,M,f,D", [(3000, 2000, 5, 256), (900, 1200, 7, 6),
+                                     (176000, 16000, 10, 256)])
+def test_agg_gradient_fixed_order(dev, N, M, f, D):
+    """F on a hub of > 4,096 slots, -1 and >= N slots: three launches and a
+    larger grid give the same bits; within tolerance of the plain version
+    in float64 (a float32 sum of thousands of terms parts from the exact
+    one by ~1e-4 in any order), and the float32 plain version's bits on
+    every row of at most CHUNK slots."""
+    rng = np.random.default_rng(N + f)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    nbr = t(hub_nbr(rng, N, M, f))
+    valid = rng.random(N) > 0.15
+    valid[[7, 8]] = True
+    valid = t(valid)
+    _, cnt = sage_agg.sage_agg_fwd(t(rng.normal(size=(N, D)).astype(
+        np.float32)), nbr, valid)
+    g = t(rng.normal(size=(M, D)).astype(np.float32))
+    ix = slot_index.slot_index(nbr, valid, N)
+    runs = [sage_agg.sage_agg_bwd(g, nbr, valid, cnt, N, ix) for _ in range(3)]
+    runs.append(sage_agg.sage_agg_bwd(g, nbr, valid, cnt, N, inflated(ix)))
+    runs.append(sage_agg.sage_agg_bwd(g, nbr, valid, cnt, N))
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    plain = ref.sage_agg_bwd_ref(g.cpu(), nbr.cpu(), valid.cpu(), cnt.cpu(),
+                                 N)
+    got = runs[0].cpu()
+    assert close(got.double(), ref.sage_agg_bwd_ref(
+        g.cpu().double(), nbr.cpu(), valid.cpu(), cnt.cpu().double(), N))
+    lens = (ix.offsets[1:] - ix.offsets[:-1]).cpu()
+    short = lens <= slot_index.CHUNK
+    assert bool((lens > 4096).any()) and bool(short.any())
+    assert torch.equal(got[short], plain[short])
+
+
+@pytest.mark.parametrize("N,M,f,H,dh", [(3000, 2000, 5, 4, 256),
+                                        (1300, 1200, 7, 1, 172),
+                                        (800, 700, 9, 3, 6)])
+@pytest.mark.parametrize("dst", [False, True])
+def test_gat_gradient_fixed_order(dev, N, M, f, H, dh, dst):
+    """H (both passes) on a hub of > 4,096 slots, -1 and >= N slots, with
+    and without dst: three launches and a larger grid give the same bits,
+    within tolerance of the plain version in float64 (as F's test)."""
+    kw = gat_inputs(dev, N + f + H, N, M, f, H, dh, dst)
+    rng = np.random.default_rng(N + H)
+    kw["nbr_idx"] = torch.as_tensor(hub_nbr(rng, N, M, f), device=dev)
+    kw["src_valid"][[7, 8]] = True
+    g = torch.randn(M, H * dh, device=dev)
+    ix = slot_index.slot_index(kw["nbr_idx"], kw["src_valid"], N)
+    runs = [gat_edge.gat_edge_bwd(g, **kw, index=ix) for _ in range(3)]
+    runs.append(gat_edge.gat_edge_bwd(g, **kw, index=inflated(ix)))
+    runs.append(gat_edge.gat_edge_bwd(g, **kw))
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], r))
+    wide = {k: (v.double() if k in ("z", "e_u", "e_v") else v)
+            for k, v in kw.items()}
+    plain = ref.gat_edge_bwd_ref(g.double(), **wide)
+    for a, b in zip(runs[0], plain):
+        assert a.shape == b.shape and close(a.double(), b)
+
+
+def test_slot_index_on_card_equals_cpu(dev):
+    """The index build gives the CPU's integers on the card."""
+    rng = np.random.default_rng(4)
+    N, M, f = 5000, 3000, 6
+    nbr = hub_nbr(rng, N, M, f)
+    valid = rng.random(N) > 0.2
+    a = slot_index.slot_index(torch.as_tensor(nbr, device=dev),
+                              torch.as_tensor(valid, device=dev), N)
+    b = slot_index.slot_index(torch.as_tensor(nbr), torch.as_tensor(valid),
+                              N)
+    for k in ("offsets", "slots", "lbase"):
+        assert torch.equal(getattr(a, k).cpu(), getattr(b, k)), k
+    assert a.lbound == b.lbound
+
+
+def repeat_run(dev, model, steps=3):
+    """``steps`` aep steps of a 4-rank trainer on the card from seed 3:
+    the step metrics and every tensor of the state after them."""
+    from repro_torch.configs.gnn import HECConfig, small_gnn_config
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
+                                               minibatch_to_device)
+    g = synthetic_graph(num_vertices=3000, avg_degree=10, num_classes=6,
+                        feat_dim=24, seed=0)
+    ps = partition_graph(g, 4, seed=0)
+    cfg = small_gnn_config(model, batch_size=64, feat_dim=24, num_classes=6,
+                           hidden_size=32, num_hidden_layers=2,
+                           fanouts=(4, 5, 6),
+                           hec=HECConfig(cache_size=4096, ways=4,
+                                         push_limit=128))
+    plan = SamplingPlan(ps, cfg, 0)
+    hosts = list(plan.batches(plan.epoch_schedule(0), 0))[:steps]
+    tr = DistTrainer(cfg, 4, device=dev)
+    data = build_dist_data(ps, cfg, dev)
+    st = tr.init_state(seed=3, dist_data=data)
+    logs = [tr.train_step(st, data, minibatch_to_device(h, dev), i)
+            for i, h in enumerate(hosts)]
+    tr.join_push()
+    torch.cuda.synchronize()
+    return logs, state_tensors(st)
+
+
+@pytest.mark.parametrize("model", ["graphsage", "gat"])
+def test_training_repeats_bit_for_bit(dev, model):
+    """Two card trainings of 3 steps from the same state and minibatches
+    give the same bits: every metric, parameter, HEC tag, age and value,
+    and every queued row."""
+    la, sa_ = repeat_run(dev, model)
+    lb, sb = repeat_run(dev, model)
+    assert la == lb
+    assert bit_equal(sa_, sb)
+
+
+@pytest.mark.parametrize("model", ["graphsage", "gat"])
+def test_step_under_deterministic_algorithms(dev, model, monkeypatch):
+    """A training step with torch.use_deterministic_algorithms(True) raises
+    nothing: no op on the step's path is one that torch knows to be
+    order-dependent on the card (cuBLAS's workspace set as it asks)."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        logs, _ = repeat_run(dev, model, steps=1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert np.isfinite(logs[0]["loss"])
