@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together, into ``build/kernels/``), then runs eleven
+source, all started together, into ``build/kernels/``), then runs twelve
 phases on one card, phases 1-4, 7, 9 (b) and 10 at the paper's full GraphSAGE
 width (128 -> 256 -> 256 -> 172, fanouts 5/10/15), phases 5-6 at its full
 GAT width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172, one head at the
@@ -180,7 +180,34 @@ last layer) and phases 8 and 9 (c) at both:
      ``CHUNK`` + 1, -1 pads, indices past N): three launches bit-equal,
      within tolerance of the plain versions in float64 (a 5,000-term
      float32 sum parts from the exact one by ~1e-4 in any order), F the
-     plain version's bits on its rows of at most ``CHUNK`` slots.
+     plain version's bits on its rows of at most ``CHUNK`` slots;
+ 12. the resilience plane, the nineteenth to twenty-second main paths:
+     (0) kernels C, A, E, G and H on NaN rows (E also on +-inf) at the
+     paths' layer shapes (``P12_NAN_SHAPES``), valid and invalid sources
+     and row 0 (which every pad reads) poisoned: NaN exactly where the
+     plain versions have it, elsewhere within tolerance (C's dZ and E's
+     counts bit for bit; H on a fanout whose every slot is included); (a)
+     GraphSAGE at phase 4's graph, widths and settings, ``P12_EPOCHS`` = 3
+     epochs a run, the HEC cut to ``P12_HEC_SIZE`` = 262,144 lines x 8
+     ways per layer and rank (a whole-state archive of 2.7 GB, not 10.2):
+     unarmed (checkpointed after epoch 1), armed with ``nan_guard`` and no
+     fault (the same SHA-256 of the checkpoint leaves, metrics and
+     launches), the chaos schedule ``P12_CHAOS`` twice (the same bits,
+     steps skipped, four events, parameters finite, Adam's count short by
+     the skips, ``FLIGHT_resilience.json``), ``kill_prefetch`` at (0, 1)
+     (one retry, epoch 0's bits) and a fresh ``python`` process that
+     restores the checkpoint and trains epoch 2 (the unarmed run's bits);
+     the archive's bytes and the save and restore seconds printed; (b)
+     GAT at phase 11 (b)'s four steps: armed and clean against unarmed
+     bit for bit, a ``nan_step`` at ``P12_GAT_NAN`` skipped with finite
+     parameters; (c) phase 8's sharded flow of both models with
+     ``failover=True`` and every rank alive: phase 8's answers and
+     launches; then on phase 8 (c)'s exactness graph rank 1 marked dead
+     with a failing probe (its hub queries the offline rows bit for bit,
+     its cold ones zeros, ``serve_degraded`` 1, J run with rank 1 masked
+     and held bit for bit to its plain version), and a passing probe:
+     rank 1's queries within tolerance of the offline rows, one dead and
+     one recovered event.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
@@ -241,6 +268,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3593,6 +3621,561 @@ def phase11_kernels(torch, np):
               + (f", {r['rows_bitwise_plain']} of {r['rows']} rows the "
                  f"plain version's bits" if "rows" in r else ""))
 
+# ---------------------------------------------------------------------------
+# phase 12: the resilience plane
+# ---------------------------------------------------------------------------
+P12_DIR = os.path.join(ROOT, "build", "phase12")
+P12_EPOCHS = 3              # (a): epochs of each run
+# (a)'s one cut: 262,144 HEC lines (x 8 ways) per layer and rank, not 1M,
+# so an archive of the whole state holds 2.7 GB, not 10.2 GB
+P12_HEC_SIZE = 262_144
+P12_CHAOS = [{"kind": "nan_step", "epoch": 1, "step": 0, "rank": 1},
+             {"kind": "corrupt_push", "epoch": 1, "step": 3, "rank": 1},
+             {"kind": "drop_push", "epoch": 2, "step": 1, "rank": 0},
+             {"kind": "delay_rank", "epoch": 2, "step": 0, "rank": 0,
+              "seconds": 0.01}]
+P12_GAT_NAN = {"kind": "nan_step", "epoch": 0, "step": 1, "rank": 2}
+# (0)'s shapes: C (N, C, K) and E (N, M, f, D) at phase 4's layers 0-2
+# (rank 0's first minibatch), A (N, M, f, D, K) at phase 3's, G and H
+# (N, M, f, H, dh) at phase 6's layers 1 and 2 and a serving layer 0
+P12_NAN_SHAPES = {
+    "C": [(176_000, 128, 256), (16_000, 256, 256), (1000, 256, 172)],
+    "E": [(1_056_000, 176_000, 5, 128), (176_000, 16_000, 10, 256),
+          (16_000, 1000, 15, 256)],
+    "A": [(67_584, 11_264, 5, 128, 256), (11_264, 2048, 10, 256, 256),
+          (2048, 64, 15, 256, 172)],
+    "G": [(67_584, 11_264, 5, 4, 256), (176_000, 16_000, 10, 4, 256),
+          (16_000, 1000, 15, 1, 172)]}
+
+
+def nan_close(torch, got, want):
+    """NaN and +-inf exactly where ``want`` has them, finite elsewhere and
+    within ``TOL``; returns (ok, max |d| over the finite ones, NaNs)."""
+    fin = torch.isfinite(want)
+    ok, err = close_to(got[fin], want[fin])
+    inf = torch.isinf(want)
+    return (ok and bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+            and bool(torch.equal(got[inf], want[inf]))
+            and bool(torch.isfinite(got[fin]).all())), err, \
+        int(torch.isnan(want).sum())
+
+
+def phase12_nan(torch, np):
+    """(0): kernels C, A, E, G and H on NaN rows at the main paths' layer
+    shapes (rank 0's first minibatch of phases 4 and 6, phase 3's layer
+    0): NaN exactly where the plain version has it, elsewhere within
+    tolerance (E's counts and C's dZ bit for bit); E also on +-inf rows.
+    Valid and invalid sources are poisoned, row 0 (which every pad reads)
+    among them.  H on a fanout whose every slot is included, with NaN
+    rows in z and e_u and a NaN row of g."""
+    from repro_torch.kernels import gat_edge as ge
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sage_agg as sa
+    from repro_torch.kernels import serve_fused as sf
+    from repro_torch.kernels import update_fused as uf
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+
+    def normal(*s, scale=1.0):
+        return t((rng.normal(size=s) * scale).astype(np.float32))
+
+    def inputs(N, M, f, D):
+        nbr = rng.integers(-1, N, (M, f)).astype(np.int32)
+        nbr[1] = -1
+        valid = rng.random(N) > 0.15
+        bad = [0, int(np.flatnonzero(valid)[3]),
+               int(np.flatnonzero(~valid)[2])]
+        return t(nbr), t(valid), bad
+    out = []
+    for N, C, K in P12_NAN_SHAPES["C"]:
+        agg, self_h = normal(N, C), normal(N, C)
+        wn, ws, b = normal(C, K, scale=0.1), normal(C, K, scale=0.1), \
+            normal(K, scale=0.1)
+        agg[[0, 7, N - 1]] = float("nan")
+        self_h[[3, 7]] = float("nan")
+        agg[11, 5] = float("nan")
+        for relu, p in ((True, 0.5), (True, 0.0), (False, 0.0)):
+            got = uf.update_fused_fwd(agg, self_h, wn, ws, b, relu=relu,
+                                      dropout=p, seed=9)
+            want = ref.fused_update_ref(agg, self_h, wn, ws, b, relu=relu,
+                                        dropout=p, seed=9)
+            ok, err, n = nan_close(torch, got, want)
+            check(ok and n > 0, f"phase 12 (0): C at {N}x{C}->{K} relu "
+                  f"{relu} dropout {p}: NaN or values part from the plain "
+                  f"version (max |d| {err:.3e})")
+            if relu:
+                g = normal(N, K)
+                dz, _ = uf.update_fused_bwd(g, want, relu=True, dropout=p,
+                                            seed=9)
+                dz_p, _ = ref.fused_update_bwd_ref(g, want, relu=True,
+                                                   dropout=p, seed=9)
+                check(bool(torch.equal(dz, dz_p)), f"phase 12 (0): D at "
+                      f"{N}x{K}: dZ not bit-equal on NaN rows")
+        out.append(f"C {N}x{C}->{K} {n} NaN")
+    for N, M, f, D in P12_NAN_SHAPES["E"]:
+        nbr, valid, bad = inputs(N, M, f, D)
+        h = normal(N, D)
+        h[bad] = float("nan")
+        vrows = torch.nonzero(valid).flatten()
+        h[int(vrows[9]), 0] = float("inf")
+        h[int(torch.nonzero(~valid).flatten()[5]), -1] = -float("inf")
+        mean, cnt = sa.sage_agg_fwd(h, nbr, valid)
+        mean_p, cnt_p = ref.sage_agg_ref(h, nbr, valid)
+        ok, err, n = nan_close(torch, mean, mean_p)
+        check(ok and n > 0 and bool(torch.equal(cnt, cnt_p)),
+              f"phase 12 (0): E at {M}x{f}x{D}: NaN, inf or values part "
+              f"from the plain version (max |d| {err:.3e})")
+        out.append(f"E {M}x{f}x{D} {n} NaN")
+    for N, M, f, D, K in P12_NAN_SHAPES["A"]:
+        nbr, valid, bad = inputs(N, M, f, D)
+        h = normal(N, D)
+        h[bad] = float("nan")
+        wn, ws, b = normal(D, K, scale=0.1), normal(D, K, scale=0.1), \
+            normal(K, scale=0.1)
+        for relu in (True, False):
+            kw = dict(h_src=h, nbr_idx=nbr, src_valid=valid, wn=wn, ws=ws,
+                      b=b, relu=relu)
+            got = sf.serve_fused_layer(**kw)
+            want = ref.serve_layer_ref(**kw)
+            ok, err, n = nan_close(torch, got, want)
+            check(ok and n > 0, f"phase 12 (0): A at {M}x{f}x{D}->{K} "
+                  f"relu {relu}: NaN or values part from the plain version "
+                  f"(max |d| {err:.3e})")
+        out.append(f"A {M}x{f}x{D}->{K} {n} NaN")
+    for N, M, f, H, dh in P12_NAN_SHAPES["G"]:
+        nbr, valid, bad = inputs(N, M, f, H * dh)
+        z = normal(N, H, dh)
+        eu, ev = normal(N, H), normal(M, H)
+        z[bad] = float("nan")
+        eu[int(torch.nonzero(valid).flatten()[9])] = float("nan")
+        ev[4, 0] = float("nan")
+        kw = dict(z=z, e_u=eu, e_v=ev, nbr_idx=nbr, src_valid=valid)
+        got = ge.gat_edge_fwd(**kw)
+        want = ref.gat_edge_ref(**kw)
+        ok, err, n = nan_close(torch, got, want)
+        check(ok and n > 0, f"phase 12 (0): G at {M}x{f}x{H}x{dh}: NaN or "
+              f"values part from the plain version (max |d| {err:.3e})")
+        kw.update(nbr_idx=t(rng.integers(0, N, (M, f)).astype(np.int32)),
+                  src_valid=torch.ones_like(valid))
+        g = normal(M, H * dh)
+        g[2] = float("nan")
+        g[5, -1] = float("nan")
+        got_h = ge.gat_edge_bwd(g, **kw)
+        want_h = ref.gat_edge_bwd_ref(g, **kw)
+        for name, a, w in zip(("dz", "de_u", "de_v"), got_h, want_h):
+            ok, err, nh = nan_close(torch, a, w)
+            check(ok and nh > 0, f"phase 12 (0): H at {M}x{f}x{H}x{dh}: "
+                  f"{name}'s NaN or values part from the plain version "
+                  f"(max |d| {err:.3e})")
+        out.append(f"G/H {M}x{f}x{H}x{dh} {n} NaN")
+        del z, got, want, got_h, want_h
+    torch.cuda.empty_cache()
+    print("phase 12 (0): NaN where the plain versions have it: "
+          + "; ".join(out))
+
+
+def sha256_leaves(torch, state) -> str:
+    """SHA-256 over the state's checkpoint leaves (the archive's order)."""
+    import hashlib
+
+    from repro_torch.train import checkpoint as ckpt
+    h = hashlib.sha256()
+    for leaf in ckpt.state_leaves(state):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        h.update(leaf.tobytes())
+    return h.hexdigest()
+
+
+def phase12_setup(model="graphsage"):
+    """Phase 4's (6's) graph, partition, launcher config (HEC cut to
+    ``P12_HEC_SIZE`` for GraphSAGE) and data on the card."""
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.launch import train
+    from repro_torch.train.gnn_trainer import build_dist_data
+    argv = TRAIN_ARGS + ["--vertices", str(TRAIN_VERTICES)]
+    if model == "gat":
+        argv += ["--model", "gat", "--lr", "0.001", "--hec-size",
+                 str(GAT_HEC_SIZE)]
+    else:
+        argv += ["--hec-size", str(P12_HEC_SIZE)]
+    args = train.parse_args(argv)
+    cfg = train.gnn_config(args)
+    g = synthetic_graph(num_vertices=args.vertices, avg_degree=args.degree,
+                        num_classes=args.classes, feat_dim=args.feat_dim,
+                        seed=args.seed)
+    ps = partition_graph(g, args.ranks, seed=args.seed)
+    return args, cfg, ps, build_dist_data(ps, cfg, "cuda")
+
+
+def phase12_resume(ckpt_dir: str, epoch: int) -> None:
+    """(a) run 5's second half, in a fresh process: restore the newest
+    checkpoint under ``ckpt_dir`` and train epoch ``epoch``; prints a
+    RESULT line with the SHA-256 of the state's leaves."""
+    import torch
+
+    from repro_torch import resilience
+    from repro_torch.kernels import _build
+    from repro_torch.train.gnn_trainer import DistTrainer
+    _build.build(KERNELS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, cfg, ps, data = phase12_setup()
+    plane = resilience.ResiliencePlane(resilience.ResilienceConfig(
+        ckpt_dir=ckpt_dir, ckpt_every=P12_EPOCHS + 1))
+    tr = DistTrainer(cfg=cfg, num_ranks=args.ranks, device="cuda",
+                     resilience=plane)
+    state = tr.init_state(seed=args.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, saved = plane.ckpt.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state, _ = tr.train_epochs(ps, data, state, 1, start_epoch=saved + 1)
+    tr.join_push()
+    print("RESULT" + json.dumps({"saved": saved, "restore_s": restore_s,
+                                 "sha": sha256_leaves(torch, state),
+                                 "step": state["step"],
+                                 "adam": state["opt"].step}))
+
+
+def phase12_train(torch, np, card):
+    """(a): GraphSAGE at phase 4's graph, widths and settings (HEC cut to
+    ``P12_HEC_SIZE`` lines per layer and rank), ``P12_EPOCHS`` epochs per
+    run, compared by the SHA-256 of the checkpoint leaves: (1) unarmed
+    (with a checkpoint after epoch 1: a plane that only checkpoints does
+    not arm the step), (2) armed with ``nan_guard`` and no fault: (1)'s
+    bits and launches, (3) the chaos schedule ``P12_CHAOS`` twice: equal,
+    every fault fired, steps skipped, parameters finite, not (1)'s bits,
+    ``FLIGHT_resilience.json`` written, (4) ``kill_prefetch`` at (0, 1),
+    one epoch: one retry and (1)'s bits after epoch 0, (5) a fresh
+    process restores (1)'s checkpoint and trains epoch 2: (1)'s bits.
+    Returns run (2)'s launches."""
+    import shutil
+
+    from repro_torch import obs, resilience
+    from repro_torch.train.gnn_trainer import DistTrainer
+    phase = "phase 12 (a)"
+    args, cfg, ps, data = phase12_setup()
+    R = args.ranks
+    shutil.rmtree(P12_DIR, ignore_errors=True)
+    os.makedirs(P12_DIR)
+    ck_dir = os.path.join(P12_DIR, "ck")
+    per_step, _ = phase4_counts()
+
+    def run(label, plane, epochs=P12_EPOCHS):
+        obs.configure()
+        zero_launches()
+        tr = DistTrainer(cfg=cfg, num_ranks=R, device="cuda",
+                         resilience=plane)
+        state = tr.init_state(seed=args.seed)
+        every = label == "unarmed"          # (4) reads epoch 0's bits
+        shas, hist, save_s = [], [], []
+        if plane is not None and plane.ckpt is not None:
+            save = plane.ckpt.save
+
+            def timed_save(*a, _save=save):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = _save(*a)
+                save_s.append(time.perf_counter() - t0)
+                return path
+            plane.ckpt.save = timed_save
+        for ep in range(epochs):
+            state, h = tr.train_epochs(ps, data, state, 1, start_epoch=ep)
+            hist += h
+            tr.join_push()
+            if every:
+                shas.append(sha256_leaves(torch, state))
+        if not every:
+            shas.append(sha256_leaves(torch, state))
+        launches = read_launches()
+        steps = len(tr.step_log)
+        res = {"label": label, "shas": shas, "launches": launches,
+               "steps": steps, "log": tr.step_log, "plane": plane,
+               "step_ms": 1e3 * sum(h["t_step"] for h in hist) / steps,
+               "finite": all(bool(torch.isfinite(p).all()) for p in
+                             state["model"].parameter_list()),
+               "adam": state["opt"].step, "save_s": save_s}
+        skipped = sum(m.get("skipped", 0.0) for m in tr.step_log)
+        for n, c in launches.items():
+            want = steps * per_step.get(n, 0)
+            check(c == want, f"{phase} {label}: {n} launched {c} times, "
+                  f"expected {want} ({steps} steps, {skipped:.0f} skipped)")
+        del tr, state
+        torch.cuda.empty_cache()
+        return res
+
+    base = run("unarmed", resilience.ResiliencePlane(
+        resilience.ResilienceConfig(ckpt_dir=ck_dir, ckpt_every=2,
+                                    ckpt_keep=1)))
+    check(not base["plane"].step_armed and base["adam"] == base["steps"],
+          f"{phase}: the checkpointing plane armed the step")
+    archive = os.path.join(ck_dir, "ckpt_ep00001.npz")
+    check(sorted(os.listdir(ck_dir)) == ["LATEST", "ckpt_ep00001.npz"],
+          f"{phase}: checkpoints {sorted(os.listdir(ck_dir))}")
+    nbytes = os.path.getsize(archive)
+    armed = run("armed", resilience.ResiliencePlane(
+        resilience.ResilienceConfig(nan_guard=True)))
+    check(armed["shas"][-1] == base["shas"][-1],
+          f"{phase}: armed with no fault parts from the unarmed run")
+    check(all(m["skipped"] == 0.0 for m in armed["log"]) and [
+        {k: v for k, v in m.items() if k != "skipped"}
+        for m in armed["log"]] == base["log"],
+          f"{phase}: armed with no fault parts in a step's metrics")
+    extra = {n: armed["launches"][n] - base["launches"][n]
+             for n in base["launches"]}
+    chaos = []
+    for k in range(2):
+        d = os.path.join(P12_DIR, f"chaos{k}")
+        os.makedirs(d)
+        plane = resilience.ResiliencePlane(resilience.ResilienceConfig(
+            nan_guard=True, flight_dir=d,
+            schedule=resilience.FaultSchedule.from_dicts(P12_CHAOS)))
+        chaos.append(run(f"chaos {k}", plane))
+        chaos[-1]["flight"] = os.path.exists(
+            os.path.join(d, "FLIGHT_resilience.json"))
+    c0, c1 = chaos
+    skips = [m["skipped"] for m in c0["log"]]
+    check(c0["shas"] == c1["shas"] and skips == [
+        m["skipped"] for m in c1["log"]],
+          f"{phase}: the chaos run does not repeat bit for bit")
+    check(c0["plane"].skipped_steps == c1["plane"].skipped_steps >= 1
+          and len(c0["plane"].events) == 4 and c0["finite"]
+          and c0["shas"][-1] != base["shas"][-1] and c0["flight"]
+          and c0["adam"] == c0["steps"] - c0["plane"].skipped_steps,
+          f"{phase}: chaos: skipped {c0['plane'].skipped_steps}, events "
+          f"{len(c0['plane'].events)}, finite {c0['finite']}, flight "
+          f"{c0['flight']}, Adam count {c0['adam']}")
+    before = obs.get().registry.value("prefetch_retries")
+    kill = run("kill_prefetch", resilience.ResiliencePlane(
+        resilience.ResilienceConfig(schedule=resilience.FaultSchedule([
+            resilience.FaultSpec("kill_prefetch", 0, 1)]))), epochs=1)
+    retries = obs.get().registry.value("prefetch_retries") - before
+    check(retries == 1 and kill["shas"][0] == base["shas"][0],
+          f"{phase}: kill_prefetch: {retries} retries, bits "
+          f"{'equal' if kill['shas'][0] == base['shas'][0] else 'differ'}")
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.phase12_resume(sys.argv[1], int(sys.argv[2]))",
+         ck_dir, "2"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    check(proc.returncode == 0, f"{phase}: the resuming process failed:\n"
+          f"{proc.stderr[-3000:]}")
+    child = json.loads([x for x in proc.stdout.splitlines()
+                        if x.startswith("RESULT")][-1][len("RESULT"):])
+    check(child["saved"] == 1 and child["sha"] == base["shas"][-1]
+          and child["adam"] == base["adam"]
+          and child["step"] == base["steps"],
+          f"{phase}: the fresh process's run parts from the uninterrupted "
+          f"one: {child}")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    print(f"{phase}: GraphSAGE, 4 ranks, phase 4's graph and settings, HEC "
+          f"cut to {P12_HEC_SIZE:,} lines x 8 ways per layer and rank "
+          f"(phase 4: 1M), {P12_EPOCHS} epochs of "
+          f"{base['steps'] // P12_EPOCHS} steps per run")
+    print(f"{phase}: (1) unarmed and (2) armed (nan_guard, no fault): the "
+          f"same SHA-256 {base['shas'][-1][:16]} and metrics; step "
+          f"{base['step_ms']:.1f} / {armed['step_ms']:.1f} ms (host clock, "
+          f"indicative); the armed step's extra launches {extra} [{card}]")
+    print(f"{phase}: (3) chaos {P12_CHAOS}, twice: SHA-256 "
+          f"{c0['shas'][-1][:16]} both, skipped steps "
+          f"{c0['plane'].skipped_steps} at "
+          f"{[i for i, s in enumerate(skips) if s]}"
+          f", {len(c0['plane'].events)} events, parameters finite, Adam "
+          f"count {c0['adam']} of {c0['steps']} steps, "
+          f"FLIGHT_resilience.json written; step {c0['step_ms']:.1f} ms")
+    print(f"{phase}: (4) kill_prefetch at (0, 1): {retries:.0f} retry, "
+          f"epoch 0's bits; (5) archive {nbytes:,} bytes, saved in "
+          f"{base['save_s'][0]:.2f} s, restored in a fresh process in "
+          f"{child['restore_s']:.2f} s, epoch 2 trained there: the "
+          f"uninterrupted run's SHA-256 [{card}]")
+    return armed["launches"]
+
+
+def phase12_gat(torch, np, card):
+    """(b): GAT at phase 6's settings, phase 11 (b)'s first
+    ``P11_STEPS`` steps: armed with ``nan_guard`` and no fault, every bit
+    and launch of the unarmed run; a ``nan_step`` at ``P12_GAT_NAN``:
+    that step skipped, every other step applied, parameters finite.
+    Returns the armed run's launches."""
+    from repro_torch import obs, resilience
+    from repro_torch.train.gnn_trainer import DistTrainer
+    phase = "phase 12 (b) gat"
+    args, cfg, ps, data = phase12_setup("gat")
+    src = FewSteps(ps, cfg, P11_STEPS, "cuda")
+    runs = {}
+    for label, plane in (
+            ("unarmed", None),
+            ("armed", resilience.ResiliencePlane(
+                resilience.ResilienceConfig(nan_guard=True))),
+            ("nan_step", resilience.ResiliencePlane(
+                resilience.ResilienceConfig(
+                    nan_guard=True, schedule=resilience.FaultSchedule
+                    .from_dicts([P12_GAT_NAN]))))):
+        obs.configure()
+        zero_launches()
+        tr = DistTrainer(cfg=cfg, num_ranks=args.ranks, device="cuda",
+                         resilience=plane)
+        state = tr.init_state(seed=args.seed)
+        state, _ = tr.train_epochs(ps, data, state, 1, pipeline=src)
+        tr.join_push()
+        runs[label] = {"log": tr.step_log, "launches": read_launches(),
+                       "digests": state_digests(torch, state),
+                       "finite": all(bool(torch.isfinite(p).all()) for p in
+                                     state["model"].parameter_list()),
+                       "adam": state["opt"].step}
+        del tr, state
+        torch.cuda.empty_cache()
+    u, a, n = runs["unarmed"], runs["armed"], runs["nan_step"]
+    check(a["digests"] == u["digests"] and a["launches"] == u["launches"]
+          and [{k: v for k, v in m.items() if k != "skipped"}
+               for m in a["log"]] == u["log"],
+          f"{phase}: armed with no fault parts from the unarmed run")
+    skips = [m["skipped"] for m in n["log"]]
+    check(skips == [float(i == P12_GAT_NAN["step"])
+                    for i in range(P11_STEPS)] and n["finite"]
+          and n["adam"] == P11_STEPS - 1
+          and n["digests"]["params"] != u["digests"]["params"],
+          f"{phase}: nan_step: skipped {skips}, finite {n['finite']}, "
+          f"Adam count {n['adam']}")
+    print(f"{phase}: armed and unarmed: the same bits and launches "
+          f"({u['launches']}); nan_step at {P12_GAT_NAN}: skipped {skips}, "
+          f"losses {[m['loss'] for m in n['log']]}, parameters finite "
+          f"[{card}]")
+    return a["launches"]
+
+
+def phase12_serve(torch, np, args, card):
+    """(c): sharded serving of both models.  Phase 8's launcher flow with
+    ``failover=True``: every answer phase 8's bits, the same launches.
+    Then, on phase 8 (c)'s exactness graph (every degree within the
+    fanout, 4 shards, hidden layers and hot tier warmed from the sharded
+    offline pass), rank 1 marked dead with a failing probe: its hub
+    queries answer the offline rows bit for bit, its cold ones zeros,
+    ``serve_degraded`` 1; a round of alive ranks' queries runs J with rank
+    1 masked (held bit for bit to its plain version); a passing probe
+    closes the breaker and fresh queries of rank 1's vertices are within
+    tolerance of the offline rows; one dead and one recovered event.
+    Returns the failover flows' launches by model."""
+    import repro_torch.comm.engine as engine
+    import repro_torch.serve.gnn.distributed as dist
+    from repro_torch import obs
+    from repro_torch.configs.gnn import GAT_PAPERS100M, GRAPHSAGE_PAPERS100M
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.kernels import hec_search as hs
+    from repro_torch.launch import gnn_serve_dist
+    from repro_torch.models.gnn import build_model
+    from repro_torch.serve.gnn import ServeCacheConfig
+    dev = torch.device("cuda")
+    launches = {}
+    orig = dist.DistServeConfig
+    for preset in ("graphsage-papers100m", "gat-papers100m"):
+        model = preset.split("-")[0]
+        dist.DistServeConfig = lambda **kw: orig(failover=True, **kw)
+        zero_launches()
+        try:
+            res = gnn_serve_dist.run(gnn_serve_dist.parse_args([
+                "--preset", preset, "--vertices", str(args.vertices),
+                "--queries", str(args.queries), "--device", "cuda"]))
+            launches[model] = read_launches()
+        finally:
+            dist.DistServeConfig = orig
+        check(res["srv"].breaker is not None,
+              f"phase 12 (c) {model}: the flow ran without failover")
+        want = ANSWERS[f"sharded_{model}"]
+        for got, w in zip((answers(np, res["serve"]),
+                           answers(np, res["repeat"])), want):
+            check(np.array_equal(got.view(np.int32), w.view(np.int32)),
+                  f"phase 12 (c) {model}: failover with every rank alive "
+                  f"parts from phase 8's answers")
+        check(launches[model] == ANSWERS[f"sharded_{model}_launches"],
+              f"phase 12 (c) {model}: launches {launches[model]} differ "
+              f"from phase 8's")
+        del res
+        torch.cuda.empty_cache()
+    g = synthetic_graph(num_vertices=3000, avg_degree=2, num_classes=172,
+                        feat_dim=128, seed=3)
+    part = partition_graph(g, 1, seed=0).parts[0]
+    ps = partition_graph(g, DIST_RANKS, seed=0)
+    max_deg = int((part.indptr[1:] - part.indptr[:-1]).max())
+    out = []
+    for base in (GRAPHSAGE_PAPERS100M, GAT_PAPERS100M):
+        cfg = dataclasses.replace(base, fanouts=(max_deg,) * 3)
+        phase = f"phase 12 (c) {cfg.model}"
+        model = build_model(cfg, seed=1, device=dev)
+        embs = dist.layerwise_embeddings_dist(cfg, model, ps, chunk_size=512)
+        offline = embs[-1].cpu().numpy()
+        obs.configure()
+        reg = obs.get().registry
+        srv = dist.DistGNNServeScheduler(
+            cfg, model, ps, orig(
+                num_slots=16, halo_slots=256, hot_size=64, dedup=True,
+                round_batch=2, failover=True,
+                cache=ServeCacheConfig(cache_size=65536, ways=8)),
+            device=dev)
+        srv.cache.warm(embs, np.arange(part.num_solid),
+                       layers=range(cfg.num_layers - 1))
+        srv.hot.warm(embs)
+        hot_vids = np.asarray(srv.hot.hot_vids)
+        owner, _ = ps.route(hot_vids)
+        dead_hot = hot_vids[owner == 1][:6]
+        hot_set = set(int(v) for v in hot_vids)
+        cold = [int(v) for v in ps.parts[1].solid_vids
+                if int(v) not in hot_set]
+        srv.probe_fn = lambda r: False
+        srv.mark_dead(1)
+        ans = srv.serve(np.concatenate([dead_hot, cold[:3]]))
+        m = srv.metrics()
+        check(len(dead_hot) == 6 and np.array_equal(
+            ans[:6].view(np.int32), offline[dead_hot].view(np.int32))
+              and bool(np.all(ans[6:] == 0.0))
+              and (m["serve_degraded"], m["dead_ranks"]) == (1.0, [1])
+              and m["degraded_answers"] >= 6 and m["degraded_dropped"] >= 3
+              and reg.value("serve_degraded") == 1.0,
+              f"{phase}: rank 1 dead: {m}")
+        probes, unprobe = record_last(engine, "hec_probe",
+                                      lambda tags, *a: tags.data_ptr())
+        try:
+            alive_v = np.asarray(ps.parts[0].solid_vids[:64])
+            got_alive = srv.serve(alive_v)
+        finally:
+            unprobe()
+        check(probes and srv.metrics()["steps_run"] > 0,
+              f"{phase}: no round ran with rank 1 dead")
+        for tags, values, vids, alive in probes.values():
+            check(alive is not None and not bool(alive[1]),
+                  f"{phase}: J ran without rank 1 masked")
+            probe_case(torch, hs, f"{phase} J, rank 1 dead",
+                       types.SimpleNamespace(tags=tags, values=values), vids,
+                       alive, timed=False)
+        srv.probe_fn = lambda r: True
+        srv.serve(np.asarray(ps.parts[2].solid_vids[:4]))
+        m = srv.metrics()
+        post = np.asarray(cold[3:35])
+        got = srv.serve(post)
+        err = np.abs(got - offline[post])
+        check((m["serve_degraded"], m["dead_ranks"]) == (0.0, [])
+              and reg.value("serve_degraded") == 0.0 and bool(np.all(
+                  err <= TOL * np.maximum(1.0, np.abs(offline[post]))))
+              and [len(list(reg.events_of(f"serve_rank_{k}")))
+                   for k in ("dead", "recovered")] == [1, 1],
+              f"{phase}: recovery: {m}, max |d| {err.max():.3e}")
+        out.append(f"{cfg.model}: 6 hub answers bit-equal from alive "
+                   f"replicas, 3 zeros, {len(probes)} J launches with rank "
+                   f"1 masked bit-equal, {len(alive_v)} alive-rank answers "
+                   f"finite ({bool(np.isfinite(got_alive).all())}), "
+                   f"{len(post)} answers after the re-probe within "
+                   f"tolerance (max |d| {err.max():.3e})")
+        del srv, embs
+        torch.cuda.empty_cache()
+    print(f"phase 12 (c): failover with every rank alive gives phase 8's "
+          f"answers and launches, both models [{card}]")
+    print("phase 12 (c): rank 1 dead on phase 8 (c)'s graph: "
+          + "; ".join(out))
+    return launches
+
 
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
     """One contract row: per-launch means over the timed shapes, shape i
@@ -3744,9 +4327,9 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             res8, launches8, rec8, probes8, lookups8 = phase8_main_path(
                 torch, np, args, preset, tag)
-            if model == "graphsage":
-                ANSWERS["sharded"] = (answers(np, res8["serve"]),
-                                      answers(np, res8["repeat"]))
+            ANSWERS[f"sharded_{model}"] = (answers(np, res8["serve"]),
+                                           answers(np, res8["repeat"]))
+            ANSWERS[f"sharded_{model}_launches"] = launches8
             print(f"{tag}: done in {time.perf_counter() - t0:.1f}s")
             t0 = time.perf_counter()
             rows_j, rows_b8, rows_f = phase8_kernels(
@@ -3789,6 +4372,12 @@ def main(argv=None) -> int:
                                                             card)
         print(f"phase 11 ({'a' if model == 'graphsage' else 'b'}): done in "
               f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches12a = phase12_train(torch, np, card)
+    print(f"phase 12 (a): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches12b = phase12_gat(torch, np, card)
+    print(f"phase 12 (b): done in {time.perf_counter() - t0:.1f}s")
     reuse.stop()
     del ps4
     t0 = time.perf_counter()
@@ -3804,6 +4393,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase11_kernels(torch, np)
     print(f"phase 11 (d): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        launches12c = phase12_serve(torch, np, args, card)
+    print(f"phase 12 (c): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        phase12_nan(torch, np)
+    print(f"phase 12 (0): done in {time.perf_counter() - t0:.1f}s")
 
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]
@@ -3826,8 +4423,18 @@ def main(argv=None) -> int:
                "serve_planes": serve11["single-rank"]["launches"][
                    "hec_lookup"],
                "sharded_serve_planes": serve11["sharded"]["launches"][
+                   "hec_lookup"],
+               "train_resilience": launches12a["hec_lookup"],
+               "gat_train_resilience": launches12b["hec_lookup"],
+               "sharded_serve_failover": launches12c["graphsage"][
+                   "hec_lookup"],
+               "gat_sharded_serve_failover": launches12c["gat"][
                    "hec_lookup"]}
-    b_rows = [(rows_b, "serve"), (rows4["hec_lookup"], "train"),
+    b_rows = [(rows4["hec_lookup"], "train_resilience"),
+              (rows6["hec_lookup"], "gat_train_resilience"),
+              (sage8["rows_b"], "sharded_serve_failover"),
+              (gat8["rows_b"], "gat_sharded_serve_failover"),
+              (rows_b, "serve"), (rows4["hec_lookup"], "train"),
               (rows4["hec_lookup"], "train_planes"),
               (rows6["hec_lookup"], "gat_train_planes"),
               (rows_b, "serve_planes"),
@@ -3842,6 +4449,7 @@ def main(argv=None) -> int:
                   "first minibatch), each layer standing for an equal "
                   "share of the launches")
     a_sharded = sage8["launches"]["serve_fused_layer"]
+    a_failover = launches12c["graphsage"]["serve_fused_layer"]
     # phase 11's runs: the training audit's offline pass, and the serving
     # runs with the quality plane (their shapes are phases 3 and 8's)
     a_planes = {"train_audit": launches11["graphsage"]["serve_fused_layer"],
@@ -3852,7 +4460,7 @@ def main(argv=None) -> int:
     rows = [
         summarize("serve_fused_layer", online + offline + sage8["rows_f"],
                   {"serve_fused_layer": launches["serve_fused_layer"]
-                   + a_sharded + sum(a_planes.values())},
+                   + a_sharded + a_failover + sum(a_planes.values())},
                   [launches_online // len(online)] * len(online)
                   + [(launches_offline + (a_sharded - sage8["online"]))
                      / len(offline)] * len(offline)
@@ -3872,7 +4480,7 @@ def main(argv=None) -> int:
                   "training and phase 10's runs those of phase 4)")]
     rows[0]["launches_by_path"] = {
         "serve": launches["serve_fused_layer"], "sharded_serve": a_sharded,
-        **a_planes}
+        "sharded_serve_failover": a_failover, **a_planes}
     rows[0]["bound_route"] = ("3xTF32 on the tensor cores (bound_ms), beside "
                               "FFMA on the CUDA cores (bound_ffma_ms)")
     rows[0]["library_call"] = ("torch.addmm(b, cat([mean, self], 1), cat([Wn, "
@@ -3883,6 +4491,7 @@ def main(argv=None) -> int:
                    "train_drop": launches9["drop"],
                    "train_hot": launches9["hot"],
                    "train_planes": launches11["graphsage"],
+                   "train_resilience": launches12a,
                    **{f"train_pipeline_{k}": ls
                       for k, ls in launches10.items()}}
     for name in ("update_fused_fwd", "update_fused_bwd", "sage_agg_fwd",
@@ -3915,11 +4524,13 @@ def main(argv=None) -> int:
     g_offline = [r for r in rows5_g if r["path"] == "offline"]
     g_train = launches6["gat_edge_fwd"]
     g_sharded = gat8["launches"]["gat_edge_fwd"]
+    g_failover = launches12c["gat"]["gat_edge_fwd"]
     rows.append(summarize(
         "gat_edge_fwd", g_online + g_offline + rows6["gat_edge_fwd"]
         + gat8["rows_f"],
         {"gat_edge_fwd": launches5["gat_edge_fwd"] + g_train + g_sharded
-         + launches11["gat"]["gat_edge_fwd"]},
+         + g_failover + launches11["gat"]["gat_edge_fwd"]
+         + launches12b["gat_edge_fwd"]},
         [microbatches5] * len(g_online)
         + [chunks5 + gat8["chunks"]] * len(g_offline)
         + [g_train / len(rows6["gat_edge_fwd"])] * len(rows6["gat_edge_fwd"])
@@ -3934,8 +4545,12 @@ def main(argv=None) -> int:
                                         "gat_edge_fwd"],
                                     "gat_serve": launches5["gat_edge_fwd"],
                                     "gat_train": g_train,
-                                    "gat_sharded_serve": g_sharded}
-    h_paths = {"gat_train": launches6, "gat_train_planes": launches11["gat"]}
+                                    "gat_sharded_serve": g_sharded,
+                                    "gat_sharded_serve_failover": g_failover,
+                                    "gat_train_resilience": launches12b[
+                                        "gat_edge_fwd"]}
+    h_paths = {"gat_train": launches6, "gat_train_planes": launches11["gat"],
+               "gat_train_resilience": launches12b}
     rows.append(summarize("gat_edge_bwd", rows6["gat_edge_bwd"],
                           {"gat_edge_bwd": sum(ls["gat_edge_bwd"]
                                                for ls in h_paths.values())},
@@ -3954,6 +4569,10 @@ def main(argv=None) -> int:
     j_paths = {"sharded_serve": sage8["launches"]["hec_probe"],
                "gat_sharded_serve": gat8["launches"]["hec_probe"],
                "sharded_serve_planes": serve11["sharded"]["launches"][
+                   "hec_probe"],
+               "sharded_serve_failover": launches12c["graphsage"][
+                   "hec_probe"],
+               "gat_sharded_serve_failover": launches12c["gat"][
                    "hec_probe"]}
     rows.append(summarize(
         "hec_probe", sage8["rows_j"] + gat8["rows_j"] + [ragged_j],

@@ -14,6 +14,10 @@ The AEP push of training (paper Algorithm 2, lines 8-9 and 14-24):
     payload (``Tensor.view``), so the bits survive the collective; the hot
     segment, the same bytes to every destination, rides along.
   * ``aep_push``: push + append to each rank's delay queue.
+  * ``filter_push`` (per rank, armed by the resilience plane): the
+    reference's ``aep_push(fault_code=)`` path between a rank's selection
+    and the push: non-finite payload rows are dropped (NaN containment),
+    then the rank's scheduled wire fault applies.
   * ``consume_push`` (per rank): tick every layer's HEC (and hot-tier
     replica), then store the queue's slot 0 — ``delay`` steps after it
     was pushed.
@@ -52,6 +56,7 @@ from repro_torch.comm.collective import StackedCollective
 from repro_torch.comm.plan import ExchangePlan, build_exchange_plan
 from repro_torch.core import aep
 from repro_torch.kernels.hec_search import hec_probe
+from repro_torch.resilience.inject import CODE_CORRUPT_PUSH, CODE_DROP_PUSH
 
 
 class HaloExchangeEngine:
@@ -169,6 +174,33 @@ class HaloExchangeEngine:
         ok0 = topv > 0
         return self._rows(captured, torch.where(ok0, topi, 0),
                           torch.where(ok0, slot[topi], -1), dims, dmax)
+
+    @staticmethod
+    def filter_push(sel, hot, code: int):
+        """One rank's armed push (the reference's ``aep_push(fault_code=)``):
+        ``sel = (tags [R, L, nc], embs [R, L, nc, dmax])`` and ``hot``
+        (its hot segment, or ``None``) with every non-finite payload row
+        dropped (tags -1, zeros): a locally poisoned step never reaches a
+        remote HEC.  Then the host fault ``code``: ``CODE_CORRUPT_PUSH``
+        turns the rows still tagged into NaN (the garbage lands in remote
+        HEC lines), ``CODE_DROP_PUSH`` drops the whole payload (tags -1,
+        zeros); the hot segment gets the filter only.  With ``code`` 0
+        and finite rows the output is the input's bits."""
+        tags, embs = sel
+        ok = torch.isfinite(embs).all(dim=-1)
+        tags = torch.where(ok, tags, -1)
+        embs = torch.where(ok[..., None], embs, 0.0)
+        if code & CODE_CORRUPT_PUSH:
+            embs = torch.where((tags >= 0)[..., None], float("nan"), embs)
+        if code & CODE_DROP_PUSH:
+            tags = torch.full_like(tags, -1)
+            embs = torch.zeros_like(embs)
+        if hot is not None:
+            h_tags, h_embs = hot
+            h_ok = torch.isfinite(h_embs).all(dim=-1)
+            hot = (torch.where(h_ok, h_tags, -1),
+                   torch.where(h_ok[..., None], h_embs, 0.0))
+        return (tags, embs), hot
 
     def push(self, tags: torch.Tensor, embs: torch.Tensor, hot=None):
         """ONE fused all_to_all for all ranks: tags ``[R_src, R_dst, L,

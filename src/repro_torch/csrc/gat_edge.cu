@@ -17,7 +17,13 @@
 //   de_v[d,h]  = sum_{m : d(m) = d} sum_j ds[m,j,h]                (kernel H)
 //   T(i)       = { (m,j) : nbr[m,j] == i < N && valid[i] }
 //
-// A row whose every slot is excluded gives zeros and no gradient.  The
+// A row whose every slot is excluded gives zeros and no gradient.  NaN
+// flows as in the plain version: the max and the floor of the sum keep a
+// NaN, and G adds an excluded slot's (clamped) z row times its alpha of 0,
+// NaN where that row is not finite (a pad reads row 0; a run of pads is
+// read once).  H leaves excluded slots out: there the plain version's
+// 0 * g is NaN where g is, and H's dz and de_u are not (only a step the
+// NaN guard skips has a non-finite g).  The
 // index clamp is jnp's gather clamp (as kernel E's); as in the gradient
 // of that gather, a slot whose index is past N scatters nothing into dz
 // and de_u (its ds still counts in de_v).
@@ -102,9 +108,19 @@ __device__ __forceinline__ float leaky(float s) {
   return s >= 0.f ? s : 0.2f * s;
 }
 
+// max and the denominator's floor as the plain version's amax and
+// clamp_min take them: a NaN wins (fmaxf would drop it)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return isnan(a) ? a : isnan(b) ? b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float floor_den(float s) {
+  return isnan(s) ? s : fmaxf(s, 1e-20f);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -119,6 +135,19 @@ __device__ __forceinline__ int slot_src(const int32_t* row, int j, int N,
   const int i = min(row[j], N - 1);
   return (i >= 0 && valid[i]) ? i : -1;
 }
+
+// The clamped source of slot j, or ~(its row as the plain version's
+// gather clamps it, a pad reading row 0) when the slot is excluded.  The
+// forward adds an excluded slot's z row times its alpha of 0: that adds
+// nothing to a finite sum and makes a non-finite value NaN, as the plain
+// version's 0 * z does.
+__device__ __forceinline__ int slot_code(const int32_t* row, int j, int N,
+                                         const bool* valid) {
+  const int i = min(row[j], N - 1);
+  return (i >= 0 && valid[i]) ? i : ~max(i, 0);
+}
+
+__device__ __forceinline__ int code_row(int c) { return c >= 0 ? c : ~c; }
 
 // Per-warp shared memory: ev[H], mx[H], den[H], then `extra` more [H]
 // arrays, alpha[FC * H], and the chunk's sources idx[FC].
@@ -160,7 +189,7 @@ __device__ void softmax_stats(const WarpSmem& sm, const int32_t* row, int f,
     float m = -INFINITY;
     for (int j = lane; j < f; j += 32) {
       const int i = slot_src(row, j, N, valid);
-      if (i >= 0) m = fmaxf(m, leaky(eu[(size_t)i * H + h] + evh));
+      if (i >= 0) m = max_nan(m, leaky(eu[(size_t)i * H + h] + evh));
     }
     m = warp_max(m);
     float s = 0.f;
@@ -171,20 +200,20 @@ __device__ void softmax_stats(const WarpSmem& sm, const int32_t* row, int f,
     s = warp_sum(s);
     if (lane == 0) {
       sm.mx[h] = m;
-      sm.den[h] = fmaxf(s, 1e-20f);
+      sm.den[h] = floor_den(s);
     }
   }
   __syncwarp();
 }
 
-// alpha[j][h] and idx[j] of the chunk's nc slots from c0.
+// alpha[j][h] and idx[j] (slot_code) of the chunk's nc slots from c0.
 __device__ __forceinline__ void fill_chunk(const WarpSmem& sm,
                                            const int32_t* row, int c0, int nc,
                                            int N, const bool* valid,
                                            const float* eu, int H, int lane) {
   for (int p = lane; p < nc * H; p += 32) {
     const int j = p / H, h = p - j * H;
-    const int i = slot_src(row, c0 + j, N, valid);
+    const int i = slot_code(row, c0 + j, N, valid);
     sm.alpha[p] = i >= 0
         ? expf(leaky(eu[(size_t)i * H + h] + sm.ev[h]) - sm.mx[h]) / sm.den[h]
         : 0.f;
@@ -255,7 +284,7 @@ __device__ __forceinline__ void gather_slots(T& acc, const T* __restrict__ z,
   for (int u = 0; u < U; ++u) {
     const int j = cs[n + u];
     a[u] = lg[j * H + h];
-    v[u] = on ? z[(size_t)idx[j] * HDV + q] : Vec<T>::zero();
+    v[u] = on ? z[(size_t)code_row(idx[j]) * HDV + q] : Vec<T>::zero();
   }
 #pragma unroll
   for (int u = 0; u < U; ++u) Vec<T>::fma(acc, a[u], v[u]);
@@ -288,14 +317,14 @@ gat_fwd_kernel(const T* __restrict__ z, const float* __restrict__ eu,
 #pragma unroll 4
   for (int p = lane; p < f * H; p += 32) {
     const int j = p / H, h = p - j * H;
-    const int i = slot_src(row, j, N, valid);
+    const int i = slot_code(row, j, N, valid);
     lg[p] = i >= 0 ? leaky(eu[(size_t)i * H + h] + evrow[h]) : -INFINITY;
     if (h == 0) idx[j] = i;
   }
   __syncwarp();
   for (int h = 0; h < H; ++h) {
     float mh = -INFINITY;
-    for (int j = lane; j < f; j += 32) mh = fmaxf(mh, lg[j * H + h]);
+    for (int j = lane; j < f; j += 32) mh = max_nan(mh, lg[j * H + h]);
     mh = warp_max(mh);
     float sh = 0.f;
     for (int j = lane; j < f; j += 32) {
@@ -305,7 +334,7 @@ gat_fwd_kernel(const T* __restrict__ z, const float* __restrict__ eu,
     sh = warp_sum(sh);
     if (lane == 0) {
       mx[h] = mh;
-      den[h] = fmaxf(sh, 1e-20f);
+      den[h] = floor_den(sh);
     }
   }
   __syncwarp();
@@ -314,12 +343,15 @@ gat_fwd_kernel(const T* __restrict__ z, const float* __restrict__ eu,
     const float l = lg[p];
     lg[p] = l != -INFINITY ? expf(l - mx[h]) / den[h] : 0.f;
   }
-  // the included slots, in order: the gather skips the rest (at training
-  // layer 0 most slots are halos the HEC missed)
+  // the slots to gather, in order: the included ones, and the excluded
+  // ones with their alpha of 0 (a non-finite row there makes the sum NaN,
+  // as the plain version's 0 * z does); of the pads, which all read row
+  // 0, only the first of a run
   int nv = 0;
   for (int j0 = 0; j0 < f; j0 += 32) {
     const int j = j0 + lane;
-    const bool in = j < f && idx[j] >= 0;
+    const bool in = j < f && (idx[j] >= 0 || row[j] >= 0 || j == 0
+                              || row[j - 1] >= 0);
     const unsigned b = __ballot_sync(0xffffffffu, in);
     if (in) cs[nv + __popc(b & ((1u << lane) - 1u))] = j;
     nv += __popc(b);
@@ -382,11 +414,10 @@ gat_fwd_chunked_kernel(const T* __restrict__ z, const float* __restrict__ eu,
         __syncwarp();
       }
       if (q < HDV) {
-        for (int j = 0; j < nc; ++j) {
-          const int i = sm.idx[j];
-          if (i < 0) continue;
-          Vec<T>::fma(acc, sm.alpha[j * H + h], z[(size_t)i * HDV + q]);
-        }
+        // every slot: an excluded one adds its row times an alpha of 0
+        for (int j = 0; j < nc; ++j)
+          Vec<T>::fma(acc, sm.alpha[j * H + h],
+                      z[(size_t)code_row(sm.idx[j]) * HDV + q]);
       }
     }
     if (q < HDV) out[(size_t)m * HDV + q] = acc;

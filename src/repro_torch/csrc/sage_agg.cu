@@ -9,7 +9,13 @@
 // The sums run in slot order from 0, as the Pallas kernel's grid does, and
 // the mean is a true division.  In the forward an index past the last row
 // is clamped to it, as jnp's gather clamps; the backward drops it, as the
-// gather's gradient (a scatter) drops out-of-range indices.
+// gather's gradient (a scatter) drops out-of-range indices.  An excluded
+// slot of the forward still adds its (clamped) row times 0, as the plain
+// version's h * mask does: nothing for a finite row, NaN for a non-finite
+// one (a pad reads row 0; a run of pads is read once).  The backward
+// leaves excluded slots out: there the plain version's 0 * g is NaN where
+// g is, and kernel F's dh is not (only a step the NaN guard skips has a
+// non-finite g).
 //
 // Replaces the TPU kernel repro/kernels/sage_agg.py:sage_agg (forward,
 // whose (s, c) outputs are kernel E's sum and count); kernel F is its
@@ -89,6 +95,13 @@ template <> struct Vec<4> {
     a.z += v.z;
     a.w += v.w;
   }
+  // a += 0 * v: nothing for a finite v, NaN for a non-finite one
+  static __device__ __forceinline__ void add_zero(T& a, const T& v) {
+    a.x = __fadd_rn(a.x, __fmul_rn(0.f, v.x));
+    a.y = __fadd_rn(a.y, __fmul_rn(0.f, v.y));
+    a.z = __fadd_rn(a.z, __fmul_rn(0.f, v.z));
+    a.w = __fadd_rn(a.w, __fmul_rn(0.f, v.w));
+  }
   static __device__ __forceinline__ void st_div(float* p, const T& a,
                                                 float c) {
     *reinterpret_cast<float4*>(p) =
@@ -100,6 +113,9 @@ template <> struct Vec<1> {
   static __device__ __forceinline__ T zero() { return 0.f; }
   static __device__ __forceinline__ T ld(const float* p) { return __ldg(p); }
   static __device__ __forceinline__ void add(T& a, const T& v) { a += v; }
+  static __device__ __forceinline__ void add_zero(T& a, const T& v) {
+    a = __fadd_rn(a, __fmul_rn(0.f, v));
+  }
   static __device__ __forceinline__ void st_div(float* p, const T& a,
                                                 float c) {
     *p = a / c;
@@ -160,8 +176,17 @@ sage_agg_fwd_kernel(const float* __restrict__ h,
       const int src = j < n_slots
           ? min(nbr[(size_t)(rt + i * RT) * f + (j - i * f)], N - 1) : -1;
       const bool in = src >= 0 && valid[src];
-      const unsigned b = __ballot_sync(FULL, in);
-      if (in) list[__popc(b & ((1u << lane) - 1u))] = make_int2(i, src);
+      // excluded slots are listed as ~(their clamped row) and add 0 times
+      // it (a non-finite value there makes the mean NaN, as the plain
+      // version's h * 0 does); of a run of pads, which all read row 0,
+      // only the first
+      const int prev = __shfl_up_sync(FULL, src, 1);
+      const bool listed = j < n_slots
+          && (src >= 0 || j - i * f == 0 || lane == 0 || prev >= 0);
+      const unsigned b = __ballot_sync(FULL, listed);
+      if (listed)
+        list[__popc(b & ((1u << lane) - 1u))] =
+            make_int2(i, in ? src : ~max(src, 0));
       __syncwarp();
       const int n = __popc(b);
       for (int n0 = 0; n0 < n; n0 += E) {
@@ -169,7 +194,8 @@ sage_agg_fwd_kernel(const float* __restrict__ h,
 #pragma unroll
         for (int k = 0; k < E; ++k) {
           if (n0 + k < n) {
-            const float* row = h + (size_t)list[n0 + k].y * D + p0;
+            const int s = list[n0 + k].y;
+            const float* row = h + (size_t)(s >= 0 ? s : ~s) * D + p0;
 #pragma unroll
             for (int q = 0; q < Q; ++q)
               if (on[q]) v[k][q] = V::ld(row + (lane + 32 * q) * VW);
@@ -180,10 +206,16 @@ sage_agg_fwd_kernel(const float* __restrict__ h,
           if (n0 + k < n) {
             const int rk = list[n0 + k].x;
             while (r < rk) flush();
+            if (list[n0 + k].y >= 0) {
 #pragma unroll
-            for (int q = 0; q < Q; ++q)
-              if (on[q]) V::add(acc[q], v[k][q]);
-            c += 1.f;
+              for (int q = 0; q < Q; ++q)
+                if (on[q]) V::add(acc[q], v[k][q]);
+              c += 1.f;
+            } else {
+#pragma unroll
+              for (int q = 0; q < Q; ++q)
+                if (on[q]) V::add_zero(acc[q], v[k][q]);
+            }
           }
         }
       }

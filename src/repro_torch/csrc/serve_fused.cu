@@ -5,7 +5,10 @@
 //
 // self_row(m) = m (the serve blocks' dst-prefix invariant) or, when
 // self_idx is given, clamp(self_idx[m], 0, N-1) (offline chunks).  A
-// neighbor index past N-1 reads row N-1, as jnp's gather clamps.
+// neighbor index past N-1 reads row N-1, as jnp's gather clamps.  NaN
+// flows as in the plain version: an excluded slot adds its (clamped) row
+// times 0 (NaN where that row is not finite; a pad reads row 0, a run of
+// pads once), and act (ReLU) keeps a NaN.
 //
 // Replaces the TPU kernel repro/kernels/serve_fused.py:fused_serve_layer
 // (one pallas_call per serve layer).
@@ -75,6 +78,7 @@ constexpr int RG = 4;             // rows a warp indexes at once
 constexpr int LIST = RG * 32 + RG;  // a warp's gather list: slots, self rows
 constexpr int IN_FLIGHT = 8;      // loads of h a lane has in flight
 constexpr int SELF = 1 << 30;     // list flag: the entry is a self row
+constexpr int ZERO = 1 << 29;     // list flag: an excluded slot, added x 0
 
 constexpr int STAGES = 2;         // cp.async ring depth (double buffer)
 
@@ -95,6 +99,15 @@ template <> struct Vec<4> {
     a.w += v.w;
     *reinterpret_cast<float4*>(p) = a;
   }
+  // += 0 * v: nothing for a finite v, NaN for a non-finite one
+  static __device__ __forceinline__ void add_zero(float* p, T v) {
+    float4 a = *reinterpret_cast<float4*>(p);
+    a.x = __fadd_rn(a.x, __fmul_rn(0.f, v.x));
+    a.y = __fadd_rn(a.y, __fmul_rn(0.f, v.y));
+    a.z = __fadd_rn(a.z, __fmul_rn(0.f, v.z));
+    a.w = __fadd_rn(a.w, __fmul_rn(0.f, v.w));
+    *reinterpret_cast<float4*>(p) = a;
+  }
   static __device__ __forceinline__ void div(float* p, float c) {
     float4 a = *reinterpret_cast<float4*>(p);
     a.x = a.x / c;
@@ -109,6 +122,9 @@ template <> struct Vec<1> {
   static __device__ __forceinline__ T ld(const float* p) { return __ldg(p); }
   static __device__ __forceinline__ void st(float* p, T v) { *p = v; }
   static __device__ __forceinline__ void add(float* p, T v) { *p += v; }
+  static __device__ __forceinline__ void add_zero(float* p, T v) {
+    *p = __fadd_rn(*p, __fmul_rn(0.f, v));
+  }
   static __device__ __forceinline__ void div(float* p, float c) {
     *p = *p / c;
   }
@@ -190,6 +206,8 @@ __device__ __forceinline__ void gather_cols(const int2* list, int n,
                        + (q0 + 32 * c) * VW;
           if (code & SELF) {
             V::st(dst, v[k][c]);
+          } else if (code & ZERO) {
+            V::add_zero(dst, v[k][c]);
           } else {
             V::add(dst, v[k][c]);
           }
@@ -290,10 +308,20 @@ serve_fused_layer_kernel(const float* __restrict__ h,
       int n = 0;
 #pragma unroll
       for (int r = 0; r < RGN; ++r) {
-        const unsigned b = __ballot_sync(0xffffffffu, in[r]);
-        if (in[r]) list[n + __popc(b & ((1u << lane) - 1u))] = make_int2(r, src[r]);
+        // excluded slots are listed too, their clamped row added times 0
+        // (a non-finite value there makes the mean NaN, as the plain
+        // version's h * 0 does); of a run of pads, which all read row 0,
+        // only the first
+        const int prev = __shfl_up_sync(0xffffffffu, src[r], 1);
+        const bool listed = m0 + r0 + r < M && j < f
+            && (src[r] >= 0 || j == 0 || lane == 0 || prev >= 0);
+        const unsigned b = __ballot_sync(0xffffffffu, listed);
+        if (listed)
+          list[n + __popc(b & ((1u << lane) - 1u))] =
+              in[r] ? make_int2(r, src[r]) : make_int2(r | ZERO,
+                                                       max(src[r], 0));
         n += __popc(b);
-        cnt[r] += (float)__popc(b);
+        cnt[r] += (float)__popc(__ballot_sync(0xffffffffu, in[r]));
       }
       if (j0 == 0) {
 #pragma unroll
@@ -376,7 +404,8 @@ serve_fused_layer_kernel(const float* __restrict__ h,
               float x = 0.f;
               if (col < K) {
                 x = an + acc[i][j][2 * half + e] + bias[col];
-                if (relu) x = fmaxf(x, 0.f);
+                // torch.relu's clamp_min on the card: NaN stays NaN
+                if (relu) x = isnan(x) ? x : fmaxf(x, 0.f);
               }
               v[e] = x;
             }

@@ -12,7 +12,9 @@
 // was kept and Z > 0, so dZ = out > 0 ? g / (1-p) : 0; without ReLU the
 // keep mask is hashed again.  The weight and input gradients (agg^T dZ,
 // self^T dZ, dZ Wn^T, dZ Ws^T) are plain matrix products left to
-// torch.matmul, as the reference left them to XLA's autodiff.
+// torch.matmul, as the reference left them to XLA's autodiff.  act
+// (ReLU) keeps a NaN, as torch.relu does; NaN > 0 is false, so its dZ is
+// 0 there, as in the plain version.
 //
 // Replaces the TPU kernel repro/kernels/update_fused.py:fused_update
 // (forward only there: the reference trains through its jnp path, whose
@@ -243,7 +245,8 @@ update_fwd_kernel(const float* __restrict__ agg,
           if (col < K) {
             x = accn[i][j][2 * half + e] + accs[i][j][2 * half + e]
                 + bias[col];
-            if (relu) x = fmaxf(x, 0.f);
+            // torch.relu's clamp_min on the card: NaN stays NaN
+            if (relu) x = isnan(x) ? x : fmaxf(x, 0.f);
             if (p > 0.f) {
               x = hash_u01((uint32_t)m, (uint32_t)col, seed) >= p
                       ? x * inv_keep

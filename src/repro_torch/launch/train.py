@@ -18,8 +18,14 @@ text.  As in the reference, a health plane (rank series, skew and
 edge-cut drift against the partition's halo profile, flight dumps under
 ``--flight-dir``) and a quality plane (HEC staleness every epoch, the
 exactness audit every ``--audit-interval`` epochs, ``--quality-budget``)
-ride along; they only read.  The resilience flags are not offered yet.
-As in the reference, the initial weights come from
+ride along; they only read.  The resilience plane's flags are the
+reference's: ``--ckpt-dir`` (with ``--ckpt-every``, ``--ckpt-keep``)
+writes the whole training state at epoch boundaries and ``--resume``
+goes on from the newest checkpoint there (bit-equal to a run that never
+stopped), ``--fault-schedule`` injects the faults of a JSON list of
+``{kind, epoch, step, rank}`` specs and ``--nan-guard`` skips a step
+whose loss or gradients are not finite; with none of them the trainer
+runs the unarmed step.  As in the reference, the initial weights come from
 ``jax.random.key(--seed)`` (drawn without jax) and the AEP push draws
 the reference's uniforms, so both launchers train the same model on the
 same pushes.  As there, the hot tier, the pipeline's settings and the
@@ -34,11 +40,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import time
 from typing import Optional, Sequence
-
-import numpy as np
 
 from repro_torch.launch.common import (add_obs_flags, add_plane_flags,
                                        build_planes, configure_obs,
@@ -73,6 +76,25 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     g.add_argument("--ckpt", default=None,
                    help="save the trained params (flat .npz, the "
                         "reference's leaf order) to this path")
+    g.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                   help="stateful crash-resume: write a full training "
+                        "checkpoint (params, opt, HEC, hot tier, inflight "
+                        "pushes, RNG position) at epoch boundaries")
+    g.add_argument("--ckpt-every", type=int, default=1, metavar="N",
+                   help="checkpoint every N epochs (with --ckpt-dir)")
+    g.add_argument("--ckpt-keep", type=int, default=3, metavar="K",
+                   help="retain the newest K checkpoints (with --ckpt-dir)")
+    g.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint in --ckpt-dir and "
+                        "continue; the resumed run is bit-identical to one "
+                        "that never crashed")
+    g.add_argument("--fault-schedule", default=None, metavar="JSON",
+                   help="deterministic fault injection: a JSON list of "
+                        "{kind, epoch, step, rank} specs (kinds: nan_step, "
+                        "drop_push, corrupt_push, delay_rank, kill_prefetch)")
+    g.add_argument("--nan-guard", action="store_true",
+                   help="skip minibatches whose loss/grads go non-finite "
+                        "(counted as resilience_skipped_steps)")
     g.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")
@@ -85,15 +107,24 @@ def save_params(path: str, model, step: int) -> str:
     """The params as ``repro/train/checkpoint.py:save`` writes them:
     ``leaf_<i>`` in the reference tree's leaf order and ``__step__``,
     streamed to ``<path>.tmp`` and moved into place."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    arrays = {f"leaf_{i}": p.detach().cpu().numpy()
-              for i, p in enumerate(model.parameter_list())}
-    arrays["__step__"] = np.asarray(step)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, path)
-    return path
+    from repro_torch.train.checkpoint import save_leaves
+    return save_leaves(path, model.parameter_list(), step)
+
+
+def resilience_plane(args):
+    """The reference launcher's resilience plane from the flags, or
+    ``None`` when none of them is set (the unarmed step)."""
+    if not (args.ckpt_dir or args.fault_schedule or args.nan_guard):
+        return None
+    from repro_torch import resilience
+    schedule = (resilience.FaultSchedule.from_json(args.fault_schedule)
+                if args.fault_schedule else None)
+    if schedule is not None:
+        print(f"fault schedule: {len(schedule.specs)} scheduled faults")
+    return resilience.ResiliencePlane(resilience.ResilienceConfig(
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        ckpt_keep=args.ckpt_keep, nan_guard=args.nan_guard,
+        schedule=schedule, flight_dir=args.flight_dir))
 
 
 def gnn_config(args):
@@ -142,19 +173,37 @@ def run_gnn(args, pipeline=None, overlap: bool = True) -> dict:
     health, quality = build_planes(
         args, args.ranks, expected_halo_rows=[p.num_halo for p in ps.parts],
         prom=prom, quality_always=True)
+    rz = resilience_plane(args)
     tr = DistTrainer(cfg=cfg, num_ranks=args.ranks, mode=args.mode,
                      device=device, overlap=overlap, health=health,
-                     quality=quality)
+                     quality=quality, resilience=rz)
     state = tr.init_state(seed=args.seed)
+    start_epoch = 0
+    if args.resume:
+        if rz is None or rz.ckpt is None:
+            raise SystemExit("--resume requires --ckpt-dir")
+        state, saved_epoch = rz.ckpt.restore(state)
+        start_epoch = saved_epoch + 1
+        print(f"resumed from epoch {saved_epoch} "
+              f"(step {int(state['step'])}); continuing at {start_epoch}")
+    remaining = args.epochs - start_epoch
+    if remaining <= 0:
+        raise SystemExit(f"nothing to train: checkpoint already covers "
+                         f"{start_epoch}/{args.epochs} epochs")
     with device_trace(args, device) as trace:
         t0 = time.time()
-        state, hist = tr.train_epochs(ps, data, state, args.epochs,
-                                      log_every=1)
+        state, hist = tr.train_epochs(ps, data, state, remaining,
+                                      log_every=1, start_epoch=start_epoch)
         dt = time.time() - t0
         acc = tr.evaluate(ps, data, state)
-    print(f"done: {args.epochs} epochs in {dt:.1f}s "
-          f"({dt / args.epochs:.2f}s/epoch); test_acc={acc:.3f}")
+    print(f"done: {remaining} epochs in {dt:.1f}s "
+          f"({dt / remaining:.2f}s/epoch); test_acc={acc:.3f}")
     dev = report_device(trace, "training and evaluate", spans=("step",))
+    if rz is not None:
+        from repro_torch import obs
+        print(f"resilience: faults_injected={len(rz.events)} "
+              f"skipped_steps={rz.skipped_steps} prefetch_retries="
+              f"{int(obs.get().registry.value('prefetch_retries'))}")
     print_health(health)
     qs = quality.summary()
     if qs["audits_run"]:
@@ -168,7 +217,7 @@ def run_gnn(args, pipeline=None, overlap: bool = True) -> dict:
     return {"graph": g, "ps": ps, "cfg": cfg, "trainer": tr, "data": data,
             "state": state, "history": hist, "test_acc": acc,
             "train_seconds": dt, "device_trace": dev, "health": health,
-            "quality": quality}
+            "quality": quality, "resilience": rz}
 
 
 def main(argv: Optional[Sequence[str]] = None):

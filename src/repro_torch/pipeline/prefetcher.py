@@ -21,6 +21,12 @@ seed batches.
 With ``pin_memory`` the worker also pins each host batch (in the
 ``host_prep`` span), so ``pipeline/staging.py`` can copy it to the card
 asynchronously.
+
+Worker-crash containment: a failed step is drawn again once, inline (the
+same batch, by the per-step streams, pinned as the worker would have
+pinned it), and counted as ``prefetch_retries``; a second failure
+propagates.  ``SamplingPlan(injector=)`` lets a scheduled
+``kill_prefetch`` fault crash the draw of an exact ``(epoch, step)``.
 """
 from __future__ import annotations
 
@@ -62,12 +68,15 @@ class SamplingPlan:
     """Deterministic schedule of per-rank seed batches + per-step RNG
     streams.  ``device`` places the device draw's samplers (``None``: the
     card); it is read only when ``cfg.pipeline.sampler.device_draw`` is
-    on.  ``pin_memory``: ``sample_host`` returns pinned tensors."""
+    on.  ``pin_memory``: ``sample_host`` returns pinned tensors.
+    ``injector`` (a ``resilience.FaultInjector``): ``sample_host`` first
+    lets it crash the draw."""
     ps: PartitionSet
     cfg: GNNConfig
     base_seed: int = 0
     device: DeviceLike = None
     pin_memory: bool = False
+    injector: Optional[object] = None
     _samplers: Optional[List[DeviceSampler]] = dataclasses.field(
         default=None, init=False, repr=False)
     _lock: threading.Lock = dataclasses.field(
@@ -109,6 +118,10 @@ class SamplingPlan:
                     seed_lists: Sequence[np.ndarray]) -> dict:
         """One synchronized [R, ...] host minibatch for ``(epoch, step)``."""
         cfg = self.cfg
+        if self.injector is not None:
+            # raises PrefetchWorkerKilled once per scheduled fault; the
+            # retry of the same (epoch, step) then draws the batch
+            self.injector.prefetch_crash(epoch, step)
         rng = self.step_rng(epoch, step)
         sampler = (sample_blocks_vectorized if cfg.pipeline.vectorized
                    else sample_blocks)
@@ -147,8 +160,10 @@ def prefetch(make_fn: Callable[[int], dict], num_steps: int,
 
     ``num_workers <= 0`` runs the calls inline.  Results are consumed
     strictly in step order; because each step owns its RNG stream the
-    output is the same for any worker count.  A worker's exception is
-    raised here, when its step is consumed.
+    output is the same for any worker count.  A worker's exception
+    surfaces here, when its step is consumed: the step is drawn again
+    ONCE, inline (the same batch), counted as ``prefetch_retries``; a
+    second failure propagates.  The inline path does not retry.
     """
     if num_workers <= 0:
         for step in range(num_steps):
@@ -161,12 +176,17 @@ def prefetch(make_fn: Callable[[int], dict], num_steps: int,
         inflight = collections.deque()
         nxt = 0
         while nxt < num_steps and len(inflight) < depth:
-            inflight.append(pool.submit(make_fn, nxt))
+            inflight.append((nxt, pool.submit(make_fn, nxt)))
             nxt += 1
         while inflight:
-            batch = inflight.popleft().result()
+            step, fut = inflight.popleft()
+            try:
+                batch = fut.result()
+            except Exception:
+                obs.count("prefetch_retries")
+                batch = make_fn(step)
             if nxt < num_steps:
-                inflight.append(pool.submit(make_fn, nxt))
+                inflight.append((nxt, pool.submit(make_fn, nxt)))
                 nxt += 1
             yield batch
     finally:

@@ -134,16 +134,18 @@ def eval_schedule(plan: SamplingPlan, num_batches: int,
 class MinibatchPipeline:
     """Asynchronous minibatch source for ``DistTrainer``: the sampling
     plan (deterministic RNG streams), the prefetch pool and the staging;
-    ``epoch_batches(ep)`` yields device minibatches in step order."""
+    ``epoch_batches(ep)`` yields device minibatches in step order.
+    ``injector`` (a ``resilience.FaultInjector``) goes to the plan."""
 
     def __init__(self, ps: PartitionSet, cfg: GNNConfig, base_seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, injector=None):
         self.cfg = cfg
         self.pcfg = cfg.pipeline
         self.device = resolve_device(device)
         self.plan = SamplingPlan(ps=ps, cfg=cfg, base_seed=base_seed,
                                  device=self.device,
-                                 pin_memory=self.device.type == "cuda")
+                                 pin_memory=self.device.type == "cuda",
+                                 injector=injector)
 
     @property
     def num_ranks(self) -> int:

@@ -40,10 +40,21 @@ layer's fetch is one collective pair with pooled budgets).
 
 Not carried over: the reference's ``fused_kernel`` and ``probe_kernel``
 switches — on the card the forward always runs A or G and the responder
-always runs J, as the single-rank port always runs A.  Degraded-mode
-serving (``failover=True``, the breaker of ``resilience/failover.py``)
-waits for the resilience slice: ``failover=True`` raises
-``NotImplementedError``; ``cache_fetch`` already takes the ``alive`` mask.
+always runs J, as the single-rank port always runs A.
+
+Degraded-mode serving, as the reference's (``failover=True``): a per-rank
+circuit breaker (``resilience.RankHealthMask``).  A rank marked dead
+(``mark_dead``, or ``record_rank_failure`` reaching
+``breaker_threshold``) has its queued and pending queries answered at
+once from stale replicas (``_answer_degraded``: an alive shard's output
+cache, read by kernel B, else an alive hot-tier replica, else zeros as
+``degraded_dropped``), and each round's ``cache_fetch`` gets the
+breaker's ``alive`` mask, so no request goes to the dead rank and it
+answers none (kernel J masks it).  Every pump round ticks the breakers:
+after ``breaker_cooldown`` rounds a rank gets one re-probe (``probe_fn``
+in a side thread with ``probe_timeout_s``; ``None`` passes), which closes
+the breaker or opens it again.  With every rank alive the answers are
+failover-off's bits.
 
 The planes, as the reference's: every round's per-rank stats (already
 on the host after the round's one copy) become rank-labeled series and
@@ -74,6 +85,7 @@ from repro_torch.graph.partition import PartitionSet
 from repro_torch.pipeline.vectorized_sampler import (concat_blocks,
                                                      sample_blocks_vectorized,
                                                      stack_ranks)
+from repro_torch.resilience.failover import RankHealthMask
 from repro_torch.serve.gnn.distributed.router import QueryRouter
 from repro_torch.serve.gnn.distributed.sharded_cache import \
     ShardedServingCache
@@ -93,7 +105,14 @@ class DistServeConfig:
     hot_size: int = 0              # K: replicated hot-tier slots (0 = off)
     dedup: bool = False            # cross-query neighborhood dedup
     round_batch: int = 1           # rounds fused into one step/collective
-    failover: bool = False         # degraded-mode serving: resilience
+    failover: bool = False         # degraded-mode serving: per-rank health
+    #                                mask + circuit breaker; a dead rank's
+    #                                halo traffic is suppressed and its
+    #                                queries answer from stale replicas
+    #                                (all alive = failover off's bits)
+    probe_timeout_s: float = 1.0   # re-probe timeout (a hung probe = dead)
+    breaker_cooldown: int = 1      # rounds OPEN before the half-open probe
+    breaker_threshold: int = 1     # failures that open a rank's breaker
 
 
 def build_serve_data(ps: PartitionSet, device) -> dict:
@@ -159,11 +178,6 @@ class DistGNNServeScheduler(ServeFrontend):
                  health: Optional["obs.HealthPlane"] = None,
                  quality: Optional["obs.QualityPlane"] = None):
         self.scfg = serve_cfg or DistServeConfig()
-        if self.scfg.failover:
-            raise NotImplementedError(
-                "failover=True (degraded-mode serving with the rank "
-                "breaker) is not ported yet: it comes with the resilience "
-                "plane, the second part of the planes slice (slice 6)")
         self.health = health \
             if health is not None and health.enabled else None
         self.quality = quality \
@@ -190,6 +204,15 @@ class DistGNNServeScheduler(ServeFrontend):
                                         device=self.device)
                 self._hot_vid_p = self._hot_local_positions(hot_vids)
         self._init_frontend()
+        # degraded-mode failover: the per-rank circuit breaker
+        self.breaker: Optional[RankHealthMask] = None
+        self.probe_fn = None   # Callable[[int], bool]; None = probe passes
+        self.degraded_answers = 0
+        self.degraded_dropped = 0
+        if self.scfg.failover:
+            self.breaker = RankHealthMask(
+                self.num_ranks, cooldown=self.scfg.breaker_cooldown,
+                threshold=self.scfg.breaker_threshold)
 
     def reset_frontend(self):
         """Zero the frontend counters, the fast-path lookup batches and
@@ -249,10 +272,13 @@ class DistGNNServeScheduler(ServeFrontend):
 
     @torch.no_grad()
     def _step(self, states: List[hec_lib.HECState],
-              tstates: List[hot_lib.HotTierState], mb: dict):
+              tstates: List[hot_lib.HotTierState], mb: dict,
+              alive: Optional[torch.Tensor] = None):
         """Forward of every rank with cached-embedding substitution and the
-        halo fetch at each hidden layer, then the store-back.  Returns
-        (out [R, B, C], out_valid [R, B], stats of [R, ...] counters)."""
+        halo fetch at each hidden layer, then the store-back.  ``alive``
+        ([R] bool, failover): the fetch asks no dead owner and a dead
+        responder answers nothing.  Returns (out [R, B, C], out_valid
+        [R, B], stats of [R, ...] counters)."""
         L = self.cfg.num_layers
         R = self.num_ranks
         NB = self.scfg.round_batch
@@ -312,7 +338,8 @@ class DistGNNServeScheduler(ServeFrontend):
             h, hot_hit = tier_sub(k1, h, maskk, hit)
             need = is_halo & ~hit & ~hot_hit
             h, got, nreq = self.engine.cache_fetch(
-                states[k1 - 1], vids, owner_nodes[k1], need, h, rounds=NB)
+                states[k1 - 1], vids, owner_nodes[k1], need, h, rounds=NB,
+                alive=alive)
             # a halo is valid only if substituted: its local partial
             # compute never aggregated its remote neighborhood
             valid = ((valid & ~is_halo) | hit | hot_hit | got) & maskk
@@ -383,6 +410,21 @@ class DistGNNServeScheduler(ServeFrontend):
         pending: List[List] = [[] for _ in range(R)]
         index: List[dict] = [dict() for _ in range(R)]
         while len(self.router) or any(pending):
+            if self.breaker is not None:
+                # tick the breakers (a rank past its cooldown gets its
+                # re-probe), then answer a still-dead rank's queries from
+                # stale replicas at once: a dead shard never stalls a round
+                self._breaker_tick()
+                for r in self.breaker.dead_ranks:
+                    if self.router.queues[r]:
+                        drained = self.router.drain(
+                            r, len(self.router.queues[r]))
+                        self._answer_degraded([e[0] for e in drained])
+                    if pending[r]:
+                        self._answer_degraded(
+                            [q for _, reqs in pending[r] for q in reqs])
+                        pending[r] = []
+                        index[r].clear()
             # fill FULL per-rank microbatches with cache misses: output-
             # cache hits are answered by the fast path and take no slot
             fast: List[List] = [[] for _ in range(R)]
@@ -441,7 +483,101 @@ class DistGNNServeScheduler(ServeFrontend):
         out["fast_path_rounds"] = self.fast_path_rounds
         if self.hot is not None:
             out.update(self.hot.metrics())
+        if self.breaker is not None:
+            out["serve_degraded"] = float(self.breaker.any_dead)
+            out["dead_ranks"] = list(self.breaker.dead_ranks)
+            out["degraded_answers"] = self.degraded_answers
+            out["degraded_dropped"] = self.degraded_dropped
         return out
+
+    # -- degraded-mode failover ----------------------------------------------
+    def mark_dead(self, rank: int) -> None:
+        """Declare a rank dead (a failed liveness probe, a hung call): its
+        breaker opens at once, halo traffic to and from it stops from the
+        next round, and its queries answer from stale replicas until a
+        re-probe passes."""
+        if self.breaker is None:
+            raise RuntimeError("mark_dead requires DistServeConfig"
+                               "(failover=True)")
+        self.breaker.force_open(rank, self.steps_run)
+        self._rank_event("dead", rank)
+        self._publish_mask()
+
+    def record_rank_failure(self, rank: int) -> bool:
+        """Count one failure against ``rank``; True when the failures
+        reach ``breaker_threshold`` and the breaker opens (the rank is then
+        treated as by ``mark_dead``)."""
+        if self.breaker is None:
+            raise RuntimeError("record_rank_failure requires "
+                               "DistServeConfig(failover=True)")
+        opened = self.breaker.record_failure(rank, self.steps_run)
+        if opened:
+            self._rank_event("dead", rank)
+            self._publish_mask()
+        return opened
+
+    def _rank_event(self, what: str, rank: int) -> None:
+        obs.get().registry.log_event(f"serve_rank_{what}", rank=rank,
+                                     round=self.steps_run)
+        if self.health:
+            self.health.recorder.note(f"rank_{what}", rank=rank,
+                                      round=self.steps_run)
+
+    def _breaker_tick(self) -> None:
+        """One serve round of every breaker: a rank OPEN past its
+        cooldown goes HALF_OPEN and gets one timed re-probe
+        (``probe_fn``); a pass closes the breaker (full routing from the
+        next round), a failure or a hang opens it again."""
+        recovered = self.breaker.tick(self.steps_run, probe=self.probe_fn,
+                                      timeout_s=self.scfg.probe_timeout_s)
+        for r in recovered:
+            self._rank_event("recovered", r)
+        if recovered:
+            self._publish_mask()
+
+    def _publish_mask(self) -> None:
+        dead = self.breaker.dead_ranks
+        obs.set_gauge("serve_degraded", float(bool(dead)))
+        obs.set_gauge("serve_dead_ranks", float(len(dead)))
+
+    @torch.no_grad()
+    def _answer_degraded(self, reqs) -> None:
+        """Answer queries owned by a dead rank from stale replicas: the
+        first alive shard whose output cache holds the vertex (by its
+        residency mirror; the row read by kernel B), else the first alive
+        hot-tier replica.  A query with no replica anywhere gets zeros
+        and ``served_by="degraded_dropped"``: bounded degradation, never
+        a stall."""
+        L = self.cfg.num_layers
+        dim = serve_layer_dims(self.cfg)[-1]
+        alive = [r for r in range(self.num_ranks)
+                 if bool(self.breaker.alive[r])]
+        for req in reqs:
+            vid = req.vid
+            src, tier = None, False
+            if self.scfg.cache.enabled:
+                src = next((r for r in alive
+                            if self.cache.output_resident(r, vid)), None)
+            if src is None and self.hot is not None:
+                src = next((r for r in alive
+                            if self.hot.output_resident(r, vid)), None)
+                tier = src is not None
+            if src is None:
+                self.degraded_dropped += 1
+                obs.count("serve_degraded_dropped")
+                self._finish(req, np.zeros(dim, np.float32),
+                             "degraded_dropped")
+                continue
+            vids = torch.full((self.num_ranks, 1), -1, dtype=torch.int32,
+                              device=self.device)
+            vids[src, 0] = vid
+            if tier:
+                _, emb = self._tier_lookup(self.hot.states[L - 1], vids)
+            else:
+                _, emb = self._lookup(self.cache.states[L - 1], vids)
+            self.degraded_answers += 1
+            obs.count("serve_degraded_answers")
+            self._finish(req, emb[src, 0].cpu().numpy(), "degraded_replica")
 
     # -- internals ------------------------------------------------------------
     def audit(self, epoch: Optional[int] = None):
@@ -606,8 +742,11 @@ class DistGNNServeScheduler(ServeFrontend):
             states = self.cache.states if self.scfg.cache.enabled \
                 else self.cache.init_states()
             tstates = self.hot.states if self.hot is not None else []
+            alive = None if self.breaker is None else torch.as_tensor(
+                self.breaker.alive, device=self.device)
             with obs.span("serve_step"):
-                out, out_valid, stats = self._step(states, tstates, mb)
+                out, out_valid, stats = self._step(states, tstates, mb,
+                                                   alive)
             with obs.span("serve_sync_host"):
                 names = list(stats)
                 tags = [st.tags for st in states] \
@@ -635,10 +774,15 @@ class DistGNNServeScheduler(ServeFrontend):
             self._record_rank_round(stats, wall)
             for r, groups in enumerate(round_groups):
                 for i, (local, reqs) in enumerate(groups):
-                    if not out_valid[r, i]:
+                    if out_valid[r, i]:
+                        row = out[r, i].copy()
+                        for req in reqs:
+                            self._finish(req, row, "compute")
+                    elif self.breaker is not None and self.breaker.any_dead:
+                        # the row's neighbourhood lives on a dead rank:
+                        # stale replicas or zeros, not a stalled round
+                        self._answer_degraded(list(reqs))
+                    else:
                         raise RuntimeError(
                             f"requests {[q.rid for q in reqs]} "
                             f"(vid {reqs[0].vid}) not served")
-                    row = out[r, i].copy()
-                    for req in reqs:
-                        self._finish(req, row, "compute")

@@ -17,13 +17,13 @@ Modes, as the reference's ``DistTrainer.mode``:
         request/response all_to_all pair
   drop  LLCG-like: halo rows are dropped at every layer
 
-One step (``DistTrainer.train_step``, the reference's ``_rank_step``
-without the fault codes):
+One step (``DistTrainer.train_step``, the reference's ``_rank_step``):
 
   1. ``aep``: per rank, consume the delayed push: tick every layer's HEC
      (and the hot tier's replica) and store the queue's slot 0, in place;
   2. every rank's layer-0 features; ``sync`` fetches its halos, ``aep``
      substitutes hot-tier and HEC hits (the HEC probe + load kernel);
+     a rank with the ``nan_step`` fault code then multiplies them by NaN;
   3. per rank and layer, the model's layer with the hash dropout
      (GraphSAGE: the AGG and UPDATE kernels; GAT: the projection in
      ``torch.addmm`` and the GAT AGG kernel), then the halo hook: in
@@ -36,9 +36,15 @@ without the fault codes):
      (and hot-tier broadcast segment) is dispatched just before its
      backward, and every rank's selection then goes in ONE fused
      all_to_all; on the card the push runs on the trainer's push stream,
-     which first waits for the forward, so it overlaps the backward;
+     which first waits for the forward, so it overlaps the backward (when
+     the resilience plane arms the step, each rank's selection drops its
+     non-finite rows and takes its wire fault before the send:
+     ``HaloExchangeEngine.filter_push``);
   6. the example-weighted gradient all-reduce;
-  7. Adam with a global-norm clip of 1.0, in place;
+  7. Adam with a global-norm clip of 1.0, in place; armed, the NaN/Inf
+     guard then keeps the old parameters and moments (a device select)
+     when the loss or a gradient is not finite, and the step's metrics
+     are zero with ``skipped`` 1;
   8. ``aep`` with ``overlap=False`` (the reference's legacy schedule):
      the push, inline on the main stream after Adam.
 
@@ -61,8 +67,18 @@ The HEC states, the hot tier and the queues are updated in place where
 the reference returns new ones.  ``evaluate`` runs each batch from the
 training state as it is: it keeps the HEC tags and ages (and the tier's
 ages), journals the value rows the consume overwrites, and puts all of
-it back after the batch.  The NaN guard and fault codes wait for the
-resilience slice.
+it back after the batch.
+
+The resilience plane (``resilience=``, a ``resilience.ResiliencePlane``)
+is the reference's: when it is step-armed (``nan_guard`` or a fault
+schedule) ``train_epochs`` gives each step its per-rank fault codes
+(host ints, so the faults are host branches: with every code 0 the
+step computes the unarmed step's bits) and the step runs the guard; it
+keeps a copy of the parameters and moments for it, and Adam's count,
+a host int, goes back by one when the step's one host copy reads
+``skipped``.  A checkpointing plane saves the whole state at epoch
+boundaries (after joining the push); the plane's injector reaches the
+minibatch pipeline (``kill_prefetch``).  ``evaluate`` runs clean.
 
 The health and quality planes (``health=``, ``quality=``) only read:
 every step computes its per-rank series (``rank_stats``: examples,
@@ -102,6 +118,7 @@ from repro_torch.pipeline import threefry
 from repro_torch.pipeline.staging import (MinibatchPipeline,
                                           minibatch_to_device)
 from repro_torch.pipeline.vectorized_sampler import stack_ranks
+from repro_torch.resilience.inject import CODE_NAN_STEP
 from repro_torch.train import optimizer as opt_lib
 
 PushUniforms = Callable[[int, int, Sequence[int]], torch.Tensor]
@@ -230,7 +247,9 @@ class DistTrainer:
     ``step_log`` keeps every training step's metrics and ``rank_stats``
     the last step's per-rank series.  ``health`` (an ``obs.HealthPlane``)
     and ``quality`` (an ``obs.QualityPlane``) are the planes, read-only
-    on the training state."""
+    on the training state; ``resilience`` (a
+    ``resilience.ResiliencePlane``) the fault codes, the NaN/Inf step
+    guard and the epoch checkpoints."""
     cfg: GNNConfig
     num_ranks: int
     mode: str = "aep"
@@ -239,6 +258,7 @@ class DistTrainer:
     overlap: bool = True
     health: Optional["obs.HealthPlane"] = None
     quality: Optional["obs.QualityPlane"] = None
+    resilience: Optional[object] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -365,8 +385,8 @@ class DistTrainer:
                                     use_hot.sum())
 
     def _rank_forward(self, model, hec, hot, data: dict, mb: dict,
-                      x: RankInputs, r: int, seed: int,
-                      dropout: float) -> RankForward:
+                      x: RankInputs, r: int, seed: int, dropout: float,
+                      poison: bool = False) -> RankForward:
         L = self.cfg.num_layers
         num_solid = data["num_solid"][r]
         hot_vids = data["hot_vids"][r] if hot else None
@@ -381,6 +401,10 @@ class DistTrainer:
             hit0 = (x.got.sum(), is_halo0.sum(), None)
         else:                                     # drop
             hit0 = (torch.zeros_like(is_halo0.sum()), is_halo0.sum(), None)
+        if poison:
+            # the nan_step fault: after every substitution, so the whole
+            # forward and backward go non-finite and the guard must skip
+            h0 = h0 * float("nan")
         hits = [hit0]
         captured = {}
 
@@ -420,11 +444,15 @@ class DistTrainer:
             vid0=x.vid_o_nodes[0])
 
     def _forward(self, state: dict, data: dict, mb: dict, seed: int,
-                 dropout: float) -> List[RankForward]:
+                 dropout: float, codes=None) -> List[RankForward]:
+        """Every rank's forward; ``codes`` (host ints per rank, armed
+        steps only) poison a ``nan_step`` rank's layer-0 input."""
         xs = self._inputs(data, mb)
-        return [self._rank_forward(state["model"], state["hec"],
-                                   state["hot"], data, mb, x, r, seed,
-                                   dropout) for r, x in enumerate(xs)]
+        return [self._rank_forward(
+                    state["model"], state["hec"], state["hot"], data, mb, x,
+                    r, seed, dropout,
+                    codes is not None and bool(codes[r] & CODE_NAN_STEP))
+                for r, x in enumerate(xs)]
 
     def _consume(self, state: dict, undo: Optional[list] = None):
         """``aep``: every rank ticks its HECs (and tier replica) and stores
@@ -437,9 +465,11 @@ class DistTrainer:
                 hot=[t.rank(r) for t in state["hot"]] or None, undo=undo)
 
     def _select(self, state: dict, data: dict, f: RankForward, r: int,
-                seed: int):
+                seed: int, codes=None):
         """Rank r's push selection and, with the hot tier, its broadcast
-        segment (the selection uniforms drawn here)."""
+        segment (the selection uniforms drawn here); on an armed step
+        (``codes``) its non-finite rows dropped and its wire fault
+        applied (``HaloExchangeEngine.filter_push``)."""
         R, dims = self.num_ranks, layer_dims(self.cfg)
         n0 = f.nodes0.shape[0]
         args = (f.nodes0, f.mask0, f.vid0, data["num_solid"][r], f.captured)
@@ -449,6 +479,8 @@ class DistTrainer:
         hot = None if not state["hot"] else self.engine.select_hot_push(
             data["hot_vids"][r], data["hot_mine"][r], *args,
             self.hot_uniforms(seed, r, (n0,)), dims, max(dims))
+        if codes is not None:
+            sel, hot = self.engine.filter_push(sel, hot, int(codes[r]))
         return sel, hot
 
     def _send(self, state: dict, sels: list) -> dict:
@@ -461,9 +493,10 @@ class DistTrainer:
         return stats
 
     def _push(self, state: dict, data: dict, fwd: List[RankForward],
-              seed: int) -> dict:
+              seed: int, codes=None) -> dict:
         """The whole push, inline on the current stream."""
-        return self._send(state, [self._select(state, data, f, r, seed)
+        return self._send(state, [self._select(state, data, f, r, seed,
+                                               codes)
                                   for r, f in enumerate(fwd)])
 
     def _side(self):
@@ -502,19 +535,31 @@ class DistTrainer:
             torch.cuda.current_stream(self.device).wait_event(self._pushed)
 
     # -- the step ------------------------------------------------------------
-    def train_step(self, state: dict, data: dict, mb: dict,
-                   seed: int) -> dict:
+    @property
+    def step_armed(self) -> bool:
+        """The resilience plane arms the step (fault codes, the guard)."""
+        return self.resilience is not None and self.resilience.step_armed
+
+    def train_step(self, state: dict, data: dict, mb: dict, seed: int,
+                   codes: Optional[Sequence[int]] = None) -> dict:
         """One synchronized step of every rank on the device minibatch
         ``mb`` with the u32 ``seed``; updates ``state`` in place and
         returns the step's metrics (floats), with the reference's keys
-        for the mode."""
+        for the mode.  On a step-armed trainer ``codes`` are the ranks'
+        fault codes (default all 0) and the metrics gain ``skipped``."""
         cfg, L = self.cfg, self.cfg.num_layers
         aep = self.mode == "aep"
         model, hec = state["model"], state["hec"]
+        armed = self.step_armed
+        if not armed and codes is not None:
+            raise ValueError("fault codes need a step-armed resilience "
+                             "plane (nan_guard or a fault schedule)")
+        if armed and codes is None:
+            codes = np.zeros(self.num_ranks, np.int32)
         if aep:
             self.join_push()
             self._consume(state)
-        fwd = self._forward(state, data, mb, seed, cfg.dropout)
+        fwd = self._forward(state, data, mb, seed, cfg.dropout, codes)
         params = model.parameter_list()
         push = None
         if aep and self.overlap:
@@ -529,7 +574,8 @@ class DistTrainer:
             sels, rank_grads = [], []
             for r, f in enumerate(fwd):
                 with self._side():
-                    sels.append(self._select(state, data, f, r, seed))
+                    sels.append(self._select(state, data, f, r, seed,
+                                             codes))
                 rank_grads.append(torch.autograd.grad(f.loss, params))
             with self._side():
                 push = self._send(state, sels)
@@ -548,14 +594,37 @@ class DistTrainer:
         denom = examples.clamp_min(1)
         loss_m = self.comm.psum(torch.stack([f.nll_sum for f in fwd])) / denom
         acc_m = self.comm.psum(torch.stack([f.correct for f in fwd])) / denom
+        opt = state["opt"]
+        if armed:
+            # the guard's fallback: the parameters and moments as they are
+            with torch.no_grad():
+                kept = [t.clone() for t in list(params) + opt.mu + opt.nu]
         diag = opt_lib.adam_update(
-            grads, state["opt"], params,
-            opt_lib.AdamConfig(lr=cfg.lr, grad_clip=1.0))
+            grads, opt, params, opt_lib.AdamConfig(lr=cfg.lr, grad_clip=1.0))
+        grad_norm = diag["grad_norm"]
+        if armed:
+            # the NaN/Inf step guard: loss and gradients are already
+            # summed over the ranks, so every rank takes the same branch;
+            # a device select, no host sync (a clean step selects the new
+            # bits everywhere)
+            ok = torch.isfinite(loss_m)
+            for g in grads:
+                ok = ok & torch.isfinite(g).all()
+            with torch.no_grad():
+                for t, old in zip(list(params) + opt.mu + opt.nu, kept):
+                    t.copy_(torch.where(ok, t, old))
+            zero = torch.zeros((), device=loss_m.device)
+            loss_m = torch.where(ok, loss_m, zero)
+            acc_m = torch.where(ok, acc_m, zero)
+            examples = torch.where(ok, examples, torch.zeros_like(examples))
+            grad_norm = torch.where(ok, grad_norm, zero)
         state["step"] += 1
         if aep and not self.overlap:       # the legacy inline schedule
-            push = self._push(state, data, fwd, seed)
+            push = self._push(state, data, fwd, seed, codes)
         metrics = {"loss": loss_m, "acc": acc_m, "examples": examples,
-                   "grad_norm": diag["grad_norm"]}
+                   "grad_norm": grad_norm}
+        if armed:
+            metrics["skipped"] = 1.0 - ok.float()
         if push is not None:
             self.join_push()
             metrics["aep_push_rows"] = self.comm.psum(push["push_rows"])
@@ -577,6 +646,10 @@ class DistTrainer:
         host = torch.cat([t.reshape(-1).double() for t in parts]).cpu()
         vals = host.tolist()
         out = dict(zip(metrics, vals))
+        if out.get("skipped"):
+            # Adam's count is a host int: a skipped step does not advance
+            # it (the reference's guard selects back opt_state["step"])
+            opt.step -= 1
         i = len(metrics)
         R = self.num_ranks
         for l in range(L):
@@ -616,8 +689,10 @@ class DistTrainer:
             return pipeline
         if not self.cfg.pipeline.enabled:
             return None
+        rz = self.resilience
         return MinibatchPipeline(ps, self.cfg, base_seed=seed0,
-                                 device=self.device)
+                                 device=self.device,
+                                 injector=rz.injector if rz else None)
 
     def train_epochs(self, ps: PartitionSet, data: dict, state: dict,
                      num_epochs: int, seed0: int = 0, log_every: int = 0,
@@ -630,7 +705,12 @@ class DistTrainer:
         ``np.random.default_rng(seed0)`` across the epochs, each batch
         copied in step order.  Every pipelined minibatch is a pure
         function of ``(seed0, epoch, step)``, so ``start_epoch=k`` replays
-        epoch k's batches.  Returns ``(state, history)``: per epoch the
+        epoch k's batches: restoring the checkpoint written after epoch
+        k-1 and going on from k gives the uninterrupted run's bits.  With
+        ``resilience``, each step takes its fault codes (step-armed), a
+        checkpoint is written at the epoch boundaries it asks for, and
+        ``FLIGHT_resilience.json`` at the end if a fault fired or a step
+        was skipped.  Returns ``(state, history)``: per epoch the
         metrics' means, the fanout draw's ``sampler_policy`` and, while
         the registry is on, the host seconds of the ``sample``,
         ``host_prep``, ``stage`` and ``step`` spans (``t_<span>``) and of
@@ -656,6 +736,12 @@ class DistTrainer:
                                            rng, reg, phases, s_policy, acc,
                                            health, quality))
                 mean = history[-1]
+                if self.resilience is not None \
+                        and self.resilience.ckpt is not None:
+                    # the whole state (state["step"] is current): the
+                    # push may still be writing the queues on its stream
+                    self.join_push()
+                    self.resilience.maybe_checkpoint(state, ep)
                 if log_every and (ep % log_every == 0
                                   or ep == start_epoch + num_epochs - 1):
                     hl = " ".join(
@@ -664,6 +750,8 @@ class DistTrainer:
                     print(f"[{self.mode}] epoch {ep}: "
                           f"loss={mean['loss']:.4f} acc={mean['acc']:.3f} "
                           f"hit-rates {hl}")
+        if self.resilience is not None:
+            self.resilience.finalize(health)
         return state, history
 
     def _epoch(self, ps, data, state, ep, pipeline, rng, reg, phases,
@@ -685,11 +773,17 @@ class DistTrainer:
         ph0 = {p: reg.value("phase_seconds", phase=p) for p in phases}
         wall0 = time.perf_counter()
         t_step = 0.0
-        for mb in mb_iter:
+        rz = self.resilience if self.step_armed else None
+        for k_ep, mb in enumerate(mb_iter):
             ts0 = time.perf_counter()
+            # the step's fault codes by (epoch, step in the epoch); a
+            # delay_rank fault sleeps in step_codes
+            codes = (rz.step_codes(ep, k_ep, self.num_ranks),) if rz else ()
             with obs.span("step", epoch=ep, step=state["step"]):
-                m = self.train_step(state, data, mb, state["step"])
+                m = self.train_step(state, data, mb, state["step"], *codes)
             t_step += time.perf_counter() - ts0
+            if rz:
+                rz.on_step(ep, k_ep, m.get("skipped", 0.0))
             ep_metrics.append(m)
             self.step_log.append(m)
             if acc is not None:

@@ -17,7 +17,11 @@ same state give the same bits; the dropout's zero pattern,
 UPDATE's dZ (and its db from one call to the next), the HEC probe + load
 (single and batched) and the fanout draw are held bit for bit, UPDATE's
 forward bit for bit to its pinned outputs, and AGG's forward (mean and
-count) bit for bit to its first design's pinned outputs.
+count) bit for bit to its first design's pinned outputs.  On NaN (and,
+for AGG, +-inf) rows C, A, E and G give NaN exactly where their plain
+versions do, and H does on a fanout whose every slot is included; the
+resilience plane's armed step is the unarmed step's bits and launches,
+and a skipped step leaves the parameters, moments and Adam's count.
 """
 import hashlib
 
@@ -1333,9 +1337,10 @@ def test_slot_index_on_card_equals_cpu(dev):
     assert a.lbound == b.lbound
 
 
-def repeat_run(dev, model, steps=3):
-    """``steps`` aep steps of a 4-rank trainer on the card from seed 3:
-    the step metrics and every tensor of the state after them."""
+def repeat_run(dev, model, steps=3, plane=None):
+    """``steps`` aep steps of a 4-rank trainer on the card from seed 3
+    (``plane``: its resilience plane): the step metrics and every tensor
+    of the state after them."""
     from repro_torch.configs.gnn import HECConfig, small_gnn_config
     from repro_torch.graph import partition_graph, synthetic_graph
     from repro_torch.pipeline.prefetcher import SamplingPlan
@@ -1351,7 +1356,7 @@ def repeat_run(dev, model, steps=3):
                                          push_limit=128))
     plan = SamplingPlan(ps, cfg, 0)
     hosts = list(plan.batches(plan.epoch_schedule(0), 0))[:steps]
-    tr = DistTrainer(cfg, 4, device=dev)
+    tr = DistTrainer(cfg, 4, device=dev, resilience=plane)
     data = build_dist_data(ps, cfg, dev)
     st = tr.init_state(seed=3, dist_data=data)
     logs = [tr.train_step(st, data, minibatch_to_device(h, dev), i)
@@ -1384,3 +1389,214 @@ def test_step_under_deterministic_algorithms(dev, model, monkeypatch):
     finally:
         torch.use_deterministic_algorithms(False)
     assert np.isfinite(logs[0]["loss"])
+
+
+# ---------------------------------------------------------------------------
+# NaN through the kernels: C, A, E, G and H give NaN where their plain
+# versions do (the resilience plane's faults feed them NaN on purpose)
+# ---------------------------------------------------------------------------
+def nan_close(got, want):
+    """NaN and +-inf exactly where ``want`` has them; ``close`` elsewhere."""
+    fin = torch.isfinite(want)
+    return (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(got[torch.isinf(want)], want[torch.isinf(want)])
+            and bool(torch.isfinite(got[fin]).all())
+            and close(got[fin], want[fin]))
+
+
+def poison_rows(t, rows, value=float("nan")):
+    t = t.clone()
+    t[rows] = value
+    return t
+
+
+@pytest.mark.parametrize("N,C,K", [(300, 96, 130), (1000, 256, 172),
+                                   (17001, 256, 256)])
+@pytest.mark.parametrize("relu,dropout", [(True, 0.0), (True, 0.5),
+                                          (False, 0.0)])
+def test_update_fwd_keeps_nan(dev, N, C, K, relu, dropout):
+    """Kernel C on NaN rows of agg and of self (and one NaN element): NaN
+    exactly where the plain version has it (ReLU and the dropout's kept
+    positions keep it); a zero row with a -0.0 bias gives the plain
+    version's zero bits; dZ (NaN > 0 is false) bit for bit."""
+    kw = update_inputs(dev, N + C, N, C, K)
+    kw["agg"] = poison_rows(kw["agg"], [0, 7, N - 1])
+    kw["self_h"] = poison_rows(kw["self_h"], [3, 7])
+    kw["agg"][11, 5] = float("nan")
+    kw["agg"][12] = 0.0
+    kw["self_h"][12] = 0.0
+    kw["b"][:8] = -0.0
+    out = update_fused.update_fused_fwd(relu=relu, dropout=dropout, seed=9,
+                                        **kw)
+    want = ref.fused_update_ref(relu=relu, dropout=dropout, seed=9, **kw)
+    torch.cuda.synchronize()
+    assert nan_close(out, want)
+    assert bool(torch.isnan(want[[0, 3, 7, 11, N - 1]]).any(1).all())
+    assert torch.equal(torch.signbit(out[12]), torch.signbit(want[12]))
+    g = torch.randn(N, K, device=dev)
+    dz, _ = update_fused.update_fused_bwd(g, want, relu=relu,
+                                          dropout=dropout, seed=9)
+    dz_p, _ = ref.fused_update_bwd_ref(g, want, relu=relu, dropout=dropout,
+                                       seed=9)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(dz), torch.isnan(dz_p))
+    assert torch.equal(dz.nan_to_num(), dz_p.nan_to_num())
+
+
+@pytest.mark.parametrize("N,M,f,D,K", [(300, 37, 7, 24, 47),
+                                       (2000, 512, 10, 256, 172),
+                                       (67584, 11264, 5, 128, 256),
+                                       (10000, 2048, 12, 128, 130)])
+@pytest.mark.parametrize("self_idx", [False, True])
+def test_serve_kernel_keeps_nan(dev, N, M, f, D, K, self_idx):
+    """Kernel A on NaN rows of h (row 0, which every pad reads, among
+    them; valid and invalid sources): NaN rows exactly where the plain
+    version has them, ``close`` elsewhere, with and without ReLU."""
+    kw = serve_inputs(dev, N + f, N, M, f, D, K, self_idx)
+    valid = kw["src_valid"].cpu().numpy()
+    rows = [0, int(np.flatnonzero(valid)[3]), int(np.flatnonzero(~valid)[2])]
+    kw["h_src"] = poison_rows(kw["h_src"], rows)
+    for relu in (True, False):
+        got = serve_fused.serve_fused_layer(relu=relu, **kw)
+        want = ref.serve_layer_ref(relu=relu, **kw)
+        torch.cuda.synchronize()
+        assert nan_close(got, want)
+        assert bool(torch.isnan(want[1]).all())     # row 1: pads only
+
+
+@pytest.mark.parametrize("N,M,f,D", AGG_SHAPES)
+@pytest.mark.parametrize("row0", [float("nan"), 1.0])
+def test_agg_fwd_keeps_nan(dev, N, M, f, D, row0):
+    """Kernel E on NaN and +-inf rows of valid and of invalid sources:
+    an excluded slot adds its row times 0, as the plain version's h * mask
+    does, so the non-finite values and their positions are the plain
+    version's; the counts bit for bit.  ``row0``: every pad reads row 0."""
+    rng = np.random.default_rng(N + 2 * D)
+    nbr = rng.integers(-1, N, (M, f)).astype(np.int32)
+    nbr[0] = -1
+    valid = rng.random(N) > 0.15
+    h = rng.normal(size=(N, D)).astype(np.float32)
+    h[np.flatnonzero(valid)[1:3]] = np.nan
+    h[np.flatnonzero(~valid)[:2]] = np.nan
+    h[np.flatnonzero(valid)[4], 0] = np.inf
+    h[np.flatnonzero(~valid)[3], -1] = -np.inf
+    h[0] = row0
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    mean, cnt = sage_agg.sage_agg_fwd(t(h), t(nbr), t(valid))
+    mean_p, cnt_p = ref.sage_agg_ref(t(h), t(nbr), t(valid))
+    torch.cuda.synchronize()
+    assert nan_close(mean, mean_p) and torch.equal(cnt, cnt_p)
+    assert bool(torch.isnan(mean_p).any())
+    assert bool(torch.isnan(mean[0]).all()) == (row0 != row0)
+
+
+@pytest.mark.parametrize("N,M,f,H,dh", GAT_SHAPES)
+@pytest.mark.parametrize("dst", [False, True])
+def test_gat_kernels_keep_nan(dev, N, M, f, H, dh, dst):
+    """Kernel G on NaN rows of z and e_u (valid and invalid sources, row 0
+    among them) and a NaN in e_v: the softmax's max and floor keep a NaN,
+    an excluded slot adds its row times an alpha of 0, so NaN lies where
+    the plain version's is.  Kernel H on a fanout whose every slot is
+    included, with NaN rows in z and e_u and a NaN row and element in g:
+    its NaN is the plain version's.  (Where a slot is excluded, the plain
+    version's gradient adds 0 x NaN = NaN at its source; H leaves the slot
+    out.)"""
+    kw = gat_inputs(dev, N + f + H + 1, N, M, f, H, dh, dst)
+    valid = kw["src_valid"].cpu().numpy()
+    bad = [0, int(np.flatnonzero(valid)[5]), int(np.flatnonzero(~valid)[1])]
+    kw["z"] = poison_rows(kw["z"], bad)
+    kw["e_u"] = poison_rows(kw["e_u"], [int(np.flatnonzero(valid)[9])])
+    kw["e_v"][min(4, kw["e_v"].shape[0] - 1), 0] = float("nan")
+    out = gat_edge.gat_edge_fwd(**kw)
+    want = ref.gat_edge_ref(**kw)
+    torch.cuda.synchronize()
+    assert nan_close(out, want)
+    assert bool(torch.isnan(want).any())
+    rng = np.random.default_rng(M + f)
+    full = dict(kw, src_valid=torch.ones_like(kw["src_valid"]),
+                nbr_idx=torch.as_tensor(rng.integers(0, N, (M, f)).astype(
+                    np.int32), device=dev))
+    g = torch.randn(M, H * dh, device=dev)
+    g[2] = float("nan")
+    g[min(5, M - 1), -1] = float("nan")
+    out = gat_edge.gat_edge_fwd(**full)
+    want = ref.gat_edge_ref(**full)
+    got = gat_edge.gat_edge_bwd(g, **full)
+    plain = ref.gat_edge_bwd_ref(g, **full)
+    torch.cuda.synchronize()
+    assert nan_close(out, want)
+    for a, b in zip(got, plain):
+        assert a.shape == b.shape and nan_close(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the resilience plane's step on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("model", ["graphsage", "gat"])
+def test_armed_clean_step_is_unarmed(dev, model):
+    """The NaN/Inf guard armed, every fault code 0: the unarmed steps'
+    bits in every metric and state tensor, and the same kernel launches
+    (the guard adds no kernel)."""
+    from repro_torch import resilience
+
+    def counts():
+        return [w.launches for w in (
+            update_fused.update_fused_fwd, update_fused.update_fused_bwd,
+            sage_agg.sage_agg_fwd, sage_agg.sage_agg_bwd,
+            gat_edge.gat_edge_fwd, gat_edge.gat_edge_bwd,
+            hec_search.hec_lookup)]
+    c0 = counts()
+    la, sa_ = repeat_run(dev, model)
+    c1 = counts()
+    lb, sb = repeat_run(dev, model, plane=resilience.ResiliencePlane(
+        resilience.ResilienceConfig(nan_guard=True)))
+    c2 = counts()
+    assert [m.pop("skipped") for m in lb] == [0.0] * len(lb)
+    assert la == lb and bit_equal(sa_, sb)
+    assert [b - a for a, b in zip(c0, c1)] == [b - a for a, b in zip(c1, c2)]
+
+
+@pytest.mark.parametrize("model", ["graphsage", "gat"])
+def test_skipped_step_keeps_params_moments_and_count(dev, model):
+    """A step whose rank 1 has the nan_step code on the card: skipped,
+    the parameters, both moments and Adam's count as they were, the
+    poisoned rank's pushed rows all filtered; the next clean step goes
+    on as from the state before."""
+    from repro_torch import resilience
+    from repro_torch.configs.gnn import HECConfig, small_gnn_config
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.pipeline.prefetcher import SamplingPlan
+    from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
+                                               minibatch_to_device)
+    g = synthetic_graph(num_vertices=3000, avg_degree=10, num_classes=6,
+                        feat_dim=24, seed=0)
+    ps = partition_graph(g, 4, seed=0)
+    cfg = small_gnn_config(model, batch_size=64, feat_dim=24, num_classes=6,
+                           hidden_size=32, num_hidden_layers=2,
+                           fanouts=(4, 5, 6),
+                           hec=HECConfig(cache_size=4096, ways=4,
+                                         push_limit=128))
+    plan = SamplingPlan(ps, cfg, 0)
+    hosts = list(plan.batches(plan.epoch_schedule(0), 0))[:2]
+    tr = DistTrainer(cfg, 4, device=dev, resilience=resilience.ResiliencePlane(
+        resilience.ResilienceConfig(nan_guard=True)))
+    data = build_dist_data(ps, cfg, dev)
+    st = tr.init_state(seed=3)
+    m0 = tr.train_step(st, data, minibatch_to_device(hosts[0], dev), 0)
+    assert m0["skipped"] == 0.0 and st["opt"].step == 1
+
+    def tensors():
+        return [t.detach().cpu().clone() for t in
+                st["model"].parameter_list() + st["opt"].mu + st["opt"].nu]
+    before = tensors()
+    codes = np.array([0, resilience.CODE_NAN_STEP, 0, 0], np.int32)
+    m1 = tr.train_step(st, data, minibatch_to_device(hosts[1], dev), 1,
+                       codes)
+    torch.cuda.synchronize()
+    assert m1["skipped"] == 1.0 and m1["loss"] == m1["grad_norm"] == 0.0
+    assert st["opt"].step == 1 and st["step"] == 2
+    assert bit_equal(tensors(), before)
+    assert int(tr.rank_stats["rank_push_rows"][1]) == 0
+    m2 = tr.train_step(st, data, minibatch_to_device(hosts[1], dev), 2)
+    assert m2["skipped"] == 0.0 and st["opt"].step == 2
+    assert np.isfinite(m2["loss"])

@@ -633,7 +633,8 @@ def test_update_params_empties_every_shard_and_replica(world):
 
 def test_prewarm_failover_and_device_rules(world, monkeypatch):
     """``prewarm`` routes the offline rows to their owners and fills every
-    replica; ``failover=True`` waits for slice 6; without a card the
+    replica; ``failover=True`` builds the rank breaker, every rank alive
+    (``tests/test_torch_resilience.py`` drives it); without a card the
     scheduler and the stacked cache raise instead of falling back."""
     cfg, net, _, _ = world["gat"]
     srv = DistGNNServeScheduler(cfg, net, world["ps"], DistServeConfig(
@@ -644,9 +645,9 @@ def test_prewarm_failover_and_device_rules(world, monkeypatch):
     assert n == sum(max(1, round(p.num_solid * 0.25))
                     for p in world["ps"].parts)
     assert all(v.all() for v in srv.hot.valid)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        DistGNNServeScheduler(cfg, net, world["ps"],
-                              DistServeConfig(failover=True), device="cpu")
+    fo = DistGNNServeScheduler(cfg, net, world["ps"],
+                               DistServeConfig(failover=True), device="cpu")
+    assert fo.breaker.alive.all() and fo.metrics()["dead_ranks"] == []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DistGNNServeScheduler(cfg, net, world["ps"])

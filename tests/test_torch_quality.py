@@ -374,8 +374,22 @@ def test_sharded_planes_change_no_answer_and_series_sum(shard_world,
 
 
 def test_failover_still_raises(shard_world):
-    with pytest.raises(NotImplementedError):
-        shard_server(shard_world, "graphsage", failover=True)
+    """``failover=True`` raised until the resilience plane came; now it
+    builds the rank breaker, and the quality plane's audit of fully
+    warmed shards still reads exactly 0.0 with every rank alive, and with
+    a rank marked dead (the audit reads every shard's caches)."""
+    _, _, ed = shard_world["graphsage"]
+    q = obs.QualityPlane(obs.QualityConfig(audit_samples=64))
+    srv = shard_server(shard_world, "graphsage", dict(quality=q),
+                       failover=True)
+    srv.cache.warm(ed, np.arange(900))
+    assert srv.breaker is not None and not srv.breaker.any_dead
+    assert all(v["err_max"] == 0.0
+               for v in srv.audit(epoch=0).per_layer.values())
+    srv.mark_dead(2)
+    assert srv.metrics()["dead_ranks"] == [2]
+    assert all(v["err_max"] == 0.0
+               for v in srv.audit(epoch=1).per_layer.values())
 
 
 # ---------------------------------------------------------------------------
