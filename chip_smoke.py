@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together, into ``build/kernels/``), then runs twelve
-phases on one card, phases 1-4, 7, 9 (b) and 10 at the paper's full GraphSAGE
-width (128 -> 256 -> 256 -> 172, fanouts 5/10/15), phases 5-6 at its full
-GAT width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172, one head at the
-last layer) and phases 8 and 9 (c) at both:
+source, all started together, into ``build/kernels/``), then runs
+thirteen phases on one card, phases 1-4, 7, 9 (b) and 10 at the paper's
+full GraphSAGE width (128 -> 256 -> 256 -> 172, fanouts 5/10/15), phases
+5-6 at its full GAT width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172,
+one head at the last layer), phases 8 and 9 (c) at both and phase 13 at
+the reference dry run's (128 -> 256 -> 16, fanouts 5/10):
 
   1. kernels vs plain versions: each kernel's wrapper against its plain
      PyTorch version on the same inputs — the serve layer at the three
@@ -207,7 +208,26 @@ last layer) and phases 8 and 9 (c) at both:
      its cold ones zeros, ``serve_degraded`` 1, J run with rank 1 masked
      and held bit for bit to its plain version), and a passing probe:
      rank 1's queries within tolerance of the offline rows, one dead and
-     one recovered event.
+     one recovered event; (0) also F and H on infinite and NaN gradients
+     and activations at every kind of slot (kept, masked, pads, indices
+     past N, a row with no kept slot) and C and A on infinite and
+     near-FLT_MAX inputs (``kernels/nonfinite.py``): +-inf and NaN exactly
+     where the plain versions have them;
+ 13. the dry run at the paper's largest scale, the eleventh to
+     thirteenth main paths: (a) ``repro_torch.launch.gnn_dryrun``,
+     GraphSAGE ``aep`` at ``P13_RANKS`` = 64 ranks stacked on the card
+     and 30,000 vertices (the reference's dry-run config), launch counts
+     zeroed before and read after: one push all_to_all of
+     ``aep_bytes_per_step(64, 2, 1024, [128, 256])`` = 134,742,016 B a
+     rank, the all-reduce the parameters and the step's scalar metrics,
+     its flops, bytes, roofline, step time and peak memory printed, and
+     the step's count (flops, bytes, collectives, products, launches) on
+     the card equal to the CPU's at 2 ranks of each model; (b) ``--mode
+     sync`` at 64 ranks (two all_to_alls of ``sync_bytes_per_step``) and
+     GAT at ``P13_GAT_RANKS`` = 32 (at 64 its queues and push buffers
+     need ~120 GB); (c) the four GNN examples (``examples/torch_*.py``),
+     each in a process of its own on the card: exit 0 and their summary
+     lines.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
@@ -225,7 +245,10 @@ layer shapes, H's a mean over phase 6's layer shapes, I's a mean over
 phase 7's layer shapes under cv (its ``plain_ms`` is blocking: the plain
 draw waits for the card to find its wide rows), J's launch-weighted over
 phase 8's hidden-layer request buffers.  A's, B's and G's rows add phase
-8's launches and shapes (``launches_by_path``).  Cold
+8's launches and shapes (``launches_by_path``); B-H's add phase 13's
+dry-run launches: phase 13 holds B-F (GraphSAGE at 64 ranks) and B, G,
+H (GAT) to their plain versions at the dry runs' own layer shapes
+(rank 0's first minibatch), untimed.  Cold
 and warm q/s, per-step spans and s/epoch are printed as indicative only:
 each window lasts seconds or less on the host clock.
 
@@ -273,11 +296,12 @@ import types
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, TF32 on
-# them (dense), HBM3 rate.
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES_PER_S = 3.35e12
+# the card's peaks (NVIDIA H100 SXM5 80GB HBM3 data sheet) and the
+# kernels' work formulas live in the package, so that this table's
+# bounds and the dry run's roofline agree
+from repro_torch.launch.mesh import (HBM_BW as PEAK_BYTES_PER_S,  # noqa: E402
+                                     PEAK_FP32_FLOPS, PEAK_TF32_FLOPS)
+from repro_torch.utils import step_cost  # noqa: E402
 TOL = 1e-4
 SLOTS = 64
 OFFLINE_CHUNK = 2048        # layerwise_embeddings' default chunk of dst rows
@@ -410,10 +434,18 @@ def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
     """The least time for ``nbytes`` moved, ``flops`` on the CUDA cores in
     float32 and ``tf32_flops`` on the tensor cores in TF32 (the two units
     run side by side, so the slower of them), and which of bytes and
-    operations sets it."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(flops / PEAK_FP32_FLOPS, tf32_flops / PEAK_TF32_FLOPS) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    operations sets it (``utils/step_cost.py:bound``)."""
+    return step_cost.bound(step_cost.Work(nbytes, flops, tf32_flops))
+
+
+def work_bound(work):
+    """``bound`` of a kernel launch's work formula (``utils/step_cost.py``),
+    and its bound on the CUDA cores alone where it takes the tensor cores
+    (None otherwise)."""
+    ms, by = step_cost.bound(work)
+    ffma = None if work.ffma is None else \
+        bound(work.nbytes, work.ffma)[0]
+    return ms, by, ffma
 
 
 # ---------------------------------------------------------------------------
@@ -443,23 +475,14 @@ def serve_layer_case(torch, sf, ref, name, h, nbr, valid, p, relu,
                h.device).multi_processor_count),
            "max_abs_err": float(err.max()) if err.numel() else 0.0}
     if timed:
-        # what this input needs: each h row gathered once (valid neighbors
-        # and self rows), the valid flag of each neighbor slot, nbr, W, b,
-        # out; one add per gathered element, and the two products: on the
-        # CUDA cores in float32 (FFMA), or (the route taken) as three TF32
-        # products on the tensor cores beside the adds, the mean's
-        # division and the epilogue on the CUDA cores
-        idx = nbr.long()
-        used = (idx >= 0) & valid[idx.clamp_min(0)]
+        # what this input needs (step_cost.serve_layer_work): on the CUDA
+        # cores in float32 (FFMA), or (the route taken) the products as
+        # three TF32 products on the tensor cores
+        row["bound_ms"], row["bound_by"], row["bound_ffma_ms"] = work_bound(
+            step_cost.serve_layer_work(h, nbr, valid, wn, ws, b, relu=relu,
+                                       self_idx=self_idx))
         self_rows = (torch.arange(M, device=h.device) if self_idx is None
                      else self_idx.long().clamp(0, N - 1))
-        rows = torch.cat([idx[used], self_rows]).unique().numel()
-        nbytes = (rows * D * 4 + int((idx >= 0).sum()) + M * f * 4
-                  + 2 * D * K * 4 + K * 4 + M * K * 4)
-        adds = int(used.sum()) * D
-        row["bound_ffma_ms"], _ = bound(nbytes, 4.0 * M * D * K + adds)
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, adds + M * D + 2.0 * M * K, tf32_flops=12.0 * M * D * K)
         row["ms"], row["call_ms"] = time_ms(
             torch, lambda: sf.serve_fused_layer(
                 h, nbr, valid, wn, ws, b, relu=relu, self_idx=self_idx))
@@ -526,10 +549,8 @@ def hec_case(torch, hs, name, state, vids, timed=True):
            "max_abs_err": 0.0, "hits": int(hit.sum()),
            "negative_vids": int((vids < 0).sum())}
     if timed:
-        lines = (sets.long() * ways + way.long())[hit].unique().numel()
-        nbytes = (n * 4 + sets.unique().numel() * ways * 4 + lines * d * 4
-                  + n * (1 + 4 + 4) + n * d * 4)
-        row["bound_ms"], row["bound_by"] = bound(nbytes, n * ways)
+        row["bound_ms"], row["bound_by"], _ = work_bound(
+            step_cost.hec_lookup_work(state.tags, state.values, vids, want))
         row["ms"], row["call_ms"] = time_ms(torch, lambda: hs.hec_lookup(
             state.tags, state.values, vids))
         row["plain_ms"], row["plain_call_ms"] = time_ms(
@@ -946,15 +967,10 @@ def agg_case(torch, sa, ref, name, h, nbr, valid, timed=True):
     row = {"shape": f"h {N}x{D}, nbr {M}x{f}", "max_abs_err": err,
            "route": agg_route(torch, sa, h, nbr)}
     if timed:
-        # each included row of h read once, the valid flag of each slot,
-        # nbr, the mean and count written; one add per included element
+        row["bound_ms"], row["bound_by"], _ = work_bound(
+            step_cost.agg_fwd_work(h, nbr, valid))
         idx = nbr.long()
         used = (idx >= 0) & valid[idx.clamp_min(0)]
-        rows = idx[used].unique().numel()
-        nbytes = (rows * D * 4 + int((idx >= 0).sum()) + M * f * 4
-                  + M * D * 4 + M * 4)
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, int(used.sum()) * D + M * D)
         row["ms"], row["call_ms"] = time_ms(
             torch, lambda: sa.sage_agg_fwd(h, nbr, valid))
         row["plain_ms"], row["plain_call_ms"] = time_ms(
@@ -1014,13 +1030,8 @@ def agg_bwd_case(torch, sa, ref, name, g, nbr, valid, cnt, num_src,
     if wide:
         row["held_to"] = "the plain version in float64"
     if timed:
-        # g and cnt read once, the transposed index (offsets, chunk bases,
-        # the kept slots), dh written whole; one divide and one add per
-        # kept element
-        kept = int(ix.offsets[-1])
-        nbytes = (M * D * 4 + M * 4 + 2 * (num_src + 1) * 4 + kept * 4
-                  + num_src * D * 4)
-        row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * kept * D)
+        row["bound_ms"], row["bound_by"], _ = work_bound(
+            step_cost.agg_bwd_work(g, nbr, valid, cnt, num_src, ix))
         row["ms"], row["call_ms"] = time_ms(
             torch, lambda: sa.sage_agg_bwd(g, nbr, valid, cnt, num_src, ix))
         row["index_ms"], row["index_call_ms"] = time_ms(
@@ -1073,14 +1084,10 @@ def update_case(torch, uf, ref, name, args, relu, dropout, seed, timed=True):
     row = {"shape": f"N {N}, C {C}, K {K}, relu {relu}, dropout {dropout}",
            "route": route, "max_abs_err": err}
     if timed:
-        # agg, self, Wn, Ws, b read once, out written; two products of
-        # 2NCK operations, and the epilogue's 3NK.  On the CUDA cores in
-        # float32 (FFMA), or (the route taken) as three TF32 products on
-        # the tensor cores beside the epilogue on the CUDA cores
-        nbytes = (2 * N * C + 2 * C * K + K + N * K) * 4
-        row["bound_ffma_ms"], _ = bound(nbytes, 4.0 * N * C * K + 3 * N * K)
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, 3.0 * N * K, tf32_flops=3 * 4.0 * N * C * K)
+        # on the CUDA cores in float32 (FFMA), or (the route taken) as
+        # three TF32 products on the tensor cores beside the epilogue
+        row["bound_ms"], row["bound_by"], row["bound_ffma_ms"] = work_bound(
+            step_cost.update_fwd_work(*args))
         row["ms"], row["call_ms"] = time_ms(
             torch, lambda: uf.update_fused_fwd(*args, **kw))
         row["plain_ms"], row["plain_call_ms"] = time_ms(
@@ -1121,9 +1128,8 @@ def update_bwd_case(torch, uf, ref, name, g, out, relu, dropout, seed,
            "route": f"one launch, {stripes} stripes, db by the last block",
            "max_abs_err": err, "library_ms": None}
     if timed:
-        # g (and out, with ReLU) read once, dZ and db written
-        nbytes = (N * K * (3 if relu else 2) + K) * 4
-        row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * N * K)
+        row["bound_ms"], row["bound_by"], _ = work_bound(
+            step_cost.update_bwd_work(g, out, relu=relu))
         row["ms"], row["call_ms"] = time_ms(
             torch, lambda: uf.update_fused_bwd(g, out, **kw))
         row["plain_ms"], row["plain_call_ms"] = time_ms(
@@ -1151,70 +1157,108 @@ def print_row(kernel, row, phase="phase 4"):
              f"plain version's bits" if "rows_bitwise_plain" in row else ""))
 
 
-def phase4_kernels(torch, np, res):
-    """(a): C-F against their plain versions at the layer shapes of the
-    main path's first minibatch (rank 0), and B at its lookups on the
-    run's caches; then ragged shapes."""
-    from repro_torch.kernels import hec_search as hs
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import sage_agg as sa
-    from repro_torch.kernels import update_fused as uf
+def first_inputs(torch, res, r=0):
+    """Rank ``r``'s inputs in the run's first minibatch, as the main path
+    draws it: ``(mb, nodes, own, h)``, ``h`` its layer-0 rows."""
     from repro_torch.pipeline.prefetcher import SamplingPlan
     from repro_torch.train.gnn_trainer import minibatch_to_device
-    ps, cfg, data, state = res["ps"], res["cfg"], res["data"], res["state"]
-    dev = torch.device("cuda")
+    ps, cfg, data = res["ps"], res["cfg"], res["data"]
     plan = SamplingPlan(ps, cfg, 0)
     mb = minibatch_to_device(plan.sample_host(0, 0, plan.epoch_schedule(0)[0]),
-                             dev)
-    r, L = 0, cfg.num_layers
-    rows = {n: [] for n in ("update_fused_fwd", "update_fused_bwd",
-                            "sage_agg_fwd", "sage_agg_bwd", "hec_lookup")}
-    gen = torch.Generator(device=dev).manual_seed(4)
+                             torch.device("cuda"))
     num_solid = data["num_solid"][r]
     feats = data["features"][r]
     nodes = [n[r] for n in mb["layer_nodes"]]
     own = [m[r] & (n < num_solid) for n, m in zip(nodes, mb["node_mask"])]
     h = feats[nodes[0].clamp(0, feats.shape[0] - 1).long()] \
         * own[0][:, None].float()
-    model = state["model"]
-    for k, layer in enumerate(model.layers):
+    return mb, nodes, own, h
+
+
+def show_row(kernel, row, phase):
+    """A timed row in full; an untimed one (a check alone) in short."""
+    if "ms" in row:
+        print_row(kernel, row, phase)
+    else:
+        print(f"{phase}: {kernel} {row['shape']}"
+              + (f" [{row['route']}]" if "route" in row else "")
+              + f": max|d|={row['max_abs_err']:.3e}, within tolerance")
+
+
+def lookup_case(torch, hs, res, nodes, k, name, phase, timed, r=0):
+    """B at layer k's lookups of rank r's nodes on the run's cache."""
+    data, state = res["data"], res["state"]
+    vid_o = data["vid_o"][r]
+    vids = torch.where(nodes[k] >= 0,
+                       vid_o[nodes[k].clamp(0, vid_o.shape[0] - 1).long()],
+                       -1)
+    row = hec_case(torch, hs, name, state["hec"][k][r],
+                   vids.to(torch.int32).contiguous(), timed)
+    print(f"{phase}: hec_lookup {row['shape']} ({row['hits']} hits): "
+          f"bit-exact" + (f"; device ms kernel {row['ms']:.4f}, plain "
+                          f"{row['plain_ms']:.4f}, bound "
+                          f"{row['bound_ms']:.5f} ({row['bound_by']})"
+                          if timed else ""))
+    return row
+
+
+def sage_layer_cases(torch, res, phase, timed=True, gen=None):
+    """C-F against their plain versions at the layer shapes of the run's
+    first minibatch (rank 0), and B at its lookups on the run's caches;
+    returns the rows by kernel.  ``gen`` draws the gradients."""
+    from repro_torch.kernels import hec_search as hs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sage_agg as sa
+    from repro_torch.kernels import update_fused as uf
+    cfg, state = res["cfg"], res["state"]
+    dev = torch.device("cuda")
+    mb, nodes, own, h = first_inputs(torch, res)
+    r, L = 0, cfg.num_layers
+    rows = {n: [] for n in ("update_fused_fwd", "update_fused_bwd",
+                            "sage_agg_fwd", "sage_agg_bwd", "hec_lookup")}
+    gen = gen or torch.Generator(device=dev).manual_seed(4)
+    for k, layer in enumerate(state["model"].layers):
         nbr = mb["nbr_idx"][k][r]
         M = nbr.shape[0]
         last = k == L - 1
         mean, cnt, row = agg_case(torch, sa, ref, f"layer {k}", h, nbr,
-                                  own[k])
+                                  own[k], timed)
         rows["sage_agg_fwd"].append(row)
-        print_row("sage_agg_fwd (E)", row)
+        show_row("sage_agg_fwd (E)", row, phase)
         g = torch.randn(mean.shape, generator=gen, device=dev)
         if k > 0:                      # layer 0's input needs no gradient
             row = agg_bwd_case(torch, sa, ref, f"layer {k}", g, nbr, own[k],
-                               cnt, h.shape[0])
+                               cnt, h.shape[0], timed)
             rows["sage_agg_bwd"].append(row)
-            print_row("sage_agg_bwd (F)", row)
+            show_row("sage_agg_bwd (F)", row, phase)
         w = [layer.wn.detach(), layer.ws.detach(), layer.b.detach()]
         drop = 0.0 if last else cfg.dropout
         out, row = update_case(torch, uf, ref, f"layer {k}",
-                               [mean, h[:M], *w], not last, drop, k + 1)
+                               [mean, h[:M], *w], not last, drop, k + 1,
+                               timed)
         rows["update_fused_fwd"].append(row)
-        print_row("update_fused_fwd (C)", row)
+        show_row("update_fused_fwd (C)", row, phase)
         g = torch.randn(out.shape, generator=gen, device=dev)
         row = update_bwd_case(torch, uf, ref, f"layer {k}", g, out,
-                              not last, drop, k + 1)
+                              not last, drop, k + 1, timed)
         rows["update_fused_bwd"].append(row)
-        print_row("update_fused_bwd (D)", row)
-        # the HEC lookup of this layer's nodes on rank 0's trained cache
-        vid_o = data["vid_o"][r]
-        vids = torch.where(nodes[k] >= 0,
-                           vid_o[nodes[k].clamp(0, vid_o.shape[0] - 1)
-                                 .long()], -1)
-        row = hec_case(torch, hs, f"train lookup l{k}", state["hec"][k][r],
-                       vids.to(torch.int32).contiguous())
-        rows["hec_lookup"].append(row)
-        print(f"phase 4: hec_lookup {row['shape']} ({row['hits']} hits): "
-              f"bit-exact; device ms kernel {row['ms']:.4f}, plain "
-              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} "
-              f"({row['bound_by']})")
+        show_row("update_fused_bwd (D)", row, phase)
+        rows["hec_lookup"].append(lookup_case(
+            torch, hs, res, nodes, k, f"train lookup l{k}", phase, timed))
         h = out
+    return rows
+
+
+def phase4_kernels(torch, np, res):
+    """(a): C-F against their plain versions at the layer shapes of the
+    main path's first minibatch (rank 0), and B at its lookups on the
+    run's caches; then ragged shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sage_agg as sa
+    from repro_torch.kernels import update_fused as uf
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = sage_layer_cases(torch, res, "phase 4", gen=gen)
     # ragged shapes: N, C, K, D off every tile, a D without float4 rows,
     # -1 pads, invalid sources, an all-masked row
     for (N, M, f, D) in ((300, 37, 7, 6), (1000, 257, 13, 100)):
@@ -1541,18 +1585,8 @@ def gat_case(torch, ge, ref, name, z, e_u, e_v, nbr, valid, dst_idx=None,
            "max_abs_err": err, "library_ms": None}
     del want
     if timed:
-        # each included source's z and e_u row read once, the valid flag of
-        # each slot, nbr, the e_v (and dst) rows, out written; per included
-        # slot two flops per z element and about 8 per head (softmax)
-        idx = nbr.long()
-        used = (idx >= 0) & valid[idx.clamp(0, N - 1)]
-        rows = idx.clamp(0, N - 1)[used].unique().numel()
-        slots = int(used.sum())
-        nbytes = (rows * (H * dh + H) * 4 + int((idx >= 0).sum())
-                  + M * f * 4 + M * H * 4 + (M * 4 if dst_idx is not None
-                                             else 0) + M * H * dh * 4)
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, slots * (2.0 * H * dh + 8 * H))
+        row["bound_ms"], row["bound_by"], _ = work_bound(
+            step_cost.gat_fwd_work(z, e_u, e_v, nbr, valid, dst_idx))
         row["ms"], row["call_ms"] = time_ms(torch, lambda: ge.gat_edge_fwd(
             z, e_u, e_v, nbr, valid, dst_idx))
         # the plain version launches tens of torch ops per call: fewer
@@ -1607,23 +1641,8 @@ def gat_bwd_case(torch, ge, ref, name, g, z, e_u, e_v, nbr, valid,
         row["held_to"] = "the plain version in float64"
     del got, want, a, b
     if timed:
-        # g, the included sources' z and e_u rows, the slots' valid flags,
-        # nbr and e_v read once, the transposed index (offsets, chunk
-        # bases, kept slots) read once; the scratch alpha and ds per
-        # included slot and head written once and read once per kept
-        # slot; dz, de_u and de_v written whole.  Per included slot a dot
-        # product and per kept slot a scaled add per z element
-        idx = nbr.long()
-        used = (idx >= 0) & valid[idx.clamp(0, N - 1)]
-        rows = idx.clamp(0, N - 1)[used].unique().numel()
-        inc, kept = int(used.sum()), int(ix.offsets[-1])
-        nbytes = (M * H * dh * 4 + rows * (H * dh + H) * 4
-                  + int((idx >= 0).sum()) + M * f * 4 + M * H * 4
-                  + 2 * (N + 1) * 4 + kept * 4
-                  + 2 * inc * H * 4 + 2 * kept * H * 4
-                  + N * H * dh * 4 + N * H * 4 + e_v.shape[0] * H * 4)
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, inc * (2.0 * H * dh + 12 * H) + kept * 2.0 * H * dh)
+        row["bound_ms"], row["bound_by"], _ = work_bound(
+            step_cost.gat_bwd_work(g, z, e_u, e_v, nbr, valid, dst_idx, ix))
         row["ms"], row["call_ms"] = time_ms(torch, lambda: ge.gat_edge_bwd(
             g, z, e_u, e_v, nbr, valid, dst_idx, ix, dix))
         row["index_ms"], row["index_call_ms"] = time_ms(
@@ -1774,55 +1793,47 @@ def phase6_main_path(torch, np, vertices):
     return res, launches
 
 
+def gat_layer_cases(torch, res, phase, timed=True, gen=None):
+    """G and H against their plain versions at the layer shapes of the
+    run's first minibatch (rank 0), and B at its lookups on the run's
+    caches; returns the rows by kernel.  ``gen`` draws the gradients."""
+    from repro_torch.kernels import gat_edge as ge
+    from repro_torch.kernels import hec_search as hs
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    mb, nodes, own, h = first_inputs(torch, res)
+    r = 0
+    rows = {n: [] for n in ("gat_edge_fwd", "gat_edge_bwd", "hec_lookup")}
+    gen = gen or torch.Generator(device=dev).manual_seed(6)
+    for k, layer in enumerate(res["state"]["model"].layers):
+        nbr = mb["nbr_idx"][k][r]
+        z, e_u, e_v = layer.project(h)
+        out, row = gat_case(torch, ge, ref, f"layer {k}", z, e_u, e_v, nbr,
+                            own[k], timed=timed)
+        rows["gat_edge_fwd"].append(row)
+        show_row("gat_edge_fwd (G)", row, phase)
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        row = gat_bwd_case(torch, ge, ref, f"layer {k}", g, z, e_u, e_v, nbr,
+                           own[k], timed=timed)
+        rows["gat_edge_bwd"].append(row)
+        show_row("gat_edge_bwd (H)", row, phase)
+        del z, e_u, e_v, g
+        rows["hec_lookup"].append(lookup_case(
+            torch, hs, res, nodes, k, f"GAT train lookup l{k}", phase, timed))
+        h = out
+    return rows
+
+
 def phase6_kernels(torch, np, res):
     """(a): G and H against their plain versions at the layer shapes of
     the main path's first minibatch (rank 0) and at a ragged shape, and B
     at its lookups on the run's caches."""
     from repro_torch.kernels import gat_edge as ge
-    from repro_torch.kernels import hec_search as hs
     from repro_torch.kernels import ref
-    from repro_torch.pipeline.prefetcher import SamplingPlan
-    from repro_torch.train.gnn_trainer import minibatch_to_device
     torch.cuda.reset_peak_memory_stats()
-    ps, cfg, data, state = res["ps"], res["cfg"], res["data"], res["state"]
     dev = torch.device("cuda")
-    plan = SamplingPlan(ps, cfg, 0)
-    mb = minibatch_to_device(plan.sample_host(0, 0, plan.epoch_schedule(0)[0]),
-                             dev)
-    r = 0
-    rows = {n: [] for n in ("gat_edge_fwd", "gat_edge_bwd", "hec_lookup")}
     gen = torch.Generator(device=dev).manual_seed(6)
-    num_solid = data["num_solid"][r]
-    feats = data["features"][r]
-    nodes = [n[r] for n in mb["layer_nodes"]]
-    own = [m[r] & (n < num_solid) for n, m in zip(nodes, mb["node_mask"])]
-    h = feats[nodes[0].clamp(0, feats.shape[0] - 1).long()] \
-        * own[0][:, None].float()
-    for k, layer in enumerate(state["model"].layers):
-        nbr = mb["nbr_idx"][k][r]
-        z, e_u, e_v = layer.project(h)
-        out, row = gat_case(torch, ge, ref, f"layer {k}", z, e_u, e_v, nbr,
-                            own[k])
-        rows["gat_edge_fwd"].append(row)
-        print_row("gat_edge_fwd (G)", row, "phase 6")
-        g = torch.randn(out.shape, generator=gen, device=dev)
-        row = gat_bwd_case(torch, ge, ref, f"layer {k}", g, z, e_u, e_v, nbr,
-                           own[k])
-        rows["gat_edge_bwd"].append(row)
-        print_row("gat_edge_bwd (H)", row, "phase 6")
-        del z, e_u, e_v, g
-        vid_o = data["vid_o"][r]
-        vids = torch.where(nodes[k] >= 0,
-                           vid_o[nodes[k].clamp(0, vid_o.shape[0] - 1)
-                                 .long()], -1)
-        row = hec_case(torch, hs, f"GAT train lookup l{k}",
-                       state["hec"][k][r], vids.to(torch.int32).contiguous())
-        rows["hec_lookup"].append(row)
-        print(f"phase 6: hec_lookup {row['shape']} ({row['hits']} hits): "
-              f"bit-exact; device ms kernel {row['ms']:.4f}, plain "
-              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.5f} "
-              f"({row['bound_by']})")
-        h = out
+    rows = gat_layer_cases(torch, res, "phase 6", gen=gen)
     # ragged: dh off the float4 path and on it, f past one chunk of 32
     # slots, -1 pads, indices past N, invalid sources, an all-masked row,
     # clipped and repeated dst ids
@@ -1924,22 +1935,15 @@ def draw_case(torch, np, sd, ref, name, csr, cur, f, policy, seed,
            "route": f"tiles of {group} rows", "max_abs_err": 0.0,
            "library_ms": None}
     if timed:
-        # what this input needs: cur (and allow) and the output per row,
-        # two indptr words per valid row, each candidate's index once, and
-        # under cv the weight of each candidate of a row wider than f; one
-        # hash (about 12 integer operations) per candidate of such a row
+        row["bound_ms"], row["bound_by"], _ = work_bound(
+            step_cost.sample_draw_work(*args, **kw))
         ip = csr["indptr"].long()
         valid = (cur_t >= 0) & (cur_t < csr["num_solid"])
         if allow_t is not None:
             valid &= allow_t
         vc = torch.where(valid, cur_t.long(), 0)
         deg = torch.where(valid, ip[vc + 1] - ip[vc], 0)
-        cand, cand_big = int(deg.sum()), int(deg[deg > f].sum())
-        nbytes = (n * (4 + 4 * f) + (n if allow_t is not None else 0)
-                  + int(valid.sum()) * 8 + cand * 4
-                  + (cand_big * 4 if policy == "cv" else 0))
-        row["bound_ms"], row["bound_by"] = bound(nbytes, 12.0 * cand_big)
-        row["candidates"] = cand
+        row["candidates"] = int(deg.sum())
         row["ms"], row["call_ms"] = time_ms(
             torch, lambda: sd.sample_draw(*args, **kw))
         row["plain_ms"] = time_blocking_ms(
@@ -2216,18 +2220,8 @@ def probe_case(torch, hs, name, state, vids, alive=None, timed=True):
            "negative_vids": int((vids < 0).sum()), "library_ms": None}
     del got, want
     if timed:
-        # each probed tag row and each hit value line read once, the vids
-        # (and alive) read, the [R, B, n, d+1] response written once
-        rows, lines = 0, 0
-        for r in range(R):
-            hit, sets, way, _ = hs.hec_lookup_ref(
-                state.tags[r], state.values[r], vids[r].reshape(-1))
-            rows += sets.unique().numel()
-            lines += (sets.long() * ways + way.long())[hit].unique().numel()
-        probes = R * B * n
-        nbytes = (probes * 4 + rows * ways * 4 + lines * d * 4
-                  + probes * (d + 1) * 4 + (R if alive is not None else 0))
-        row["bound_ms"], row["bound_by"] = bound(nbytes, probes * ways)
+        row["bound_ms"], row["bound_by"], _ = work_bound(
+            step_cost.hec_probe_work(state.tags, state.values, vids, alive))
         row["ms"], row["call_ms"] = time_ms(torch, lambda: hs.hec_probe(
             state.tags, state.values, vids, alive))
         # about 65 torch ops per call (R lookups, the packing, a stack):
@@ -3771,8 +3765,84 @@ def phase12_nan(torch, np):
         out.append(f"G/H {M}x{f}x{H}x{dh} {n} NaN")
         del z, got, want, got_h, want_h
     torch.cuda.empty_cache()
+    out += phase12_nonfinite(torch)
     print("phase 12 (0): NaN where the plain versions have it: "
           + "; ".join(out))
+
+
+# phase 12 (0), this slice's cases (kernels/nonfinite.py): F and H at the
+# training layers (H every kind at layer 2 and a smaller layer, g at
+# layer 1), C and A at P12_NAN_SHAPES
+P12_NONFINITE = {
+    "F": P12_NAN_SHAPES["E"][1:],
+    "H": [((176_000, 16_000, 10, 4, 256), ("g",)),
+          ((20_000, 4000, 5, 4, 256), ("g", "z", "eu")),
+          ((16_000, 1000, 15, 1, 172), ("g", "z", "eu"))]}
+
+
+def phase12_nonfinite(torch):
+    """Kernels F and H on infinite and NaN gradients and activations at
+    every kind of slot (kept, masked, pads, indices past N, a row with no
+    kept slot), C and A on infinite and near-FLT_MAX inputs: +-inf and NaN
+    exactly where the plain versions have them, elsewhere within
+    tolerance.  Returns the summary's entries."""
+    from repro_torch.kernels import gat_edge as ge
+    from repro_torch.kernels import nonfinite as nf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sage_agg as sa
+    from repro_torch.kernels import serve_fused as sf
+    from repro_torch.kernels import update_fused as uf
+    dev = torch.device("cuda")
+
+    def case(c):
+        return {k: torch.as_tensor(v, device=dev) for k, v in c.items()}
+    out = []
+    for N, M, f, D in P12_NONFINITE["F"]:
+        c = case(nf.agg_case(N + D, N, M, f, D))
+        args = (c["g"], c["nbr_idx"], c["src_valid"], c["cnt"], N)
+        ok, err, n = nan_close(torch, sa.sage_agg_bwd(*args),
+                               ref.sage_agg_bwd_ref(*args))
+        check(ok and n > 0, f"phase 12 (0): F at {M}x{f}x{D} -> {N}: "
+              f"non-finite values part from the plain version (max |d| "
+              f"{err:.3e})")
+        out.append(f"F {M}x{f}x{D} {n} NaN")
+    for (N, M, f, H, dh), kinds in P12_NONFINITE["H"]:
+        for kind in kinds:
+            c = case(nf.gat_case(N + f, N, M, f, H, dh, kind))
+            g = c.pop("g")
+            got, want = ge.gat_edge_bwd(g, **c), ref.gat_edge_bwd_ref(g, **c)
+            bad = 0
+            for name, a, w in zip(("dz", "de_u", "de_v"), got, want):
+                ok, err, n = nan_close(torch, a, w)
+                check(ok, f"phase 12 (0): H at {M}x{f}x{H}x{dh} ({kind}): "
+                      f"{name}'s non-finite values part from the plain "
+                      f"version (max |d| {err:.3e})")
+                bad += int((~torch.isfinite(w)).sum())
+            check(bad > 0, f"phase 12 (0): H ({kind}) has nothing non-finite")
+            out.append(f"H {M}x{f}x{H}x{dh} {kind} {bad} non-finite")
+            del c, g, got, want
+    torch.cuda.empty_cache()
+    for N, C, K in P12_NAN_SHAPES["C"]:
+        c = case(nf.update_case(N + K, N, C, K))
+        for relu, p in ((True, 0.5), (False, 0.0)):
+            kw = dict(relu=relu, dropout=p, seed=9)
+            want = ref.fused_update_ref(**c, **kw)
+            ok, err, _ = nan_close(torch, uf.update_fused_fwd(**c, **kw), want)
+            check(ok and bool(torch.isinf(want).any() or relu),
+                  f"phase 12 (0): C at {N}x{C}->{K} relu {relu}: inf or NaN "
+                  f"part from the plain version (max |d| {err:.3e})")
+        out.append(f"C {N}x{C}->{K} {int(torch.isinf(want).sum())} inf")
+    for N, M, f, D, K in P12_NAN_SHAPES["A"]:
+        c = case(nf.serve_case(N + K, N, M, f, D, K))
+        for relu in (True, False):
+            want = ref.serve_layer_ref(**c, relu=relu)
+            ok, err, _ = nan_close(torch, sf.serve_fused_layer(**c, relu=relu),
+                                   want)
+            check(ok and bool((~torch.isfinite(want)).any()),
+                  f"phase 12 (0): A at {M}x{f}x{D}->{K} relu {relu}: inf or "
+                  f"NaN part from the plain version (max |d| {err:.3e})")
+        out.append(f"A {M}x{f}x{D}->{K} {int(torch.isinf(want).sum())} inf")
+    return out
 
 
 def sha256_leaves(torch, state) -> str:
@@ -4177,6 +4247,238 @@ def phase12_serve(torch, np, args, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry run at the paper's 64 ranks, and the GNN examples
+# ---------------------------------------------------------------------------
+P13_RANKS = 64
+P13_VERTICES = 30_000
+# GAT's per-rank queue and push buffers grow with dmax = 4 x 256: at 64
+# ranks about 120 GB, more than the card holds; 32 ranks fit
+P13_GAT_RANKS = 32
+P13_EXAMPLES = ("quickstart", "distributed_gat", "serve_gnn",
+                "serve_gnn_dist")
+
+
+def phase13_dryrun(torch, phase, argv, kernels, cases=None):
+    """One ``launch/gnn_dryrun.py`` run on the card, every launch count
+    set to 0 just before and read just after; each of ``kernels`` must
+    have been launched.  ``cases`` (``sage_layer_cases`` or
+    ``gat_layer_cases``) then holds the kernels to their plain versions
+    at the run's layer shapes (rank 0's first minibatch, on the run's
+    caches), outside the count.  Returns (report, launches); the report
+    keeps no state of the run."""
+    from repro_torch.launch import gnn_dryrun
+    torch.cuda.empty_cache()
+    print(f"{phase}: python -m repro_torch.launch.gnn_dryrun "
+          + " ".join(argv))
+    zero_launches()
+    rep = gnn_dryrun.run(argv + ["--device", "cuda"], keep=cases is not None)
+    launches = read_launches()
+    if cases is not None:
+        cases(torch, rep, f"{phase}, the run's shapes", timed=False)
+        for key in ("mu", "ps", "cfg", "data", "state", "trainer"):
+            del rep[key]
+        torch.cuda.empty_cache()
+    for name in kernels:
+        check(launches[name] > 0, f"{phase}: kernel {name} was not "
+              f"launched")
+    r = rep["cost"]
+    ar = r["collectives"]["all-reduce"]["bytes"] - rep["param_bytes"]
+    check(0 < ar <= 128, f"{phase}: the all-reduce moved {ar:.0f} B beside "
+          f"the parameters' {rep['param_bytes']}, not the step's scalar "
+          f"metrics")
+    t = rep["terms"]
+    print(f"{phase}: per rank flops {r['flops']:.6e}, bytes "
+          f"{r['bytes_accessed']:.6e}, collective {r['collective_bytes']:.0f}"
+          f" B; roofline compute {t['compute_s'] * 1e3:.4f} ms, memory "
+          f"{t['memory_s'] * 1e3:.4f} ms, collective (HBM copy) "
+          f"{t['collective_s'] * 1e3:.4f} ms, over NVLink "
+          f"{rep['nvlink_s'] * 1e3:.4f} ms; step {rep['step_s'] * 1e3:.1f} "
+          f"ms wall, {rep['device_step_ms']:.1f} ms device; first step "
+          f"with the count {rep['first_step_s']:.1f} s; peak "
+          f"{rep['peak_bytes'] / 2 ** 30:.2f} GiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    return rep, launches
+
+
+def phase13_count_check():
+    """The dry run's step on the card and on the CPU (plain versions
+    counted by the kernels' formulas), 2 ranks at the dry run's config:
+    the same count (flops, bytes, collectives, products, launches), and
+    the same step within phase 9 (c)'s free-run tolerance: the counted
+    step's loss and gradient norm (and GraphSAGE's second step's), and
+    its gradient, Adam's first moment, per parameter tensor (but GAT's
+    noise-level attention leaves, ``GAT_CPU_NOISY_LEAVES``, held through
+    the norm)."""
+    from repro_torch.launch import gnn_dryrun
+    argv = ["--ranks", "2", "--vertices", "1500"]
+    for model in ("graphsage", "gat"):
+        reps = {d: gnn_dryrun.run(argv + ["--model", model, "--device", d],
+                                  keep=True) for d in ("cpu", "cuda")}
+        got = {d: r["cost"] for d, r in reps.items()}
+        for key in ("flops", "bytes_accessed", "collectives", "products"):
+            check(got["cpu"][key] == got["cuda"][key],
+                  f"phase 13 (a) {model}: the step's {key} on the card "
+                  f"{got['cuda'][key]} is not the CPU's {got['cpu'][key]}")
+        check({k: v["launches"] for k, v in got["cpu"]["kernels"].items()}
+              == {k: v["launches"] for k, v in got["cuda"]["kernels"].items()},
+              f"phase 13 (a) {model}: kernel launches differ from the CPU's")
+        steps = 2 if model == "graphsage" else 1
+        for i in range(steps):
+            for key in ("loss", "grad_norm"):
+                a, b = (reps[d]["logs"][i][key] for d in ("cuda", "cpu"))
+                check(abs(a - b) <= FREE_RUN_TOL * abs(b),
+                      f"phase 13 (a) {model}: step {i} {key} on the card "
+                      f"{a} vs the CPU's {b}")
+        noisy = GAT_CPU_NOISY_LEAVES if model == "gat" else ()
+        rels = [rel_norm(a, b) for a, b in zip(reps["cuda"]["mu"],
+                                               reps["cpu"]["mu"])]
+        held = max(r for i, r in enumerate(rels) if i not in noisy)
+        check(held <= FREE_RUN_TOL, f"phase 13 (a) {model}: the gradient "
+              f"(Adam mu) differs by {held:.3e} relative")
+        print(f"phase 13 (a) {model} at 2 ranks, card vs CPU: losses "
+              f"{[m['loss'] for m in reps['cuda']['logs'][:steps]]} vs "
+              f"{[m['loss'] for m in reps['cpu']['logs'][:steps]]}; "
+              f"gradient rel. diff per tensor "
+              f"{[float(f'{r:.3e}') for r in rels]}"
+              + (f" (leaves {list(noisy)} held through the norm)"
+                 if noisy else ""))
+        del reps
+    print("phase 13 (a): the step's count (flops, bytes, collectives, "
+          "products, launches) on the card is the CPU's, and its loss "
+          "and gradient within the free-run tolerance, both models")
+
+
+P13_HELD = ("quickstart", "serve_gnn", "serve_gnn_dist")
+P13_NUMBER = r"-?\d+(?:\.\d+)?(?:e[-+]?\d+)?"
+
+
+def same_report(card: str, cpu: str) -> bool:
+    """One printed line of an example on the card against the CPU's: the
+    same words and integers (counts, classes), and each decimal within 2%
+    or two units of its last printed digit (a free run's float32 drift;
+    a wrong kernel moves a loss or an accuracy by more).  A line's own
+    timing (from " (push ") is not compared."""
+    import re
+    card, cpu = (ln.split(" (push ")[0] for ln in (card, cpu))
+    if re.sub(P13_NUMBER, "#", card) != re.sub(P13_NUMBER, "#", cpu):
+        return False
+    for x, y in zip(re.findall(P13_NUMBER, card),
+                    re.findall(P13_NUMBER, cpu)):
+        if "." not in y and "e" not in y:
+            if x != y:
+                return False
+            continue
+        unit = 10.0 ** -len(y.split(".")[1].split("e")[0])
+        if abs(float(x) - float(y)) > max(0.02 * abs(float(y)), 2 * unit):
+            return False
+    return True
+
+
+def phase13_examples():
+    """(c): the four GNN examples, each in a process of its own on the
+    card, and the three of them a CPU runs in seconds (``P13_HELD``) with
+    ``--device cpu`` (the plain versions, whose lines the CPU tests hold
+    to the reference's examples), all at once; each must exit 0, print
+    its summary, and the card's lines must be the CPU's
+    (:func:`same_report`)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = [(name, "cuda") for name in P13_EXAMPLES] \
+        + [(name, "cpu") for name in P13_HELD]
+    procs = {}
+    try:
+        for name, dev in runs:
+            procs[name, dev] = subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "examples",
+                                              f"torch_{name}.py"),
+                 "--device", dev],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+        outs = {key: p.communicate(timeout=300)[0]
+                for key, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    want = {"quickstart": ("test accuracy:", "AEP overlap:"),
+            "distributed_gat": ("aep  : test_acc=", "sync : test_acc=",
+                                "drop : test_acc=",
+                                "comm_bytes/step=2105344",
+                                "comm_bytes/step=139264"),
+            "serve_gnn": ("identical results: True", "pre-warmed serve",
+                          "cache invalidated"),
+            "serve_gnn_dist": ("identical results: True",
+                               "no stale answers")}
+    for (name, dev), p in procs.items():
+        check(p.returncode == 0, f"phase 13 (c): examples/torch_{name}.py "
+              f"--device {dev} exited {p.returncode}:\n"
+              f"{outs[name, dev][-2000:]}")
+        for k in want[name]:
+            check(k in outs[name, dev], f"phase 13 (c): torch_{name}.py "
+                  f"--device {dev} printed no '{k}'")
+    for name in P13_EXAMPLES:
+        lines = outs[name, "cuda"].splitlines()
+        if name in P13_HELD:
+            cpu = outs[name, "cpu"].splitlines()
+            check(len(lines) == len(cpu) and all(
+                same_report(a, b) for a, b in zip(lines, cpu)),
+                f"phase 13 (c): torch_{name}.py on the card printed\n"
+                + "\n".join(lines) + "\nand on the CPU\n" + "\n".join(cpu))
+        for ln in lines[-3:]:
+            print(f"phase 13 (c) torch_{name}: {ln}")
+    print(f"phase 13 (c): the card's lines of {', '.join(P13_HELD)} are "
+          f"the CPU's (integers equal, each decimal within 2% or two units "
+          f"of its last digit)")
+
+
+def phase13(torch):
+    """(a) the dry run, GraphSAGE ``aep`` at 64 ranks and 30,000 vertices:
+    one push all_to_all of ``aep_bytes_per_step(64, 2, 1024, [128, 256])``
+    = 134,742,016 B a rank, the all-reduce the parameters and the step's
+    scalar metrics, B-F held to their plain versions at the run's layer
+    shapes; at 2 ranks the count, loss and gradient equal to the CPU's;
+    (b) ``sync`` at 64 ranks (two all_to_alls of ``sync_bytes_per_step``
+    in all) and GAT at ``P13_GAT_RANKS``, B, G and H held at its shapes;
+    (c) the four examples.  Returns the runs' launches by path."""
+    from repro_torch.core.aep import aep_bytes_per_step, sync_bytes_per_step
+    base = ["--ranks", str(P13_RANKS), "--vertices", str(P13_VERTICES)]
+    sage = ("update_fused_fwd", "update_fused_bwd", "sage_agg_fwd",
+            "sage_agg_bwd")
+    launches = {}
+    rep, launches["dryrun"] = phase13_dryrun(
+        torch, "phase 13 (a) graphsage aep", base, sage + ("hec_lookup",),
+        sage_layer_cases)
+    a2a = rep["cost"]["collectives"]["all-to-all"]
+    want = aep_bytes_per_step(P13_RANKS, 2, 1024, [128, 256])
+    check(aep_bytes_per_step(64, 2, 1024, [128, 256]) == 134_742_016
+          and a2a["count"] == 1 and a2a["bytes"] == want,
+          f"phase 13 (a): the push was {a2a['count']} all_to_all(s) of "
+          f"{a2a['bytes']:.0f} B a rank, not one of {want}")
+    phase13_count_check()
+    rep, launches["dryrun_sync"] = phase13_dryrun(
+        torch, "phase 13 (b) graphsage sync", base + ["--mode", "sync"],
+        sage)
+    a2a = rep["cost"]["collectives"]["all-to-all"]
+    want = sync_bytes_per_step(P13_RANKS, 1024, 128)
+    check(a2a["count"] == 2 and a2a["bytes"] == want,
+          f"phase 13 (b) sync: {a2a['count']} all_to_alls of "
+          f"{a2a['bytes']:.0f} B, not 2 of {want} in all")
+    rep, launches["gat_dryrun"] = phase13_dryrun(
+        torch, f"phase 13 (b) gat aep at {P13_GAT_RANKS} ranks",
+        ["--ranks", str(P13_GAT_RANKS), "--vertices", str(P13_VERTICES),
+         "--model", "gat"], ("gat_edge_fwd", "gat_edge_bwd", "hec_lookup"),
+        gat_layer_cases)
+    a2a = rep["cost"]["collectives"]["all-to-all"]
+    want = aep_bytes_per_step(P13_GAT_RANKS, 2, 1024, [128, 1024])
+    check(a2a["count"] == 1 and a2a["bytes"] == want,
+          f"phase 13 (b) gat: {a2a['count']} all_to_all(s) of "
+          f"{a2a['bytes']:.0f} B, not one of {want}")
+    torch.cuda.empty_cache()
+    phase13_examples()
+    return launches
+
+
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
     """One contract row: per-launch means over the timed shapes, shape i
     standing for ``weights[i]`` launches of the main paths."""
@@ -4228,7 +4530,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    print(f"card: {card} (every time below was taken on it)")
+    print(f"card: {card} (every time below was taken on it); bounds on "
+          f"the data sheet's HBM {PEAK_BYTES_PER_S:.3g} B/s, FP32 "
+          f"{PEAK_FP32_FLOPS:.3g} and TF32 {PEAK_TF32_FLOPS:.3g} FLOP/s")
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
@@ -4401,6 +4705,9 @@ def main(argv=None) -> int:
     with torch.no_grad():
         phase12_nan(torch, np)
     print(f"phase 12 (0): done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    launches13 = phase13(torch)
+    print(f"phase 13: done in {time.perf_counter() - t0:.1f}s")
 
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]
@@ -4429,7 +4736,9 @@ def main(argv=None) -> int:
                "sharded_serve_failover": launches12c["graphsage"][
                    "hec_lookup"],
                "gat_sharded_serve_failover": launches12c["gat"][
-                   "hec_lookup"]}
+                   "hec_lookup"],
+               "dryrun": launches13["dryrun"]["hec_lookup"],
+               "gat_dryrun": launches13["gat_dryrun"]["hec_lookup"]}
     b_rows = [(rows4["hec_lookup"], "train_resilience"),
               (rows6["hec_lookup"], "gat_train_resilience"),
               (sage8["rows_b"], "sharded_serve_failover"),
@@ -4492,6 +4801,8 @@ def main(argv=None) -> int:
                    "train_hot": launches9["hot"],
                    "train_planes": launches11["graphsage"],
                    "train_resilience": launches12a,
+                   "dryrun": launches13["dryrun"],
+                   "dryrun_sync": launches13["dryrun_sync"],
                    **{f"train_pipeline_{k}": ls
                       for k, ls in launches10.items()}}
     for name in ("update_fused_fwd", "update_fused_bwd", "sage_agg_fwd",
@@ -4508,9 +4819,12 @@ def main(argv=None) -> int:
                                 for ls in train_paths.values())
     f_row["index_ms"] = sum(r["index_ms"] for r in rows4["sage_agg_bwd"]) \
         / len(rows4["sage_agg_bwd"])
-    f_row["launch_scheme"] = ("one CUDA launch per call, through the slot "
-                              "index its forward built (index_builds, "
-                              "index_ms: torch.sort and searchsorted)")
+    f_row["launch_scheme"] = ("two CUDA launches per call, counted as one: "
+                              "F through the slot index its forward built "
+                              "(index_builds, index_ms: torch.sort and "
+                              "searchsorted), then its follow-up (a "
+                              "programmatic dependent: g's read, the NaN "
+                              "of 0 * g at masked slots)")
     d_row = next(r for r in rows if r["name"] == "update_fused_bwd")
     d_row["launch_scheme"] = ("one CUDA launch per call: the last block to "
                               "finish sums the stripes' column sums")
@@ -4530,7 +4844,8 @@ def main(argv=None) -> int:
         + gat8["rows_f"],
         {"gat_edge_fwd": launches5["gat_edge_fwd"] + g_train + g_sharded
          + g_failover + launches11["gat"]["gat_edge_fwd"]
-         + launches12b["gat_edge_fwd"]},
+         + launches12b["gat_edge_fwd"]
+         + launches13["gat_dryrun"]["gat_edge_fwd"]},
         [microbatches5] * len(g_online)
         + [chunks5 + gat8["chunks"]] * len(g_offline)
         + [g_train / len(rows6["gat_edge_fwd"])] * len(rows6["gat_edge_fwd"])
@@ -4548,9 +4863,12 @@ def main(argv=None) -> int:
                                     "gat_sharded_serve": g_sharded,
                                     "gat_sharded_serve_failover": g_failover,
                                     "gat_train_resilience": launches12b[
+                                        "gat_edge_fwd"],
+                                    "gat_dryrun": launches13["gat_dryrun"][
                                         "gat_edge_fwd"]}
     h_paths = {"gat_train": launches6, "gat_train_planes": launches11["gat"],
-               "gat_train_resilience": launches12b}
+               "gat_train_resilience": launches12b,
+               "gat_dryrun": launches13["gat_dryrun"]}
     rows.append(summarize("gat_edge_bwd", rows6["gat_edge_bwd"],
                           {"gat_edge_bwd": sum(ls["gat_edge_bwd"]
                                                for ls in h_paths.values())},
@@ -4561,9 +4879,12 @@ def main(argv=None) -> int:
                                    for ls in h_paths.values())
     rows[-1]["index_ms"] = sum(r["index_ms"] for r in rows6["gat_edge_bwd"]) \
         / len(rows6["gat_edge_bwd"])
-    rows[-1]["launch_scheme"] = ("two CUDA launches per call (H1 per dst "
-                                 "row, H2 per source row through the slot "
-                                 "index its forward built), counted as one")
+    rows[-1]["launch_scheme"] = ("three CUDA launches per call, counted as "
+                                 "one: H1 per dst row, H2 per source row "
+                                 "through the slot index its forward "
+                                 "built, and H2's follow-up (a "
+                                 "programmatic dependent: the NaN of 0 * g "
+                                 "at masked slots when H1 flagged g)")
     rows.append(summarize("sample_draw", rows7, launches7,
                           [1] * len(rows7), layer_mean + ", under cv"))
     j_paths = {"sharded_serve": sage8["launches"]["hec_probe"],

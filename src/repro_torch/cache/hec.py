@@ -40,6 +40,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import hec_search as hec_kernel
 from repro_torch.kernels.ref import set_index
 
+_set_index = set_index          # the reference's older name
+
 
 @dataclasses.dataclass
 class HECState:
@@ -151,6 +153,12 @@ def hec_search(state: HECState, vids: torch.Tensor):
     hit, s, w, _ = hec_kernel.hec_lookup(state.tags, state.values,
                                          vids.to(torch.int32).contiguous())
     return hit, s, w
+
+
+def hec_load(state: HECState, set_idx: torch.Tensor,
+             way_idx: torch.Tensor) -> torch.Tensor:
+    """The value rows at ``(set_idx, way_idx)``, detached (historical)."""
+    return state.values[set_idx.long(), way_idx.long()].detach()
 
 
 def hec_lookup(state: HECState, vids: torch.Tensor):

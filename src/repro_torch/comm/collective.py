@@ -10,8 +10,15 @@ axis, as shard_map lays out the reference's ranks.
 
 A ``torch.distributed`` backend (one process per rank, NCCL on the
 cards) takes the same calls in a later slice.
+
+:meth:`StackedCollective.record` lists every collective of a window with
+its bytes per rank (the counterpart of reading them from the step's HLO,
+``repro/utils/hlo.py``); off, it costs one attribute test per call.
 """
 from __future__ import annotations
+
+import contextlib
+from typing import List, Tuple
 
 import torch
 
@@ -21,6 +28,23 @@ class StackedCollective:
 
     def __init__(self, num_ranks: int):
         self.num_ranks = num_ranks
+        self.log = None            # while recording: [(kind, bytes), ...]
+
+    @contextlib.contextmanager
+    def record(self):
+        """Within the block, every ``all_to_all`` and ``psum`` appends
+        ``("all-to-all" | "all-reduce", bytes one rank receives)`` to the
+        list it yields (the reference's HLO names)."""
+        log: List[Tuple[str, int]] = []
+        self.log = log
+        try:
+            yield log
+        finally:
+            self.log = None
+
+    def _note(self, kind: str, x: torch.Tensor):
+        if self.log is not None:
+            self.log.append((kind, x[0].numel() * x.element_size()))
 
     def _check(self, x: torch.Tensor):
         if x.shape[0] != self.num_ranks:
@@ -33,11 +57,13 @@ class StackedCollective:
         if x.shape[1] != self.num_ranks:
             raise ValueError(f"send axis {x.shape[1]} is not the "
                              f"{self.num_ranks} ranks")
+        self._note("all-to-all", x)
         return x.transpose(0, 1).contiguous()
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """``[R, ...]`` -> ``[...]``, summed in rank order."""
         self._check(x)
+        self._note("all-reduce", x)
         out = x[0]
         for r in range(1, self.num_ranks):
             out = out + x[r]

@@ -15,9 +15,11 @@ copy of the parts of ``repro/comm/plan.py`` the port reads):
   * :func:`hot_set_tables` — the degree-ranked hot set of the replicated
     hot-vertex tier (sharded serving; training with ``hot_size > 0``,
     where the hot vertices also leave the push contract).
-
-The padded ``db_halo`` table stays with the reference: the push contract
-travels as ``push_mask``, the offline exchange as its index vectors.
+  * the reference's row models of one exchange, on the plan:
+    ``halo_rows_total``, ``hot_rows_total``, ``exchange_bytes`` and
+    ``modeled_remote_rows`` (the last reads the contract, ``db_halo``,
+    from the plan's ``PartitionSet`` when called; the port's own code
+    calls none of them, its tests hold them to the reference's).
 """
 from __future__ import annotations
 
@@ -108,10 +110,63 @@ class ExchangePlan:
         default_factory=lambda: np.empty(0, np.int32))   # [K] sorted VID_o
     hot_owner: np.ndarray = dataclasses.field(
         default_factory=lambda: np.empty(0, np.int32))   # [K] owner rank
+    hot_replicas: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.empty(0, np.int64))   # [K] halo ranks
+    # the partition the plan was built for (its db_halo, on demand)
+    ps: Optional[PartitionSet] = dataclasses.field(default=None, repr=False)
 
     @property
     def hot_size(self) -> int:
         return len(self.hot_vids)
+
+    @property
+    def halo_rows_total(self) -> int:
+        """Rows one exact full exchange moves (sum over off-diagonal pairs)."""
+        return int(self.pair_rows.sum() - np.trace(self.pair_rows))
+
+    @property
+    def hot_rows_total(self) -> int:
+        """Of ``halo_rows_total``, the rows owed for hot vertices: what the
+        replicated tier takes off the pairwise wire."""
+        return int(self.hot_replicas.sum())
+
+    def exchange_bytes(self, dim: int, itemsize: int = 4) -> int:
+        """Exact payload (+ vid tags) of one full halo exchange at ``dim``."""
+        return self.halo_rows_total * (dim * itemsize + 4)
+
+    def modeled_remote_rows(self, degrees: np.ndarray, rounds: int = 1,
+                            refresh_every: int = 1) -> dict:
+        """Remote-fetch rows over ``rounds`` sampled rounds, as the
+        reference models them: a halo replica of ``v`` travels at the rate
+        ``deg(v) / deg_max`` a round (the busiest hub about once a round);
+        with the hot tier a hot replica reads the local copy instead, and
+        each refresh moves every hot row to the ``R - 1`` other ranks once
+        per ``refresh_every`` rounds.  Returns ``rounds``,
+        ``refresh_every``, ``baseline_rows``, ``hot_rows`` and
+        ``reduction`` (1 - hot / baseline)."""
+        degrees = np.asarray(degrees, np.float64)
+        w = degrees / max(degrees.max(), 1.0)
+        base_round = 0.0
+        hot_round = 0.0
+        for j in range(self.num_ranks):
+            for i in range(self.num_ranks):
+                if i == j:
+                    continue
+                vids = self.ps.db_halo(i, j)
+                ws = w[vids]
+                base_round += float(ws.sum())
+                if self.hot_size:
+                    cold = ~np.isin(vids, self.hot_vids, assume_unique=True)
+                    hot_round += float(ws[cold].sum())
+                else:
+                    hot_round += float(ws.sum())
+        refreshes = -(-rounds // max(refresh_every, 1))
+        base = base_round * rounds
+        hot = hot_round * rounds \
+            + self.hot_size * (self.num_ranks - 1) * refreshes
+        return {"rounds": rounds, "refresh_every": refresh_every,
+                "baseline_rows": base, "hot_rows": hot,
+                "reduction": 1.0 - hot / base if base else 0.0}
 
     def expected_inbound_rows(self) -> np.ndarray:
         """[R] plan-time halo rows each rank receives in one full exchange
@@ -148,7 +203,7 @@ def build_exchange_plan(ps: PartitionSet, host_indices: bool = True,
     them); the offline indices still move every halo row.  ``hot_size=0``
     leaves ``push_mask`` as it is without a tier."""
     R = ps.num_parts
-    hot_vids, hot_owner, _ = hot_set_tables(ps, hot_size)
+    hot_vids, hot_owner, hot_reps = hot_set_tables(ps, hot_size)
     P = max(p.num_solid + p.num_halo for p in ps.parts)
     push_mask = np.zeros((R, R, P), bool)
     send_local = [[np.empty(0, np.int64)] * R
@@ -179,4 +234,5 @@ def build_exchange_plan(ps: PartitionSet, host_indices: bool = True,
         num_halo=np.array([p.num_halo for p in ps.parts], np.int64),
         pair_rows=pair_rows, solid_sorted_vids=svids, solid_sorted_idx=sidx,
         send_local=send_local, recv_pos=recv_pos,
-        hot_vids=hot_vids, hot_owner=hot_owner)
+        hot_vids=hot_vids, hot_owner=hot_owner, hot_replicas=hot_reps,
+        ps=ps)

@@ -21,9 +21,10 @@
 // flows as in the plain version: the max and the floor of the sum keep a
 // NaN, and G adds an excluded slot's (clamped) z row times its alpha of 0,
 // NaN where that row is not finite (a pad reads row 0; a run of pads is
-// read once).  H leaves excluded slots out: there the plain version's
-// 0 * g is NaN where g is, and H's dz and de_u are not (only a step the
-// NaN guard skips has a non-finite g).  The
+// read once).  H's sums leave the masked slots out; the reference's
+// autodiff adds alpha * g there with alpha 0 (and nothing to de_u and the
+// softmax, whose masking is a select), so H writes the NaN that 0 * g
+// gives where g is not finite (below); a finite g changes no bit.  The
 // index clamp is jnp's gather clamp (as kernel E's); as in the gradient
 // of that gather, a slot whose index is past N scatters nothing into dz
 // and de_u (its ds still counts in de_v).
@@ -92,6 +93,15 @@
 //    dst, one more unit per e_v row sums its rows' scratch sums through
 //    the transpose of dst, in ascending m.
 // So H gives the same bits on every run.
+//  - 0 * g at the masked slots, with few extra bytes on finite inputs:
+//    H1 raises a flag for a row with a masked slot inside [0, N) where
+//    pass 1's da of an included slot is not finite (g[m] may not be), or,
+//    for a row with no included slot, where g[m], read then, is not; a
+//    follow-up kernel, launched as H2's programmatic dependent so that
+//    its launch hides behind H2's tail (a count of H2's finished blocks
+//    cost up to 13%: one atomic a block on one word), then writes NaN at
+//    those slots' rows, only when the flag is up.  A written NaN does
+//    not depend on the order.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -148,6 +158,14 @@ __device__ __forceinline__ int slot_code(const int32_t* row, int j, int N,
 }
 
 __device__ __forceinline__ int code_row(int c) { return c >= 0 ? c : ~c; }
+
+// A masked slot whose index is inside [0, N) (a pad, index -1, is row
+// 0): its gradient adds 0 * g at that row, as the reference's autodiff
+// does (jnp's scatter drops an index past N, so nothing is added there).
+__device__ __forceinline__ bool masked_in_range(int i, int N,
+                                                const bool* valid) {
+  return i < N && !(i >= 0 && valid[i]);
+}
 
 // Per-warp shared memory: ev[H], mx[H], den[H], then `extra` more [H]
 // arrays, alpha[FC * H], and the chunk's sources idx[FC].
@@ -234,6 +252,7 @@ struct Vec<float> {
   }
   __device__ static void add(float& acc, float v) { acc += v; }
   __device__ static float ld_cg(const float* p) { return __ldcg(p); }
+  __device__ static bool finite(float v) { return isfinite(v); }
 };
 template <>
 struct Vec<float4> {
@@ -261,6 +280,9 @@ struct Vec<float4> {
     acc.w += v.w;
   }
   __device__ static float4 ld_cg(const float4* p) { return __ldcg(p); }
+  __device__ static bool finite(float4 v) {
+    return isfinite(v.x) && isfinite(v.y) && isfinite(v.z) && isfinite(v.w);
+  }
 };
 
 // Kernel G's one-pass form.  Per warp, shared memory holds lg[f*H] (the
@@ -425,7 +447,10 @@ gat_fwd_chunked_kernel(const T* __restrict__ z, const float* __restrict__ eu,
 }
 
 // Kernel H1 (a warp per dst row).  extra arrays: tsum[H] (sum_j alpha
-// da), dsum[H] (sum_j ds; entry h only ever touched by lane h % 32).
+// da), dsum[H] (sum_j ds; entry h only ever touched by lane h % 32).  A
+// row with a masked slot inside [0, N) raises *flag, for the follow-up,
+// where a da of its included slots is not finite (g[m] may not be) or,
+// with no included slot, where its g row, read here, is not.
 template <typename T>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 gat_bwd_rows_kernel(const T* __restrict__ g, const T* __restrict__ z,
@@ -434,8 +459,8 @@ gat_bwd_rows_kernel(const T* __restrict__ g, const T* __restrict__ z,
                     const bool* __restrict__ valid,
                     const int32_t* __restrict__ dst, float* __restrict__ ds,
                     float* __restrict__ alpha, float* __restrict__ rowsum,
-                    float* __restrict__ dev, int N, int Nev, int M, int f,
-                    int H, int dh, int warps) {
+                    float* __restrict__ dev, int* flag, int N, int Nev, int M,
+                    int f, int H, int dh, int warps) {
   extern __shared__ float smem[];
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m = blockIdx.x * warps + w;
@@ -454,7 +479,9 @@ gat_bwd_rows_kernel(const T* __restrict__ g, const T* __restrict__ z,
   const T* grow = g + (size_t)m * HDV;
   float* dsrow = ds + (size_t)m * f * H;
   float* arow = alpha + (size_t)m * f * H;
-  // pass 1: da of every included slot, and sum_j alpha da per head
+  // pass 1: da of every included slot, and sum_j alpha da per head (a da
+  // that is not finite flags a g row that may not be)
+  bool included = false, nf = false;
   for (int c0 = 0; c0 < f; c0 += FC) {
     const int nc = min(FC, f - c0);
     __syncwarp();
@@ -463,18 +490,34 @@ gat_bwd_rows_kernel(const T* __restrict__ g, const T* __restrict__ z,
     for (int j = 0; j < nc; ++j) {
       const int i = sm.idx[j];
       if (i < 0) continue;        // uniform: read from shared memory
+      included = true;
       const T* zrow = z + (size_t)i * HDV;
       for (int h = 0; h < H; ++h) {
         float part = 0.f;
         for (int q = h * dhv + lane; q < (h + 1) * dhv; q += 32)
           part += Vec<T>::dot(grow[q], zrow[q]);
         part = warp_sum(part);
+        nf |= !isfinite(part);
         if (lane == 0) {
           dsrow[(size_t)(c0 + j) * H + h] = part;
           tsum[h] += sm.alpha[j * H + h] * part;
         }
       }
     }
+  }
+  // a masked slot inside [0, N) adds 0 * g[m] (H's follow-up): raise the
+  // flag where g[m] may not be finite, as pass 1's da saw it through the
+  // included slots; a row with none reads g[m] here
+  bool masked = false;
+  for (int j0 = 0; j0 < f && !masked; j0 += 32) {
+    const int j = j0 + lane;
+    masked = __any_sync(0xffffffffu, j < f && masked_in_range(row[j], N,
+                                                              valid));
+  }
+  if (masked) {
+    if (!included)
+      for (int q = lane; q < HDV; q += 32) nf |= !Vec<T>::finite(grow[q]);
+    slot_index::raise_if(nf, flag, lane);
   }
   // pass 2: ds over da and alpha beside it for every included slot, and
   // the row's sum of ds per head, each head's in slot order by one lane
@@ -505,27 +548,22 @@ gat_bwd_rows_kernel(const T* __restrict__ g, const T* __restrict__ z,
   for (int h = lane; h < H; h += 32) out[(size_t)m * H + h] = dsum[h];
 }
 
-// Kernel H2: warp w is unit w of the transposed index of nbr (a source
+// Kernel H2's unit w: unit w of the transposed index of nbr (a source
 // row of at most CHUNK slots, or one chunk of a longer row) for dz and
-// de_u; with dst, warps past them take one e_v row each.  A partial row
+// de_u; with dst, units past them take one e_v row each.  A partial row
 // of `part` holds H*dh floats of dz, then H of de_u, padded to a multiple
 // of 4 floats.
 template <typename T, int Q>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-gat_bwd_src_kernel(const T* __restrict__ g, const float* __restrict__ ds,
-                   const float* __restrict__ alpha,
-                   const int32_t* __restrict__ off,
-                   const int32_t* __restrict__ slots,
-                   const int32_t* __restrict__ lbase,
-                   const int32_t* __restrict__ voff,
-                   const int32_t* __restrict__ vrows,
-                   const float* __restrict__ rowsum, float* part, int* ticket,
-                   T* __restrict__ dz, float* __restrict__ deu,
-                   float* __restrict__ dev, int N, int Nev, int f, int H,
-                   int dh, int lbound) {
+__device__ __forceinline__ void h_unit(
+    long long w, int lane, const T* __restrict__ g,
+    const float* __restrict__ ds, const float* __restrict__ alpha,
+    const int32_t* __restrict__ off, const int32_t* __restrict__ slots,
+    const int32_t* __restrict__ lbase, const int32_t* __restrict__ voff,
+    const int32_t* __restrict__ vrows, const float* __restrict__ rowsum,
+    float* part, int* ticket, T* __restrict__ dz, float* __restrict__ deu,
+    float* __restrict__ dev, int N, int Nev, int f, int H, int dh,
+    int lbound) {
   constexpr int E = 8 / Q;                      // rows in flight
-  const long long w = (long long)blockIdx.x * MAX_WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   if (w >= (long long)N + lbound) {
     // de_v through the transpose of dst: row d's rows in ascending m
     const long long d = w - N - lbound;
@@ -615,22 +653,78 @@ gat_bwd_src_kernel(const T* __restrict__ g, const float* __restrict__ ds,
   }
 }
 
+// Kernel H's follow-up, when H1 raised the flag: the reference's
+// autodiff adds alpha * g[m] at a masked slot's row too, with alpha 0
+// there, so 0 * g[m, h, e]: NaN where g is not finite (a pad reads row 0;
+// an index past N adds nothing).  Launched after H2 as its programmatic
+// dependent (slot_index.cuh): it waits for H2, reads the flag and, when
+// it is down (every finite step), stops; else warp by warp over the dst
+// rows, slow and rare (only a step with a non-finite gradient gets
+// there).
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+gat_fix_kernel(const float* __restrict__ g, const int32_t* __restrict__ nbr,
+               const bool* __restrict__ valid, const int* flag, float* dz,
+               int N, int M, int f, int HD) {
+  slot_index::wait_primary();
+  if (*reinterpret_cast<const volatile int*>(flag) == 0) return;
+  const int lane = threadIdx.x % 32;
+  const float nan = __int_as_float(0x7fffffff);
+  const int warps = gridDim.x * MAX_WARPS;
+  for (int m = blockIdx.x * MAX_WARPS + threadIdx.x / 32; m < M;
+       m += warps) {
+    bool nf = false;
+    for (int q = lane; q < HD; q += 32) nf |= !isfinite(g[(size_t)m * HD + q]);
+    if (!__any_sync(0xffffffffu, nf)) continue;
+    for (int j = 0; j < f; ++j) {
+      const int i = nbr[(size_t)m * f + j];
+      if (!masked_in_range(i, N, valid)) continue;
+      float* row = dz + (size_t)max(i, 0) * HD;
+      for (int q = lane; q < HD; q += 32)
+        if (!isfinite(g[(size_t)m * HD + q])) row[q] = nan;
+    }
+  }
+}
+
+// Kernel H2: the units of h_unit (gat_fix_kernel follows).  ticket
+// [lbound + 1]: the long rows' tickets, then H1's flag.
+template <typename T, int Q>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+gat_bwd_src_kernel(const T* __restrict__ g, const float* __restrict__ ds,
+                   const float* __restrict__ alpha,
+                   const int32_t* __restrict__ off,
+                   const int32_t* __restrict__ slots,
+                   const int32_t* __restrict__ lbase,
+                   const int32_t* __restrict__ voff,
+                   const int32_t* __restrict__ vrows,
+                   const float* __restrict__ rowsum,
+                   const int32_t* __restrict__ nbr,
+                   const bool* __restrict__ valid, float* part, int* ticket,
+                   T* __restrict__ dz, float* __restrict__ deu,
+                   float* __restrict__ dev, int N, int Nev, int M, int f,
+                   int H, int dh, int lbound) {
+  slot_index::launch_dependents();
+  const long long w = (long long)blockIdx.x * MAX_WARPS + threadIdx.x / 32;
+  h_unit<T, Q>(w, threadIdx.x % 32, g, ds, alpha, off, slots, lbase, voff,
+               vrows, rowsum, part, ticket, dz, deu, dev, N, Nev, f, H, dh,
+               lbound);
+}
+
 template <typename T>
 void launch_src(const void* g, const void* ds, const void* alpha,
                 const void* off, const void* slots, const void* lbase,
                 const void* voff, const void* vrows, const void* rowsum,
-                void* part, void* ticket, void* dz, void* deu, void* dev,
-                int N, int Nev, int f, int H, int dh, int lbound,
-                cudaStream_t s) {
+                const void* nbr, const void* valid, void* part, void* ticket,
+                void* dz, void* deu, void* dev, int N, int Nev, int M, int f,
+                int H, int dh, int lbound, cudaStream_t s) {
   const long long units = (long long)N + lbound + (voff ? Nev : 0);
   const int blocks = (int)((units + MAX_WARPS - 1) / MAX_WARPS);
   const int HDV = H * (dh / Vec<T>::W);
 #define SRC_ARGS                                                           \
   (const T*)g, (const float*)ds, (const float*)alpha, (const int32_t*)off, \
       (const int32_t*)slots, (const int32_t*)lbase, (const int32_t*)voff,  \
-      (const int32_t*)vrows, (const float*)rowsum, (float*)part,           \
-      (int*)ticket, (T*)dz, (float*)deu, (float*)dev, N, Nev, f, H, dh,    \
-      lbound
+      (const int32_t*)vrows, (const float*)rowsum, (const int32_t*)nbr,    \
+      (const bool*)valid, (float*)part, (int*)ticket, (T*)dz, (float*)deu, \
+      (float*)dev, N, Nev, M, f, H, dh, lbound
   if (HDV > 32) {
     gat_bwd_src_kernel<T, 2><<<blocks, MAX_WARPS * 32, 0, s>>>(SRC_ARGS);
   } else {
@@ -713,8 +807,10 @@ extern "C" int gat_edge_fwd(const void* z, const void* eu, const void* ev,
 // `rowsum` [M, H] too where `dst` is given (else null); `off` [N + 1],
 // `slots` [M * f] and `lbase` [N + 1] are the transposed index of nbr
 // (slot_index.cuh) and `lbound` its bound on long chunks, `part`
-// [lbound, H*dh + H rounded up to a multiple of 4] scratch and `ticket` [lbound] zero; `voff` [Nev + 1]
-// and `vrows` [M] the transpose of dst (null without dst).  Every row of
+// [lbound, H*dh + H rounded up to a multiple of 4] scratch and `ticket`
+// [lbound + 1] zero; `voff` [Nev + 1] and `vrows` [M] the transpose of
+// dst (null without dst).  Three launches: H1, H2 and the follow-up.
+// Every row of
 // `dz` [N, H*dh] and `deu` [N, H] is written; `dev` [Nev, H] must be zero
 // without dst (rows past M stay so), and is written whole with it.
 extern "C" int gat_edge_bwd(const void* g, const void* z, const void* eu,
@@ -739,24 +835,29 @@ extern "C" int gat_edge_bwd(const void* g, const void* z, const void* eu,
         (const float4*)g, (const float4*)z, (const float*)eu,
         (const float*)ev, (const int32_t*)nbr, (const bool*)valid,
         (const int32_t*)dst, (float*)ds, (float*)alpha, (float*)rowsum,
-        (float*)dev, N, Nev, M, f, H, dh, warps);
+        (float*)dev, (int*)ticket + lbound, N, Nev, M, f, H, dh, warps);
   } else {
     gat_bwd_rows_kernel<float><<<blocks, warps * 32, smem, s>>>(
         (const float*)g, (const float*)z, (const float*)eu, (const float*)ev,
         (const int32_t*)nbr, (const bool*)valid, (const int32_t*)dst,
-        (float*)ds, (float*)alpha, (float*)rowsum, (float*)dev, N, Nev, M, f,
-        H, dh, warps);
+        (float*)ds, (float*)alpha, (float*)rowsum, (float*)dev,
+        (int*)ticket + lbound, N, Nev, M, f, H, dh, warps);
   }
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   if (vec) {
     launch_src<float4>(g, ds, alpha, off, slots, lbase, voff, vrows, rowsum,
-                       part, ticket, dz, deu, dev, N, Nev, f, H, dh, lbound,
-                       s);
+                       nbr, valid, part, ticket, dz, deu, dev, N, Nev, M, f,
+                       H, dh, lbound, s);
   } else {
     launch_src<float>(g, ds, alpha, off, slots, lbase, voff, vrows, rowsum,
-                      part, ticket, dz, deu, dev, N, Nev, f, H, dh, lbound,
-                      s);
+                      nbr, valid, part, ticket, dz, deu, dev, N, Nev, M, f, H,
+                      dh, lbound, s);
   }
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)slot_index::launch_dependent(
+      gat_fix_kernel, slot_index::FIX_BLOCKS, MAX_WARPS * 32, s,
+      (const float*)g, (const int32_t*)nbr, (const bool*)valid,
+      (const int*)ticket + lbound, (float*)dz, N, M, f, H * dh);
 }

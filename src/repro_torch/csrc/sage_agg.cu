@@ -12,10 +12,10 @@
 // gather's gradient (a scatter) drops out-of-range indices.  An excluded
 // slot of the forward still adds its (clamped) row times 0, as the plain
 // version's h * mask does: nothing for a finite row, NaN for a non-finite
-// one (a pad reads row 0; a run of pads is read once).  The backward
-// leaves excluded slots out: there the plain version's 0 * g is NaN where
-// g is, and kernel F's dh is not (only a step the NaN guard skips has a
-// non-finite g).
+// one (a pad reads row 0; a run of pads is read once).  The backward's
+// sums leave the masked slots out, but the reference's autodiff adds
+// 0 * g at a masked slot's row inside [0, N), NaN where g is not finite,
+// so kernel F writes that NaN too (below); a finite g changes no bit.
 //
 // Replaces the TPU kernel repro/kernels/sage_agg.py:sage_agg (forward,
 // whose (s, c) outputs are kernel E's sum and count); kernel F is its
@@ -69,6 +69,19 @@
 // warp's; the last chunk of the row to finish (a ticket) adds their
 // partial sums in chunk order, so a hub stays the same from run to run
 // but is not the plain version's one-by-one sum.  No float atomics.
+// The masked slots: where g is finite they add +-0 in the plain version
+// and nothing here.  A follow-up kernel, launched as F's programmatic
+// dependent, reads g beside F's last wave and writes NaN at the row of
+// every masked slot inside [0, N), in the columns where its g row is not
+// finite, only where there is one.  (Tried on the H100 first: a count of
+// F's finished blocks, the last doing the fix, cost F 50% at layer 1, one
+// atomic a block on one word; a test of every unit's sums 9%, F's units
+// being about one slot each there; check units inside F's grid, reading
+// g, 7-9%; the units' sums test raising a flag, with the follow-up
+// reading only nbr (for the g rows F does not read) or check warps ahead
+// of F's units doing so, 9-15% at layers 1 and 2; the sums test with a
+// follow-up that only waits on the flag, 7-11%.)  A written NaN does not
+// depend on the order, so F stays the same on every run.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -267,21 +280,22 @@ template <> struct Quot<1> {
   static __device__ __forceinline__ void st(float* p, float a) { *p = a; }
 };
 
-// Kernel F.  Warp w is unit w of the transposed index (slot_index.cuh):
-// a source row of at most CHUNK slots, or one chunk of a longer row.
+// Kernel F's main unit: warp unit w of the transposed index
+// (slot_index.cuh), a source row of at most CHUNK slots or one chunk of a
+// longer row.
 template <int VW, int Q>
-__global__ void __launch_bounds__(WARPS * 32)
-sage_agg_bwd_kernel(const float* __restrict__ g, const float* __restrict__ cnt,
-                    const int32_t* __restrict__ off,
-                    const int32_t* __restrict__ slots,
-                    const int32_t* __restrict__ lbase, float* part,
-                    int* ticket, float* __restrict__ dh, int N, int f,
-                    int D) {
+__device__ __forceinline__ void f_unit(long long w, int lane,
+                                       const float* __restrict__ g,
+                                       const float* __restrict__ cnt,
+                                       const int32_t* __restrict__ off,
+                                       const int32_t* __restrict__ slots,
+                                       const int32_t* __restrict__ lbase,
+                                       float* part, int* ticket,
+                                       float* __restrict__ dh, int N, int f,
+                                       int D) {
   using V = Vec<VW>;
   using P = Quot<VW>;
   constexpr int E = IN_FLIGHT / Q;              // rows in flight
-  const long long w = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   slot_index::Unit t;
   if (!slot_index::unit_of(w, off, lbase, N, &t)) return;
   const bool whole = t.nch == 1;
@@ -347,11 +361,95 @@ sage_agg_bwd_kernel(const float* __restrict__ g, const float* __restrict__ cnt,
   }
 }
 
+// A slot the gradient keeps: 0 <= i < N and valid[i].
+__device__ __forceinline__ bool kept_slot(int i, int N, const bool* valid) {
+  return i >= 0 && i < N && valid[i];
+}
+
+// Is any column of row m of g [M, D] not finite?  Every lane calls it.
 template <int VW>
-void launch_bwd(const float* g, const float* cnt, const int32_t* off,
-                const int32_t* slots, const int32_t* lbase, float* part,
-                int* ticket, float* dh, int N, int f, int D, int lbound,
-                cudaStream_t stream) {
+__device__ __forceinline__ bool row_not_finite(const float* g, int m, int D,
+                                               int lane) {
+  bool nf = false;
+  for (int c = lane * VW; c < D; c += 32 * VW) {
+    const typename Vec<VW>::T v = Vec<VW>::ld(g + (size_t)m * D + c);
+    if constexpr (VW == 4) {
+      nf |= !(isfinite(v.x) && isfinite(v.y) && isfinite(v.z)
+              && isfinite(v.w));
+    } else {
+      nf |= !isfinite(v);
+    }
+  }
+  return __any_sync(FULL, nf);
+}
+
+// Is slot index i masked and inside [0, N) (a pad, -1, is row 0)?  Its
+// row then gets 0 * g in the reference's autodiff.
+__device__ __forceinline__ bool masked_in_range(int i, int N,
+                                                const bool* valid) {
+  return i < N && !kept_slot(i, N, valid);
+}
+
+// Kernel F's follow-up: the reference's autodiff adds 0 * g[m] / cnt[m]
+// at the row of every masked slot inside [0, N) (a pad, index -1, is row
+// 0; jnp's scatter drops an index past N), NaN in every column where g[m]
+// is not finite.  Launched after F as its programmatic dependent
+// (slot_index.cuh), it starts in F's last wave and reads g (hot in L2:
+// F's units read it) row by row, a warp a row, while F finishes; then it
+// waits for F and, only where a row it read was not finite, writes the
+// NaN at its masked slots' rows.  So a finite step costs g's read beside
+// F's tail and no write.
+constexpr int SCAN_BLOCKS = 528;  // 4 a SM: g's rows a few a warp
+
+template <int VW>
+__global__ void __launch_bounds__(WARPS * 32)
+sage_agg_fix_kernel(const float* __restrict__ g,
+                    const int32_t* __restrict__ nbr,
+                    const bool* __restrict__ valid, float* dh, int N, int M,
+                    int f, int D) {
+  const int lane = threadIdx.x % 32;
+  const int first = blockIdx.x * WARPS + threadIdx.x / 32;
+  const int warps = gridDim.x * WARPS;
+  bool any = false;
+  for (int m = first; m < M; m += warps)
+    any |= row_not_finite<VW>(g, m, D, lane);
+  slot_index::wait_primary();
+  if (!any) return;
+  const float nan = __int_as_float(0x7fffffff);
+  for (int m = first; m < M; m += warps) {
+    if (!row_not_finite<VW>(g, m, D, lane)) continue;
+    for (int j = 0; j < f; ++j) {
+      const int i = nbr[(size_t)m * f + j];
+      if (!masked_in_range(i, N, valid)) continue;
+      float* row = dh + (size_t)max(i, 0) * D;
+      for (int c = lane; c < D; c += 32)
+        if (!isfinite(g[(size_t)m * D + c])) row[c] = nan;
+    }
+  }
+}
+
+// Kernel F: warp w is unit w of the transposed index (f_unit);
+// sage_agg_fix_kernel follows.  ticket [lbound]: the long rows' tickets.
+template <int VW, int Q>
+__global__ void __launch_bounds__(WARPS * 32)
+sage_agg_bwd_kernel(const float* __restrict__ g, const float* __restrict__ cnt,
+                    const int32_t* __restrict__ off,
+                    const int32_t* __restrict__ slots,
+                    const int32_t* __restrict__ lbase, float* part,
+                    int* ticket, float* __restrict__ dh, int N, int f,
+                    int D) {
+  slot_index::launch_dependents();
+  f_unit<VW, Q>((long long)blockIdx.x * WARPS + threadIdx.x / 32,
+                threadIdx.x % 32, g, cnt, off, slots, lbase, part, ticket, dh,
+                N, f, D);
+}
+
+template <int VW>
+int launch_bwd(const float* g, const float* cnt, const int32_t* off,
+                const int32_t* slots, const int32_t* lbase,
+                const int32_t* nbr, const bool* valid, float* part,
+                int* ticket, float* dh, int N, int M, int f, int D,
+                int lbound, cudaStream_t stream) {
   const long long units = (long long)N + lbound;
   const int blocks = (int)((units + WARPS - 1) / WARPS);
   if (D > 32 * VW) {
@@ -361,6 +459,13 @@ void launch_bwd(const float* g, const float* cnt, const int32_t* off,
     sage_agg_bwd_kernel<VW, 1><<<blocks, WARPS * 32, 0, stream>>>(
         g, cnt, off, slots, lbase, part, ticket, dh, N, f, D);
   }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int rows = (M + WARPS - 1) / WARPS;   // blocks of a row a warp
+  const int fix_blocks = rows < SCAN_BLOCKS ? rows : SCAN_BLOCKS;
+  return (int)slot_index::launch_dependent(
+      sage_agg_fix_kernel<VW>, fix_blocks, WARPS * 32, stream, g, nbr, valid,
+      dh, N, M, f, D);
 }
 
 }  // namespace
@@ -390,26 +495,30 @@ extern "C" int sage_agg_fwd(const void* h, const void* nbr, const void* valid,
 }
 
 // Kernel F.  `off` [N + 1], `slots` [M * f] and `lbase` [N + 1] are the
-// transposed index (slot_index.cuh), `lbound` its bound on long chunks;
-// `part` [lbound, D] is scratch and `ticket` [lbound] must be zero.  Every
-// row of `dh` [N, D] is written.
+// transposed index (slot_index.cuh) of `nbr` [M, f] over `valid` [N],
+// `lbound` its bound on long chunks; `part` [lbound, D] is scratch and
+// `ticket` [lbound] must be zero.  Every row of `dh` [N, D] is written.
+// Two launches: F and its follow-up.
 extern "C" int sage_agg_bwd(const void* g, const void* cnt, const void* off,
-                            const void* slots, const void* lbase, void* part,
-                            void* ticket, void* dh, int N, int f, int D,
-                            int lbound, void* stream) {
-  if (N < 1 || D < 1 || f < 1 || lbound < 0) return (int)cudaErrorInvalidValue;
+                            const void* slots, const void* lbase,
+                            const void* nbr, const void* valid, void* part,
+                            void* ticket, void* dh, int N, int M, int f,
+                            int D, int lbound, void* stream) {
+  if (N < 1 || M < 1 || D < 1 || f < 1 || lbound < 0)
+    return (int)cudaErrorInvalidValue;
   const bool vec = (D % 4 == 0) && ((uintptr_t)g % 16 == 0)
                    && ((uintptr_t)dh % 16 == 0) && ((uintptr_t)part % 16 == 0);
   if (vec) {
-    launch_bwd<4>((const float*)g, (const float*)cnt, (const int32_t*)off,
-                  (const int32_t*)slots, (const int32_t*)lbase, (float*)part,
-                  (int*)ticket, (float*)dh, N, f, D, lbound,
-                  (cudaStream_t)stream);
-  } else {
-    launch_bwd<1>((const float*)g, (const float*)cnt, (const int32_t*)off,
-                  (const int32_t*)slots, (const int32_t*)lbase, (float*)part,
-                  (int*)ticket, (float*)dh, N, f, D, lbound,
-                  (cudaStream_t)stream);
+    return launch_bwd<4>((const float*)g, (const float*)cnt,
+                         (const int32_t*)off, (const int32_t*)slots,
+                         (const int32_t*)lbase, (const int32_t*)nbr,
+                         (const bool*)valid, (float*)part, (int*)ticket,
+                         (float*)dh, N, M, f, D, lbound,
+                         (cudaStream_t)stream);
   }
-  return (int)cudaGetLastError();
+  return launch_bwd<1>((const float*)g, (const float*)cnt,
+                       (const int32_t*)off, (const int32_t*)slots,
+                       (const int32_t*)lbase, (const int32_t*)nbr,
+                       (const bool*)valid, (float*)part, (int*)ticket,
+                       (float*)dh, N, M, f, D, lbound, (cudaStream_t)stream);
 }

@@ -8,7 +8,10 @@
 // neighbor index past N-1 reads row N-1, as jnp's gather clamps.  NaN
 // flows as in the plain version: an excluded slot adds its (clamped) row
 // times 0 (NaN where that row is not finite; a pad reads row 0, a run of
-// pads once), and act (ReLU) keeps a NaN.
+// pads once), and act (ReLU) keeps a NaN.  An infinite (or near FLT_MAX)
+// input gives the float32 product's +-inf: an output the 3xTF32 products
+// leave NaN is recomputed by FFMA from the gathered tiles
+// (tf32x3.cuh: plain_out), which finite inputs never reach.
 //
 // Replaces the TPU kernel repro/kernels/serve_fused.py:fused_serve_layer
 // (one pallas_call per serve layer).
@@ -233,6 +236,36 @@ __device__ __forceinline__ void gather_list(const int2* list, int n,
   }
 }
 
+// The outputs of a warp's [16 MT, 8 NT] fragment (tile rows from wm,
+// columns from c0) that came out NaN, recomputed: the plain float32 value
+// (tf32x3.cuh: plain_out) from the gathered tiles, then ReLU.  Not
+// inlined: it runs only where an input is infinite.
+template <int MT, int NT>
+__device__ __noinline__ void fix_fragment(
+    const float* agg_s, const float* self_s, int a_ld,
+    const float* __restrict__ wn, const float* __restrict__ ws,
+    const float* __restrict__ bias, float* out, int M, int D, int K, int m0,
+    int wm, int c0, int lane, int relu) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < MT; ++i) {
+    for (int half = 0; half < 2; ++half) {
+      const int r = wm + 16 * i + g + 8 * half;
+      const int m = m0 + r;
+      if (m >= M) continue;
+      for (int j = 0; j < NT; ++j) {
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * j + 2 * t + e;
+          if (col >= K || !isnan(out[(size_t)m * K + col])) continue;
+          float x = plain_out(agg_s + r * a_ld, self_s + r * a_ld, wn, ws,
+                              bias, D, K, col);
+          if (relu) x = isnan(x) ? x : fmaxf(x, 0.f);
+          out[(size_t)m * K + col] = x;
+        }
+      }
+    }
+  }
+}
+
 template <int BM, int WARPS_M, int VW>
 __global__ void __launch_bounds__(THREADS, 2)
 serve_fused_layer_kernel(const float* __restrict__ h,
@@ -386,6 +419,7 @@ serve_fused_layer_kernel(const float* __restrict__ h,
     if (u == T - 1) {             // epilogue of column tile ct0 + s / T
       const int n0 = (ct0 + s / T) * BN;
       const bool pairs = (K % 2) == 0;
+      bool nan_seen = false;
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -404,6 +438,7 @@ serve_fused_layer_kernel(const float* __restrict__ h,
               float x = 0.f;
               if (col < K) {
                 x = an + acc[i][j][2 * half + e] + bias[col];
+                nan_seen |= isnan(x);
                 // torch.relu's clamp_min on the card: NaN stays NaN
                 if (relu) x = isnan(x) ? x : fmaxf(x, 0.f);
               }
@@ -421,6 +456,11 @@ serve_fused_layer_kernel(const float* __restrict__ h,
           }
         }
       }
+      // an infinite input leaves the 3xTF32 sums NaN: those outputs
+      // again, in float32 FFMA from the gathered tiles
+      if (nan_seen)
+        fix_fragment<MT, NT>(agg_s, self_s, a_ld, wn, ws, bias, out, M, D, K,
+                             m0, wm, n0 + wn_, lane, relu);
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
 #pragma unroll

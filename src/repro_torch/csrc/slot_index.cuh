@@ -76,4 +76,45 @@ __device__ __forceinline__ bool last_chunk(const Unit& t, int* ticket,
   return last != 0;
 }
 
+// Programmatic dependent launch (sm_90): a kernel that calls
+// launch_dependents() lets the next kernel of its stream, launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization, start once every
+// block of this one has started; that kernel's wait_primary() returns
+// when this one has finished and its writes are visible.  So a small
+// follow-up kernel's launch hides behind the tail of the first.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_primary() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+constexpr int FIX_BLOCKS = 32;    // blocks of a follow-up kernel
+
+// Launch `kernel` on `stream` as a programmatic dependent of the kernel
+// launched before it there.
+template <typename... KArgs, typename... Args>
+inline cudaError_t launch_dependent(void (*kernel)(KArgs...), int blocks,
+                                    int threads, cudaStream_t stream,
+                                    Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Raise `flag` (zero before the launch) when any lane's `bad` holds.
+// Every lane calls it.
+__device__ __forceinline__ void raise_if(bool bad, int* flag, int lane) {
+  if (__any_sync(0xffffffffu, bad) && lane == 0) atomicExch(flag, 1);
+}
+
 }  // namespace slot_index

@@ -116,3 +116,26 @@ __device__ __forceinline__ void mma_step(const float* As, int a_ld,
     }
   }
 }
+
+// The plain float32 value of out[m, col] = a_row . wn[:, col] + s_row .
+// ws[:, col] + b[col] (a_row, s_row: the m-th rows of the two inputs, C
+// deep; wn, ws [C, K] row-major), by FFMA on the CUDA cores.  The 3xTF32
+// split turns an infinite input, or a finite one whose TF32 part rounds
+// to infinity (near FLT_MAX), into NaN (x - tf32(x) is inf - inf), where
+// the float32 product gives +-inf (or NaN where it too has inf - inf or
+// 0 * inf): an epilogue recomputes such an output here.  A finite input
+// gives no NaN, so this never runs on finite data; not inlined, so that
+// it costs the unrolled epilogues no registers.
+__device__ __noinline__ float plain_out(const float* a_row,
+                                        const float* s_row,
+                                        const float* __restrict__ wn,
+                                        const float* __restrict__ ws,
+                                        const float* __restrict__ b, int C,
+                                        int K, int col) {
+  float an = 0.f, as = 0.f;
+  for (int k = 0; k < C; ++k) {
+    an = fmaf(a_row[k], wn[(size_t)k * K + col], an);
+    as = fmaf(s_row[k], ws[(size_t)k * K + col], as);
+  }
+  return an + as + b[col];
+}

@@ -14,7 +14,10 @@
 // self^T dZ, dZ Wn^T, dZ Ws^T) are plain matrix products left to
 // torch.matmul, as the reference left them to XLA's autodiff.  act
 // (ReLU) keeps a NaN, as torch.relu does; NaN > 0 is false, so its dZ is
-// 0 there, as in the plain version.
+// 0 there, as in the plain version.  An infinite (or near FLT_MAX) input
+// gives the float32 product's +-inf, as the plain version's: an output
+// the 3xTF32 products leave NaN is recomputed by FFMA (tf32x3.cuh:
+// plain_out), which finite inputs never reach.
 //
 // Replaces the TPU kernel repro/kernels/update_fused.py:fused_update
 // (forward only there: the reference trains through its jnp path, whose
@@ -106,6 +109,40 @@ __device__ __forceinline__ float hash_u01(uint32_t row, uint32_t col,
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
   return (float)(h >> 8) / 16777216.0f;
+}
+
+// The outputs of a warp's [16 MT, 8 NT] fragment (rows from r0, columns
+// from c0) that came out NaN, recomputed: the plain float32 value of the
+// pre-activation (tf32x3.cuh: plain_out), then ReLU and the dropout as in
+// the epilogue.  Not inlined: it runs only where an input is infinite.
+template <int MT, int NT>
+__device__ __noinline__ void fix_fragment(
+    const float* __restrict__ agg, const float* __restrict__ self_h,
+    const float* __restrict__ wn, const float* __restrict__ ws,
+    const float* __restrict__ bias, float* out, int N, int C, int K, int r0,
+    int c0, int lane, int relu, float p, float inv_keep, uint32_t seed) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < MT; ++i) {
+    for (int half = 0; half < 2; ++half) {
+      const int m = r0 + 16 * i + g + 8 * half;
+      if (m >= N) continue;
+      for (int j = 0; j < NT; ++j) {
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + 8 * j + 2 * t + e;
+          if (col >= K || !isnan(out[(size_t)m * K + col])) continue;
+          float x = plain_out(agg + (size_t)m * C, self_h + (size_t)m * C,
+                              wn, ws, bias, C, K, col);
+          if (relu) x = isnan(x) ? x : fmaxf(x, 0.f);
+          if (p > 0.f) {
+            x = hash_u01((uint32_t)m, (uint32_t)col, seed) >= p
+                    ? x * inv_keep
+                    : 0.f;
+          }
+          out[(size_t)m * K + col] = x;
+        }
+      }
+    }
+  }
 }
 
 // Stage step s: A[m0:m0+BM, k0:k0+BK] and B[k0:k0+BK, n0:n0+BN] of the
@@ -228,6 +265,7 @@ update_fwd_kernel(const float* __restrict__ agg,
   // of its cost (a float32 division is a subroutine; dividing every
   // output made the epilogue a fifth of the kernel's time at layer 0)
   const float inv_keep = 1.f / keep_div;
+  bool nan_seen = false;
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
@@ -245,6 +283,7 @@ update_fwd_kernel(const float* __restrict__ agg,
           if (col < K) {
             x = accn[i][j][2 * half + e] + accs[i][j][2 * half + e]
                 + bias[col];
+            nan_seen |= isnan(x);
             // torch.relu's clamp_min on the card: NaN stays NaN
             if (relu) x = isnan(x) ? x : fmaxf(x, 0.f);
             if (p > 0.f) {
@@ -265,6 +304,11 @@ update_fwd_kernel(const float* __restrict__ agg,
       }
     }
   }
+  // an infinite input leaves the 3xTF32 sums NaN: those outputs again, in
+  // float32 FFMA, once the accumulators are dead
+  if (nan_seen)
+    fix_fragment<MT, NT>(agg, self_h, wn, ws, bias, out, N, C, K, m0 + wm,
+                         n0 + wn_, lane, relu, p, inv_keep, seed);
 }
 
 template <int BM, int WARPS_M, int VW>

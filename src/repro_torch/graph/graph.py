@@ -28,6 +28,9 @@ class Graph:
     def num_edges(self) -> int:
         return len(self.indices)
 
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
     def neighbors(self, v: int) -> np.ndarray:
         return self.indices[self.indptr[v]:self.indptr[v + 1]]
 

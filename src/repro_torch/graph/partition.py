@@ -47,6 +47,9 @@ class Partition:
     def vid_p_to_o(self) -> np.ndarray:
         return np.concatenate([self.solid_vids, self.halo_vids])
 
+    def is_halo_p(self, vid_p: np.ndarray) -> np.ndarray:
+        return vid_p >= self.num_solid
+
 
 @dataclasses.dataclass
 class PartitionSet:

@@ -9,7 +9,8 @@ dh]`` tensor is made.  :func:`gat_edge_aggregate` is differentiable: a
 ``torch.autograd.Function`` whose backward launches kernel H, which
 recomputes the softmax from ``e_u``/``e_v`` (the forward keeps no
 ``[M, f, H]`` tensor).  H runs in two passes in a fixed order, so its
-gradient is the same on every run: H1 per dst row, H2 per source row
+gradient is the same on every run (a follow-up kernel adds the
+reference's ``0 * g`` at masked slots): H1 per dst row, H2 per source row
 through the transposed slot index (:mod:`~repro_torch.kernels.
 slot_index`, and that of ``dst_idx`` where given), which the forward
 builds on the card when a gradient is needed.  Kernel G takes one of three forms by shape
@@ -32,6 +33,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gat_edge_bwd_ref, gat_edge_ref
 from repro_torch.kernels.slot_index import SlotIndex, slot_index
+from repro_torch.utils import step_cost
 
 __all__ = ["gat_edge_aggregate", "gat_edge_fwd", "gat_edge_bwd",
            "gat_edge_ref", "gat_edge_bwd_ref", "fwd_plan", "dst_index"]
@@ -94,6 +96,7 @@ def fwd_plan(M: int, f: int, H: int, dh: int, vec: bool, sms: int):
     return ("row" if cw >= hdv else "split"), cw
 
 
+@step_cost.counted(step_cost.gat_fwd_work)
 def gat_edge_fwd(z: torch.Tensor, e_u: torch.Tensor, e_v: torch.Tensor,
                  nbr_idx: torch.Tensor, src_valid: torch.Tensor,
                  dst_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -134,6 +137,7 @@ def dst_index(dst_idx: torch.Tensor, num_ev: int) -> SlotIndex:
                       num_ev)
 
 
+@step_cost.counted(step_cost.gat_bwd_work)
 def gat_edge_bwd(g: torch.Tensor, z: torch.Tensor, e_u: torch.Tensor,
                  e_v: torch.Tensor, nbr_idx: torch.Tensor,
                  src_valid: torch.Tensor,
@@ -171,7 +175,8 @@ def gat_edge_bwd(g: torch.Tensor, z: torch.Tensor, e_u: torch.Tensor,
     width = H * dh + -(-H // 4) * 4          # a partial row, 16-byte rows
     part = torch.empty((index.lbound, width), dtype=torch.float32,
                        device=dev)
-    ticket = torch.zeros(index.lbound, dtype=torch.int32, device=dev)
+    # the long rows' tickets, then the NaN flag
+    ticket = torch.zeros(index.lbound + 1, dtype=torch.int32, device=dev)
     lib = _build.load("gat_edge", _SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import hec_lookup_ref, hec_probe_ref, set_index
+from repro_torch.utils import step_cost
 
 __all__ = ["hec_lookup", "hec_lookup_ref", "hec_probe", "hec_probe_ref",
            "set_index"]
@@ -37,6 +38,7 @@ _SIGNATURES = {"hec_lookup": ([_P] * 7 + [_I] * 4 + [_P], _I),
 MAX_WAYS = 32                    # one lane per way
 
 
+@step_cost.counted(step_cost.hec_lookup_work, with_out=True)
 def hec_lookup(tags: torch.Tensor, values: torch.Tensor,
                vids: torch.Tensor):
     """tags [nsets, ways] int32; values [nsets, ways, d] f32; vids [n] int32
@@ -79,6 +81,7 @@ def hec_lookup(tags: torch.Tensor, values: torch.Tensor,
 hec_lookup.launches = 0
 
 
+@step_cost.counted(step_cost.hec_probe_work)
 def hec_probe(tags: torch.Tensor, values: torch.Tensor, vids: torch.Tensor,
               alive: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tags [R, nsets, ways] int32; values [R, nsets, ways, d] f32; vids

@@ -75,17 +75,31 @@ def sage_agg_bwd_ref(g: torch.Tensor, nbr_idx: torch.Tensor,
                      src_valid: torch.Tensor, cnt: torch.Tensor,
                      num_src: int) -> torch.Tensor:
     """Gradient of AGG w.r.t. ``h_src``: ``dh[nbr[i, j]] += g[i] /
-    max(cnt[i], 1)`` over the included entries -> [num_src, D].  An index
-    past ``num_src`` reads row ``num_src - 1`` in the forward (jnp's
-    gather clamps) but adds nothing here: the gather's gradient, a
+    max(cnt[i], 1)`` over the included entries -> [num_src, D], as the
+    reference's autodiff takes it: a masked entry adds ``0 * g[i]`` at its
+    row (a -1 pad at row 0), NaN where ``g`` is not finite; an index past
+    ``num_src`` reads row ``num_src - 1`` in the forward (jnp's gather
+    clamps) but adds nothing here, not even that: the gather's gradient, a
     scatter, drops out-of-range indices."""
     idx = nbr_idx.long().clamp(0, max(num_src - 1, 0))
     mask = (nbr_idx >= 0) & (nbr_idx < num_src) & src_valid[idx]
-    # excluded entries add zeros: no boolean indexing, so no host sync
+    # masked entries add zeros, those past num_src go to a spare row that
+    # is dropped: no boolean indexing, so no host sync
     rows = (g / cnt.clamp_min(1.0)[:, None])[:, None, :] \
         * mask[..., None].to(g.dtype)
-    dh = torch.zeros((num_src, g.shape[1]), dtype=g.dtype, device=g.device)
-    return dh.index_add_(0, idx.reshape(-1), rows.reshape(-1, g.shape[1]))
+    dh = torch.zeros((num_src + 1, g.shape[1]), dtype=g.dtype,
+                     device=g.device)
+    dh.index_add_(0, _scatter_rows(nbr_idx, num_src).reshape(-1),
+                  rows.reshape(-1, g.shape[1]))
+    return dh[:num_src]
+
+
+def _scatter_rows(nbr_idx: torch.Tensor, num_src: int) -> torch.Tensor:
+    """Where a gradient scatters each slot (int64): its row, 0 for a -1
+    pad, and the spare row ``num_src`` (dropped after the scatter) for an
+    index past the last row, which jnp's scatter drops."""
+    return torch.where(nbr_idx >= num_src, num_src,
+                       nbr_idx.long().clamp_min(0))
 
 
 def serve_layer_ref(h_src: torch.Tensor, nbr_idx: torch.Tensor,
@@ -186,7 +200,9 @@ def _gat_alpha(e_u: torch.Tensor, e_v: torch.Tensor, nbr_idx: torch.Tensor,
     slot counts when it is not a -1 pad and its source is valid.  The
     softmax is the Pallas kernel's: masked slots at -1e30, the max over
     the fanout subtracted, masked slots zeroed after the exp, the sum
-    floored at 1e-20 (a row with no slot gives zeros)."""
+    floored at 1e-20 (a row with no slot gives zeros); a masked slot's
+    alpha is 0 even where the sum is NaN, as the reference's
+    ``where(mask, alpha, 0)`` makes it."""
     M = nbr_idx.shape[0]
     idx = nbr_idx.long().clamp(0, max(e_u.shape[0] - 1, 0))
     mask = (nbr_idx >= 0) & src_valid[idx]
@@ -201,7 +217,8 @@ def _gat_alpha(e_u: torch.Tensor, e_v: torch.Tensor, nbr_idx: torch.Tensor,
     scores = torch.where(m3, lrelu, neg)
     p = torch.exp(scores - scores.amax(dim=1, keepdim=True))
     p = torch.where(m3, p, torch.zeros((), dtype=s.dtype, device=s.device))
-    alpha = p / p.sum(dim=1, keepdim=True).clamp_min(1e-20)
+    alpha = torch.where(m3, p / p.sum(dim=1, keepdim=True).clamp_min(1e-20),
+                        torch.zeros((), dtype=s.dtype, device=s.device))
     return alpha, s, idx
 
 
@@ -233,33 +250,42 @@ def gat_edge_bwd_ref(g: torch.Tensor, z: torch.Tensor, e_u: torch.Tensor,
                      src_valid: torch.Tensor,
                      dst_idx: Optional[torch.Tensor] = None):
     """Gradient of :func:`gat_edge_ref` from ``g = dL/dout [M, H * dh]``:
-    ``(dz [N, H, dh], de_u [N, H], de_v [N_ev, H])``.
+    ``(dz [N, H, dh], de_u [N, H], de_v [N_ev, H])``, as the reference's
+    autodiff takes it.
 
-    ``da[m,f,h] = <g[m,h,:], z[nbr,h,:]>``; the softmax's ``dl = alpha *
-    (da - sum_f alpha * da)`` (0 at masked slots); ``ds = dl`` where
+    ``da[m,f,h] = <g[m,h,:], z[nbr,h,:]>``, 0 at masked slots (the
+    reference masks alpha by a select, whose gradient there is 0); the
+    softmax's ``dl = alpha * (da - sum_f alpha * da)``; ``ds = dl`` where
     ``s >= 0`` else ``0.2 dl`` (LeakyReLU's gradient is 1 at 0, as
-    ``jax.nn.leaky_relu``'s); then ``de_u[nbr] += ds``, ``dz[nbr] +=
-    alpha g`` and ``de_v[dst] += sum_f ds``.  A slot whose index is past
-    ``N`` reads row ``N - 1`` in the forward but scatters nothing into
-    ``dz`` and ``de_u``: jnp's gather clamps, its gradient (a scatter)
-    drops out-of-range indices."""
+    ``jax.nn.leaky_relu``'s), 0 at masked slots (the scores' select);
+    then ``de_u[nbr] += ds``, ``dz[nbr] += alpha g`` (so a masked slot
+    adds ``0 * g``, NaN where ``g`` is not finite) and ``de_v[dst] +=
+    sum_f ds``.  A slot whose index is past ``N`` reads row ``N - 1`` in
+    the forward but scatters nothing into ``dz`` and ``de_u``: jnp's
+    gather clamps, its gradient (a scatter) drops out-of-range indices."""
     alpha, s, idx = _gat_alpha(e_u, e_v, nbr_idx, src_valid, dst_idx)
     M, f = nbr_idx.shape
     N, H, dh = z.shape
     g3 = g.reshape(M, H, dh)
+    m3 = ((nbr_idx >= 0) & src_valid[idx])[..., None]
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
     blocks = list(_slot_blocks(M, f, H * dh))
     da = torch.cat([torch.einsum("mhe,mjhe->mjh", g3, z[idx[:, js]])
                     for js in blocks], 1) if f else alpha
+    da = torch.where(m3, da, zero)
     dl = alpha * (da - (alpha * da).sum(dim=1, keepdim=True))
-    ds = torch.where(s >= 0, dl, 0.2 * dl)
-    inside = (nbr_idx < N)[..., None].to(g.dtype)
-    de_u = torch.zeros((N, H), dtype=g.dtype, device=g.device)
-    de_u.index_add_(0, idx.reshape(-1), (ds * inside).reshape(-1, H))
-    dz = torch.zeros_like(z)
+    ds = torch.where(m3, torch.where(s >= 0, dl, 0.2 * dl), zero)
+    # slots past N go to a spare row that is dropped (jnp's scatter)
+    rows = _scatter_rows(nbr_idx, N)
+    de_u = torch.zeros((N + 1, H), dtype=g.dtype, device=g.device)
+    de_u.index_add_(0, rows.reshape(-1), ds.reshape(-1, H))
+    de_u = de_u[:N]
+    dz = torch.zeros((N + 1, H, dh), dtype=g.dtype, device=g.device)
     for js in blocks:
-        a = alpha[:, js] * inside[:, js]                       # [M, b, H]
-        dz.index_add_(0, idx[:, js].reshape(-1),
-                      (a[..., None] * g3[:, None]).reshape(-1, H, dh))
+        dz.index_add_(0, rows[:, js].reshape(-1),
+                      (alpha[:, js, :, None] * g3[:, None]).reshape(-1, H,
+                                                                    dh))
+    dz = dz[:N]
     de_v = torch.zeros((e_v.shape[0], H), dtype=g.dtype, device=g.device)
     dsum = ds.sum(dim=1)
     if dst_idx is None:

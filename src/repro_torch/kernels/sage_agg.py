@@ -10,7 +10,8 @@ column slice a warp owns, from the shape and the card's SM count.
 backward and, on the card where ``h_src`` needs a gradient, builds the
 transposed slot index (:mod:`~repro_torch.kernels.slot_index`) that F
 gathers through: F sums each source row's slots in a fixed order, so
-its gradient is the same on every run.  Autograd calls the backward
+its gradient is the same on every run; a follow-up kernel adds the
+reference's ``0 * g`` at masked slots (NaN where g is not finite).  Autograd calls the backward
 only where ``h_src`` needs a gradient, so layer 0 (the features) never
 builds the index or launches F.
 
@@ -29,6 +30,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import sage_agg_bwd_ref, sage_agg_ref
 from repro_torch.kernels.slot_index import SlotIndex, slot_index
+from repro_torch.utils import step_cost
 
 __all__ = ["sage_agg", "sage_agg_fwd", "sage_agg_bwd", "agg_form",
            "sage_agg_ref", "sage_agg_bwd_ref"]
@@ -36,7 +38,7 @@ __all__ = ["sage_agg", "sage_agg_fwd", "sage_agg_bwd", "agg_form",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "sage_agg_fwd": ([_P] * 5 + [_I] * 6 + [_P], _I),
-    "sage_agg_bwd": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    "sage_agg_bwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
 }
 SLICE = 128                      # E's column slices are multiples of this
 WAVE_WARPS_PER_SM = 32           # warps per SM of one wave, by design
@@ -69,6 +71,7 @@ def _check(h_or_g, nbr_idx, src_valid, num_src, dev):
     _build.check_tensor("src_valid", src_valid, torch.bool, (num_src,), dev)
 
 
+@step_cost.counted(step_cost.agg_fwd_work)
 def sage_agg_fwd(h_src: torch.Tensor, nbr_idx: torch.Tensor,
                  src_valid: torch.Tensor):
     """Kernel E: h_src [N, D] f32; nbr_idx [M, f] int32 (-1 pad);
@@ -104,6 +107,7 @@ def sage_agg_fwd(h_src: torch.Tensor, nbr_idx: torch.Tensor,
 sage_agg_fwd.launches = 0
 
 
+@step_cost.counted(step_cost.agg_bwd_work)
 def sage_agg_bwd(g: torch.Tensor, nbr_idx: torch.Tensor,
                  src_valid: torch.Tensor, cnt: torch.Tensor,
                  num_src: int, index: Optional[SlotIndex] = None
@@ -136,8 +140,9 @@ def sage_agg_bwd(g: torch.Tensor, nbr_idx: torch.Tensor,
         rc = lib.sage_agg_bwd(g.data_ptr(), cnt.data_ptr(),
                               index.offsets.data_ptr(),
                               index.slots.data_ptr(), index.lbase.data_ptr(),
+                              nbr_idx.data_ptr(), src_valid.data_ptr(),
                               part.data_ptr(), ticket.data_ptr(),
-                              dh.data_ptr(), num_src, f, D, index.lbound,
+                              dh.data_ptr(), num_src, M, f, D, index.lbound,
                               stream)
     if rc != 0:
         raise RuntimeError(f"sage_agg_bwd: launch failed with CUDA error {rc}")

@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (SAMPLE_POLICIES, draw_neighbors,
                                      sample_keys)
+from repro_torch.utils import step_cost
 
 __all__ = ["sample_draw", "draw_group", "draw_neighbors", "sample_keys"]
 
@@ -47,6 +48,7 @@ def draw_group(n: int, sms: int) -> int:
     return GROUPS[-1]
 
 
+@step_cost.counted(step_cost.sample_draw_work)
 def sample_draw(indptr: torch.Tensor, indices: torch.Tensor,
                 wtab: torch.Tensor, cur: torch.Tensor, seed: int,
                 allow: Optional[torch.Tensor], *, f: int, num_solid: int,

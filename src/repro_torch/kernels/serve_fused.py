@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import serve_layer_ref
+from repro_torch.utils import step_cost
 
 __all__ = ["serve_fused_layer", "serve_layer_ref", "serve_tile",
            "serve_form", "smem_bytes", "SMEM_LIMIT"]
@@ -79,6 +80,7 @@ def serve_form(M: int, K: int, D: int, sms: int) -> str:
     return f"3xTF32 {bm} rows x {cols}, {blocks} blocks"
 
 
+@step_cost.counted(step_cost.serve_layer_work)
 def serve_fused_layer(h_src: torch.Tensor, nbr_idx: torch.Tensor,
                       src_valid: torch.Tensor, wn: torch.Tensor,
                       ws: torch.Tensor, b: torch.Tensor, *, relu: bool = True,

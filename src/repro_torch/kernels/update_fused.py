@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_update_bwd_ref, fused_update_ref
+from repro_torch.utils import step_cost
 
 __all__ = ["fused_update", "update_fused_fwd", "update_fused_bwd",
            "fused_update_ref", "fused_update_bwd_ref", "fwd_route",
@@ -88,6 +89,7 @@ def _dropout_args(dropout: float, seed: int):
     return float(dropout), float(1.0 - dropout), int(seed) & _U32
 
 
+@step_cost.counted(step_cost.update_fwd_work)
 def update_fused_fwd(agg: torch.Tensor, self_h: torch.Tensor,
                      wn: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, *,
                      relu: bool = True, dropout: float = 0.0,
@@ -130,6 +132,7 @@ def update_fused_fwd(agg: torch.Tensor, self_h: torch.Tensor,
 update_fused_fwd.launches = 0
 
 
+@step_cost.counted(step_cost.update_bwd_work)
 def update_fused_bwd(g: torch.Tensor, out: torch.Tensor, *, relu: bool = True,
                      dropout: float = 0.0, seed: int = 0):
     """Kernel D: output gradient g [N, K] and forward output out [N, K]

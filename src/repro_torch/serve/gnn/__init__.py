@@ -9,4 +9,5 @@ from repro_torch.serve.gnn.prewarm import (degree_weighted_vids,  # noqa: F401
                                            select_prewarm_vids)
 from repro_torch.serve.gnn.scheduler import (AdmissionRejected,  # noqa: F401
                                              GNNRequest, GNNServeConfig,
-                                             GNNServeScheduler, ServeFrontend)
+                                             GNNServeScheduler, LatencyStats,
+                                             ServeFrontend)

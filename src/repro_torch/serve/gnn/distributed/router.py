@@ -11,7 +11,7 @@ nothing queued runs an empty, fully masked microbatch).
 from __future__ import annotations
 
 from collections import deque
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -37,6 +37,11 @@ class QueryRouter:
         r = int(owner[0])
         self.queues[r].append((req, int(local[0])))
         return r
+
+    @staticmethod
+    def seeds_of(entries: Sequence[Tuple[object, int]]) -> np.ndarray:
+        """The owner-local VID_p of drained entries, int64."""
+        return np.array([local for _, local in entries], np.int64)
 
     def drain(self, rank: int, max_n: int) -> List[Tuple[object, int]]:
         """Pop up to ``max_n`` routed entries from one shard's queue."""

@@ -89,6 +89,11 @@ class GNNRequest:
         return self.result is not None
 
 
+# the per-request enqueue->answer latency window (p50/p99): the obs
+# plane's histogram, under the reference's name
+LatencyStats = obs.Histogram
+
+
 class ServeFrontend:
     """Request lifecycle shared by the single-rank and sharded schedulers:
     admission control, latency stamping, served/rejected counters."""
@@ -96,7 +101,7 @@ class ServeFrontend:
     def _init_frontend(self):
         self._rid = 0
         self._mb_counter = 0
-        self.latency = obs.Histogram()
+        self.latency = LatencyStats()
         self.reset_frontend()
 
     def reset_frontend(self):

@@ -106,13 +106,13 @@ import torch
 from repro_torch import obs
 from repro_torch.cache import hec as hec_lib
 from repro_torch.cache import hot_tier as hot_lib
-from repro_torch.comm.collective import StackedCollective
 from repro_torch.comm.engine import HaloExchangeEngine
 from repro_torch.comm.plan import _pad_stack, build_exchange_plan
 from repro_torch.configs.gnn import GNNConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graph.partition import PartitionSet
 from repro_torch.graph.sampling import sample_blocks
+from repro_torch.launch.mesh import make_gnn_collective
 from repro_torch.models.gnn import build_model
 from repro_torch.pipeline import threefry
 from repro_torch.pipeline.staging import (MinibatchPipeline,
@@ -265,7 +265,7 @@ class DistTrainer:
             raise ValueError(f"mode must be one of {MODES}, got "
                              f"{self.mode!r}")
         self.device = resolve_device(self.device)
-        self.comm = StackedCollective(self.num_ranks)
+        self.comm = make_gnn_collective(self.num_ranks)
         h = self.cfg.hec
         self.engine = HaloExchangeEngine(self.num_ranks, self.cfg.num_layers,
                                          h.push_limit, h.delay, self.comm,

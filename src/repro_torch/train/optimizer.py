@@ -1,5 +1,6 @@
-"""Adam with a global-norm clip (own copy of ``repro/train/optimizer.py``'s
-``AdamConfig``/``adam_init``/``global_norm``/``adam_update``).
+"""Adam with a global-norm clip, and plain SGD (own copy of
+``repro/train/optimizer.py``'s ``AdamConfig``/``adam_init``/
+``global_norm``/``adam_update``/``sgd_update``).
 
 The reference's pure functions return new pytrees; here the parameters
 and the moments are updated in place, under ``no_grad``, in the same
@@ -70,3 +71,12 @@ def adam_update(grads: Sequence[torch.Tensor], state: AdamState,
             delta = delta + cfg.weight_decay * p.float()
         p.copy_(p.float() - cfg.lr * delta)
     return {"grad_norm": gnorm}
+
+
+def sgd_update(grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor],
+               lr: float) -> Sequence[torch.Tensor]:
+    """Plain SGD, ``p - lr * g`` in float32, in place; returns ``params``."""
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.copy_((p.float() - lr * g.float()).to(p.dtype))
+    return params

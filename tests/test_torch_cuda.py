@@ -30,9 +30,9 @@ import pytest
 import torch
 
 from repro_torch.cache import hec
-from repro_torch.kernels import (_build, gat_edge, hec_search, ref, sage_agg,
-                                 sample_draw, serve_fused, slot_index,
-                                 update_fused)
+from repro_torch.kernels import (_build, gat_edge, hec_search, nonfinite,
+                                 ref, sage_agg, sample_draw, serve_fused,
+                                 slot_index, update_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -1498,9 +1498,8 @@ def test_gat_kernels_keep_nan(dev, N, M, f, H, dh, dst):
     an excluded slot adds its row times an alpha of 0, so NaN lies where
     the plain version's is.  Kernel H on a fanout whose every slot is
     included, with NaN rows in z and e_u and a NaN row and element in g:
-    its NaN is the plain version's.  (Where a slot is excluded, the plain
-    version's gradient adds 0 x NaN = NaN at its source; H leaves the slot
-    out.)"""
+    its NaN is the plain version's.  (Masked slots under a non-finite g:
+    ``test_gat_bwd_keeps_nonfinite``.)"""
     kw = gat_inputs(dev, N + f + H + 1, N, M, f, H, dh, dst)
     valid = kw["src_valid"].cpu().numpy()
     bad = [0, int(np.flatnonzero(valid)[5]), int(np.flatnonzero(~valid)[1])]
@@ -1527,6 +1526,110 @@ def test_gat_kernels_keep_nan(dev, N, M, f, H, dh, dst):
     assert nan_close(out, want)
     for a, b in zip(got, plain):
         assert a.shape == b.shape and nan_close(a, b)
+
+
+def nonfinite_tensors(dev, case):
+    return {k: torch.as_tensor(v, device=dev) for k, v in case.items()}
+
+
+@pytest.mark.parametrize("N,M,f,D", [(100, 30, 5, 32), (333, 64, 9, 64),
+                                     (300, 37, 7, 6), (2000, 600, 40, 130),
+                                     (176000, 16000, 10, 256)])
+def test_agg_bwd_keeps_nonfinite(dev, N, M, f, D):
+    """Kernel F on a g with NaN and +-inf rows and elements at a row of
+    pads only, of masked sources only, of indices past N only, and at rows
+    with kept and masked slots: a masked slot inside [0, N) adds 0 * g at
+    its row, as the plain version (and the reference's autodiff) does, so
+    NaN and inf lie where the plain version's are; ``close`` elsewhere."""
+    kw = nonfinite_tensors(dev, nonfinite.agg_case(N + f, N, M, f, D))
+    got = sage_agg.sage_agg_bwd(kw["g"], kw["nbr_idx"], kw["src_valid"],
+                                kw["cnt"], N)
+    want = ref.sage_agg_bwd_ref(kw["g"], kw["nbr_idx"], kw["src_valid"],
+                                kw["cnt"], N)
+    torch.cuda.synchronize()
+    assert nan_close(got, want)
+    assert bool(torch.isnan(want[0]).all())         # the pads' row
+    # a non-finite g row only at rows with no kept slot (rows 0 and 1,
+    # whose g F's units never read), or only at a row with one (row 3)
+    for rows in ((0, 1), (3,)):
+        g = torch.randn(M, D, device=dev)
+        g[list(rows), :4] = kw["g"][0, 0]
+        got = sage_agg.sage_agg_bwd(g, kw["nbr_idx"], kw["src_valid"],
+                                    kw["cnt"], N)
+        want = ref.sage_agg_bwd_ref(g, kw["nbr_idx"], kw["src_valid"],
+                                    kw["cnt"], N)
+        torch.cuda.synchronize()
+        assert nan_close(got, want) and not bool(torch.isfinite(want).all())
+    g = torch.randn(M, D, device=dev)                # finite: the flag stays
+    got = sage_agg.sage_agg_bwd(g, kw["nbr_idx"], kw["src_valid"], kw["cnt"],
+                                N)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("N,M,f,H,dh", [(80, 20, 4, 2, 8), (300, 40, 7, 2, 6),
+                                        (300, 40, 40, 4, 16),
+                                        (20000, 4000, 5, 4, 256),
+                                        (3000, 64, 15, 1, 172)])
+@pytest.mark.parametrize("kind", nonfinite.GAT_KINDS)
+def test_gat_bwd_keeps_nonfinite(dev, N, M, f, H, dh, kind):
+    """Kernel H on non-finite g rows, NaN and inf z rows (masked, padded
+    and kept sources) and a NaN e_u row (a NaN softmax), over pads, masked
+    sources, indices past N and a row with no kept slot: dz, de_u and de_v
+    carry NaN and inf exactly where the plain version's (the reference's
+    autodiff's) are, also through autograd."""
+    kw = nonfinite_tensors(dev, nonfinite.gat_case(N + f + H, N, M, f, H,
+                                                   dh, kind))
+    g = kw.pop("g")
+    got = gat_edge.gat_edge_bwd(g, **kw)
+    want = ref.gat_edge_bwd_ref(g, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and nan_close(a, b)
+    z = kw["z"].clone().requires_grad_(True)
+    eu = kw["e_u"].clone().requires_grad_(True)
+    out = gat_edge.gat_edge_aggregate(z, eu, kw["e_v"], kw["nbr_idx"],
+                                      kw["src_valid"])
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert nan_close(z.grad, want[0]) and nan_close(eu.grad, want[1])
+
+
+@pytest.mark.parametrize("N,C,K", [(300, 96, 130), (1000, 256, 172),
+                                   (17001, 256, 256), (176000, 128, 256)])
+@pytest.mark.parametrize("relu,dropout", [(True, 0.0), (True, 0.5),
+                                          (False, 0.0)])
+def test_update_fwd_keeps_inf(dev, N, C, K, relu, dropout):
+    """Kernel C on +-inf inputs, near-FLT_MAX ones (whose TF32 part is
+    inf) under finite, overflowing and zero weights, and an inf times a
+    weight of 0: +-inf and NaN exactly where the float32 product of the
+    plain version has them, ``close`` elsewhere."""
+    kw = nonfinite_tensors(dev, nonfinite.update_case(N + K, N, C, K))
+    out = update_fused.update_fused_fwd(relu=relu, dropout=dropout, seed=9,
+                                        **kw)
+    want = ref.fused_update_ref(relu=relu, dropout=dropout, seed=9, **kw)
+    torch.cuda.synchronize()
+    assert nan_close(out, want)
+    if not relu:
+        assert bool(torch.isinf(want[:5]).any()) and bool(
+            torch.isfinite(want[3]).all())
+
+
+@pytest.mark.parametrize("N,M,f,D,K", [(300, 37, 7, 24, 47),
+                                       (2000, 512, 10, 256, 172),
+                                       (67584, 11264, 5, 128, 256),
+                                       (10000, 2048, 12, 128, 130)])
+def test_serve_kernel_keeps_inf(dev, N, M, f, D, K):
+    """Kernel A on +-inf and near-FLT_MAX rows (kept, masked, the pads'
+    row 0) under overflowing and zero weights: the plain version's +-inf
+    and NaN, ``close`` elsewhere, with and without ReLU."""
+    kw = nonfinite_tensors(dev, nonfinite.serve_case(N + K, N, M, f, D, K))
+    for relu in (True, False):
+        got = serve_fused.serve_fused_layer(relu=relu, **kw)
+        want = ref.serve_layer_ref(relu=relu, **kw)
+        torch.cuda.synchronize()
+        assert nan_close(got, want)
+        assert bool((~torch.isfinite(want)).any())
 
 
 # ---------------------------------------------------------------------------

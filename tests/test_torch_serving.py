@@ -398,18 +398,23 @@ def forbidden(name: str) -> bool:
     return name.split(".")[0] in ("jax", "jaxlib", "repro")
 
 
+EXAMPLES = ("quickstart", "distributed_gat", "serve_gnn", "serve_gnn_dist")
+
+
 def test_port_never_imports_jax_or_repro_ast():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    names = {str(f.relative_to(REPO / "src")) for f in files}
     files.append(REPO / "chip_smoke.py")
+    files += [REPO / "examples" / f"torch_{e}.py" for e in EXAMPLES]
     assert len(files) > 20
-    names = {str(f.relative_to(REPO / "src")) for f in files[:-1]}
     assert {f"repro_torch/{m}.py" for m in (
         "cache/hot_tier", "comm/engine", "comm/plan",
         "pipeline/vectorized_sampler", "launch/gnn_serve_dist",
         "serve/gnn/distributed/__init__", "serve/gnn/distributed/router",
         "serve/gnn/distributed/sharded_cache",
         "serve/gnn/distributed/offline",
-        "serve/gnn/distributed/scheduler")} <= names
+        "serve/gnn/distributed/scheduler", "utils/step_cost",
+        "launch/gnn_dryrun", "launch/mesh", "core/hec")} <= names
     bad = {str(f.relative_to(REPO)): m for f in files
            for m in imported_modules(f) if forbidden(m)}
     assert not bad
@@ -420,8 +425,13 @@ def test_port_never_imports_jax_or_repro_at_runtime():
         ".".join(p.relative_to(REPO / "src").with_suffix("").parts)
         .removesuffix(".__init__")
         for p in (REPO / "src" / "repro_torch").rglob("*.py"))
-    code = ("import importlib, sys\n"
+    examples = [str(REPO / "examples" / f"torch_{e}.py") for e in EXAMPLES]
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"for i, p in enumerate({examples!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ex{i}', p)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\nprint(len(" + repr(mods) + "))\n")
