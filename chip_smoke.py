@@ -5,11 +5,12 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
 source, all started together, into ``build/kernels/``), then runs
-thirteen phases on one card, phases 1-4, 7, 9 (b) and 10 at the paper's
+fourteen phases on one card, phases 1-4, 7, 9 (b) and 10 at the paper's
 full GraphSAGE width (128 -> 256 -> 256 -> 172, fanouts 5/10/15), phases
 5-6 at its full GAT width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172,
-one head at the last layer), phases 8 and 9 (c) at both and phase 13 at
-the reference dry run's (128 -> 256 -> 16, fanouts 5/10):
+one head at the last layer), phases 8 and 9 (c) at both, phase 13 at
+the reference dry run's (128 -> 256 -> 16, fanouts 5/10) and phase 14,
+LM serving, at the transformer configs' published widths:
 
   1. kernels vs plain versions: each kernel's wrapper against its plain
      PyTorch version on the same inputs — the serve layer at the three
@@ -227,7 +228,48 @@ the reference dry run's (128 -> 256 -> 16, fanouts 5/10):
      GAT at ``P13_GAT_RANKS`` = 32 (at 64 its queues and push buffers
      need ~120 GB); (c) the four GNN examples (``examples/torch_*.py``),
      each in a process of its own on the card: exit 0 and their summary
-     lines.
+     lines;
+ 14. LM serving, the port's plain-torch transformer path (it has no
+     kernel of its own; the reference's LM stack has no Pallas kernel):
+     (a) minitron-4b, h2o-danube-3-4b, mixtral-8x7b, phi3.5-moe,
+     xlstm-1.3b, recurrentgemma-9b, qwen2-vl-7b (256 patch embeddings)
+     and seamless-m4t-medium (512 frame embeddings) at their published
+     widths, cut to one unit of their pattern (recurrentgemma: and the
+     remainder's first layer; seamless: one encoder layer), float32,
+     weights of the reference's shapes and scales from a
+     ``torch.Generator`` on the card: prefill 2 x 32 tokens and 8 decode
+     steps from the prefill caches on the card and on the CPU (fed the
+     card's ids): logits and cache states within 1e-4 * max(1, |x|) (or
+     4x the card's own spread under 1e-7 relative embedding noise, where
+     that is larger: xLSTM), cache positions and greedy ids equal;
+     command-r-plus-104b's unit (a 12.6 GB tied embedding) on the card
+     alone, finite, its prefill within 1e-4 of the prompt replayed
+     through decode; minitron-4b and mixtral-8x7b in bfloat16, one unit,
+     the card against the CPU (which ``tests/test_torch_lm_bf16.py``
+     holds to the reference's own bf16 run): 99% of the first attention's
+     bf16 outputs bit for bit, the logits within 0.65 of the CPU's
+     bf16-float32 rms distance, a control with bf16 scores past both;
+     (b) ``P14_MAIN`` = minitron-4b at full width and
+     depth in bfloat16 (5.10B params): prefill 4 x 2,048 and 64 decode
+     steps through ``make_prefill_step`` / ``make_serve_step`` (the GNN
+     kernels' counts 0 before and after), one traced decode step and
+     prefill (device busy share, top kernels), the prefill's last logits
+     against the prompt replayed through decode (a CUDA graph of the
+     decode step), both held to a float32 run of the same weights: each
+     within twice the other's max distance and within ``P14_LIMIT`` (the
+     reference test's atol = rtol = 2e-2 is printed, and holds only at
+     reduced depth; the bf16-scores control's distance is printed);
+     then ``BatchScheduler``, 8 slots, 16 requests of 32-128 prompt
+     tokens and 32 new ones, cache 512, 8 of them in a reused slot, every
+     request's ids equal to its own decode alone (in rows of the same
+     batch shape, so the products take the same kernels); prefill
+     tokens/s, decode ms/step and tokens/s, the scheduler's steps and
+     tokens/s and peak memory printed with the card; (c) ``P14_SWA`` =
+     h2o-danube-3-4b at full depth in bfloat16: a 6,144-token prompt
+     past the 4,096 window (the prefill's ring caches hold positions
+     2,048-6,143, slot p % 4,096) and 16 decode steps, against the same
+     tokens decoded through the cache from empty, both held to a float32
+     run as (b).
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
@@ -4479,6 +4521,617 @@ def phase13(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: LM serving
+# ---------------------------------------------------------------------------
+P14_UNIT_ARCHS = ("minitron-4b", "h2o-danube-3-4b", "mixtral-8x7b",
+                  "phi3.5-moe-42b-a6.6b", "xlstm-1.3b", "recurrentgemma-9b",
+                  "qwen2-vl-7b", "seamless-m4t-medium")
+P14_WIDE = "command-r-plus-104b"    # (a): one unit, on the card only
+P14_BATCH, P14_PROMPT, P14_STEPS = 2, 32, 8
+P14_MAIN = "minitron-4b"            # (b): the examples' default
+P14_MAIN_BATCH, P14_MAIN_PROMPT, P14_MAIN_DECODE = 4, 2048, 64
+P14_SLOTS, P14_REQUESTS, P14_CACHE = 8, 16, 512
+P14_REQ_PROMPT, P14_REQ_NEW = (32, 128), 32
+P14_SWA = "h2o-danube-3-4b"         # (c): the ring cache at full depth
+P14_SWA_PROMPT, P14_SWA_DECODE = 6144, 16
+P14_SPREAD = 1e-7                   # embedding noise of the spread probe
+P14_ATOL = P14_RTOL = 2e-2          # tests/test_arch_smoke.py:91-93
+# max |logit - a float32 run's| of a bf16 path at full depth ((b), (c))
+P14_LIMIT = 0.125
+P14_BF16_ARCHS = ("minitron-4b", "mixtral-8x7b")   # (a) in bf16
+P14_BF16_STEPS = 2
+P14_ATTN_EQUAL = 0.99               # attention's bf16 outputs bit for bit
+P14_BF16_TOL = 0.65                 # rms, of the bf16-float32 distance
+
+
+def p14_unit(cfg):
+    """One unit of ``cfg``'s pattern (recurrentgemma: and the remainder's
+    first layer), one encoder layer, float32; the published widths."""
+    rem = tuple(cfg.remainder[:1])
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-unit", num_units=1, remainder=rem,
+        num_layers=len(cfg.pattern) + len(rem),
+        num_encoder_layers=min(cfg.num_encoder_layers, 1), dtype="float32")
+
+
+def p14_params(torch, M, cfg, seed, dtype):
+    """Weights of the reference's shapes and scales, drawn on the card
+    from a ``torch.Generator`` (a host draw of billions of Threefry
+    normals is too slow); nothing here is compared with the reference."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return M._build(seed, cfg, lambda key, shape: torch.randn(
+        shape, generator=gen, device="cuda"), "cuda", dtype)
+
+
+def p14_inputs(torch, np, cfg, batch, length, device, seed=14):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (batch, length)), device=device)}
+    if cfg.num_patch_tokens:
+        out["patch_embeds"] = torch.as_tensor(rng.normal(
+            size=(batch, cfg.num_patch_tokens, cfg.d_model)).astype(
+                np.float32), device=device)
+    if cfg.is_encoder_decoder:
+        out["frame_embeds"] = torch.as_tensor(rng.normal(
+            size=(batch, cfg.num_frame_tokens, cfg.d_model)).astype(
+                np.float32), device=device)
+    return out
+
+
+def p14_prefill_decode(torch, M, L, cfg, params, batch, steps, feed=None):
+    """Prefill, then ``steps`` decode steps from the prefill caches at the
+    positions after the prompt (greedy, or the ids ``feed``): every logit
+    and id, and the caches after each of the two."""
+    logits, caches = L.make_prefill_step(cfg)(params, batch)
+    first = M.tree_map(lambda a: a.clone(), caches)
+    serve = L.make_serve_step(cfg)
+    pos = batch["tokens"].shape[1] + (cfg.num_patch_tokens
+                                      if "patch_embeds" in batch else 0)
+    tok = torch.argmax(logits[:, -1], -1)[:, None]
+    out = {"prefill": logits, "decode": [], "ids": [tok],
+           "prefill_cache": first}
+    for i in range(steps):
+        if feed is not None:
+            tok = feed[i]
+        nxt, lg, caches = serve(params, caches, tok.long(), pos + i)
+        out["decode"].append(lg)
+        out["ids"].append(nxt)
+        tok = nxt
+    out["cache"] = caches
+    return out
+
+
+def p14_err(torch, got, want) -> float:
+    g, w = got.double().cpu(), want.double().cpu()
+    return float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+
+
+def p14_spread(torch, M, L, cfg, params, batch):
+    """How far the card's own prefill logits and cache states move when
+    the embedding is perturbed by ``P14_SPREAD`` relative noise (float32
+    rounding's size): the floor below which no float32 run can be held
+    to another."""
+    logits, caches = L.make_prefill_step(cfg)(params, batch)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    e = params["embed"]
+    noisy = dict(params, embed=e * (1 + P14_SPREAD * torch.randn(
+        e.shape, generator=gen, device="cuda")))
+    nl, nc = L.make_prefill_step(cfg)(noisy, batch)
+    del noisy
+    return max([p14_err(torch, nl, logits)] + [
+        p14_err(torch, x, y) for x, y in zip(M.tree_leaves(nc),
+                                             M.tree_leaves(caches))
+        if x.dtype.is_floating_point])
+
+
+def phase14_units(torch, np):
+    """(a) each family at its published widths, one unit deep, float32:
+    the card against the port's CPU path from the same weights."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as M
+    from repro_torch.train import lm_trainer as L
+    worst = {}
+    for i, arch in enumerate(P14_UNIT_ARCHS):
+        t0 = time.perf_counter()
+        cfg = p14_unit(get_arch(arch))
+        params = p14_params(torch, M, cfg, 140 + i, torch.float32)
+        batch = p14_inputs(torch, np, cfg, P14_BATCH, P14_PROMPT, "cuda")
+        card = p14_prefill_decode(torch, M, L, cfg, params, batch, P14_STEPS)
+        spread = p14_spread(torch, M, L, cfg, params, batch)
+        tol = max(TOL, 4 * spread)
+        cpu_params = M.tree_map(lambda a: a.cpu(), params)
+        del params
+        torch.cuda.empty_cache()
+        cpu = p14_prefill_decode(
+            torch, M, L, cfg, cpu_params,
+            {k: v.cpu() for k, v in batch.items()}, P14_STEPS,
+            feed=[t.cpu() for t in card["ids"]])
+        del cpu_params
+        errs = [p14_err(torch, card["prefill"], cpu["prefill"])] + [
+            p14_err(torch, a, b) for a, b in zip(card["decode"],
+                                                 cpu["decode"])]
+        check(max(errs) <= tol and all(
+            bool(torch.isfinite(x).all()) for x in card["decode"]),
+            f"phase 14 (a) {arch}: card logits {max(errs):.3e} from the "
+            f"CPU's (held to {tol:.3e})")
+        ids_equal = all(torch.equal(a.cpu(), b.to(a.dtype)) for a, b in
+                        zip(card["ids"], cpu["ids"]))
+        check(ids_equal, f"phase 14 (a) {arch}: greedy ids differ")
+        cache_err, n_pos = 0.0, 0
+        for key in ("prefill_cache", "cache"):
+            for a, b in zip(M.tree_leaves(card[key]), M.tree_leaves(cpu[key])):
+                if a.dtype in (torch.int32, torch.int64):
+                    check(torch.equal(a.cpu(), b),
+                          f"phase 14 (a) {arch}: cache positions differ")
+                    n_pos += 1
+                else:
+                    cache_err = max(cache_err, p14_err(torch, a, b))
+        check(cache_err <= tol, f"phase 14 (a) {arch}: cache state "
+              f"{cache_err:.3e} from the CPU's (held to {tol:.3e})")
+        worst[arch] = max(errs)
+        print(f"phase 14 (a) {arch}: {cfg.num_layers} layer(s) at d "
+              f"{cfg.d_model}, {cfg.total_params() / 1e9:.2f}B params; "
+              f"prefill {P14_BATCH}x{P14_PROMPT} + {P14_STEPS} decode steps: "
+              f"logits within {max(errs):.2e} of the CPU's (held to "
+              f"{tol:.1e}; own spread {spread:.1e}), cache states "
+              f"{cache_err:.2e}, {n_pos} position leaves and the greedy ids "
+              f"equal ({time.perf_counter() - t0:.1f}s)")
+        del card, cpu
+        torch.cuda.empty_cache()
+    return worst
+
+
+def p14_rms(got, want) -> float:
+    """Root mean square of ``got - want`` over every tensor of the lists."""
+    sq = sum(float((g.double().cpu() - w.double().cpu()).pow(2).sum())
+             for g, w in zip(got, want))
+    return (sq / sum(w.numel() for w in want)) ** 0.5
+
+
+def p14_attention(torch, M, cfg, cpu_params, x):
+    """The first block's attention on the CPU's bf16 rotated q, k and v of
+    ``x``: a function of the device that returns its output there."""
+    from repro_torch.models.transformer import blocks as TB
+    from repro_torch.models.transformer.attention import dot_attention
+    from repro_torch.models.transformer.rope import (rope_angles,
+                                                     rope_cos_sin, rotate)
+    from repro_torch.models.transformer.xlstm import rms_norm
+    B, T = x.shape[:2]
+    pos = torch.arange(T, dtype=torch.int32)[None].expand(B, T)
+    bp = M.tree_map(lambda a: a[0], cpu_params["seg0"]["b0"])
+    q, k, v = TB._qkv(bp, rms_norm(x, bp["ln1"], cfg.norm_eps), cfg)
+    cos, sin = rope_cos_sin(rope_angles(pos, cfg.head_dim, cfg.rope_theta,
+                                        cfg.mrope_sections), x.dtype)
+    q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+    window = TB.block_window(cfg, cfg.pattern[0])
+    return lambda dev: dot_attention(
+        q.to(dev), k.to(dev), v.to(dev), pos.to(dev), pos.to(dev),
+        causal=True, window=window, q_chunk=cfg.q_chunk).cpu()
+
+
+def phase14_bf16_units(torch, np):
+    """(a) in bfloat16: ``P14_BF16_ARCHS`` one unit deep at published
+    widths, the card against the port's CPU path on the same weights
+    (the CPU path ``tests/test_torch_lm_bf16.py`` holds to the
+    reference's own bf16 run): the first block's attention on the CPU's
+    bf16 q, k and v, ``P14_ATTN_EQUAL`` of its bf16 outputs bit for bit;
+    the logits of prefill and ``P14_BF16_STEPS`` decode steps (the CPU
+    fed the card's ids), their rms distance within ``P14_BF16_TOL`` of
+    the CPU's bf16-vs-float32 one.  The card with its scores rounded to
+    bf16 (the control) is shown past both.  (A whole block matches only
+    ~69% bit for bit at these widths: a product whose sum differs by an
+    ulp of float32 rounds another way, and the block's later roundings
+    follow.)"""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as M
+    from repro_torch.train import lm_trainer as L
+    for i, arch in enumerate(P14_BF16_ARCHS):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(p14_unit(get_arch(arch)), dtype="bfloat16")
+        params = p14_params(torch, M, cfg, 150 + i, torch.float32)
+        batch = p14_inputs(torch, np, cfg, P14_BATCH, P14_PROMPT, "cuda")
+        steps = P14_BF16_STEPS
+        card = p14_prefill_decode(torch, M, L, cfg, params, batch, steps)
+        feed = list(card["ids"])
+        cpu_params = M.tree_map(lambda a: a.cpu(), params)
+        attention = p14_attention(torch, M, cfg, cpu_params, M.embed_inputs(
+            cpu_params, cfg, batch["tokens"].cpu(), None)[0])
+        attn = attention("cuda")
+        with p14_bf16_scores(torch) as hits:
+            ctrl = p14_prefill_decode(torch, M, L, cfg, params, batch,
+                                      steps, feed=feed)
+            attn_c = attention("cuda")
+        del params
+        torch.cuda.empty_cache()
+        host = {k: v.cpu() for k, v in batch.items()}
+        feed = [t.cpu() for t in feed]
+        cpu = p14_prefill_decode(torch, M, L, cfg, cpu_params, host, steps,
+                                 feed=feed)
+        f32 = p14_prefill_decode(torch, M, L, dataclasses.replace(
+            cfg, dtype="float32"), cpu_params, host, steps, feed=feed)
+        want = attention("cpu")
+        del cpu_params, attention
+        share, share_c = (float((a == want).float().mean())
+                          for a in (attn, attn_c))
+        logits = lambda r: [r["prefill"]] + r["decode"]  # noqa: E731
+        dist = p14_rms(logits(cpu), logits(f32))
+        r = p14_rms(logits(card), logits(cpu)) / dist
+        r_c = p14_rms(logits(ctrl), logits(cpu)) / dist
+        check(bool(hits) and share >= P14_ATTN_EQUAL > share_c and
+              r <= P14_BF16_TOL < r_c and all(
+                  bool(torch.isfinite(x).all()) for x in logits(card)),
+              f"phase 14 (a) {arch} bf16: the attention's outputs "
+              f"{share:.4f} equal to the CPU's (held to {P14_ATTN_EQUAL}), "
+              f"the control's {share_c:.4f}; the logits {r:.4f} of the "
+              f"CPU's bf16-float32 distance {dist:.3e} from the CPU (held "
+              f"to {P14_BF16_TOL}), the control's {r_c:.4f} (each held "
+              f"past the bound)")
+        print(f"phase 14 (a) {arch} bf16: one unit, the first attention's "
+              f"bf16 outputs {share:.4f} equal to the CPU's (held to "
+              f"{P14_ATTN_EQUAL}; the bf16-scores control {share_c:.4f}); "
+              f"prefill {P14_BATCH}x{P14_PROMPT} + {steps} decode steps: "
+              f"the logits {r:.4f} of the CPU's bf16-float32 rms distance "
+              f"({dist:.3e}) from the CPU's bf16 (held to {P14_BF16_TOL}; "
+              f"the control {r_c:.4f}) ({time.perf_counter() - t0:.1f}s)")
+        del card, ctrl, cpu, f32
+        torch.cuda.empty_cache()
+
+
+def phase14_wide(torch, np):
+    """(a) command-r-plus-104b, one unit (its tied 256,000 x 12,288
+    embedding is 12.6 GB in float32) on the card alone: finite, and
+    prefill-then-decode equal to the prompt replayed through decode."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as M
+    from repro_torch.train import lm_trainer as L
+    t0 = time.perf_counter()
+    cfg = p14_unit(get_arch(P14_WIDE))
+    params = p14_params(torch, M, cfg, 149, torch.float32)
+    batch = p14_inputs(torch, np, cfg, P14_BATCH, P14_PROMPT, "cuda")
+    run = p14_prefill_decode(torch, M, L, cfg, params, batch, P14_STEPS)
+    check(all(bool(torch.isfinite(x).all())
+              for x in [run["prefill"]] + run["decode"]),
+          f"phase 14 (a) {P14_WIDE}: non-finite logits")
+    serve = L.make_serve_step(cfg)
+    cache = M.init_cache(cfg, P14_BATCH, P14_PROMPT, device="cuda")
+    for t in range(P14_PROMPT):
+        _, lg, cache = serve(params, cache, batch["tokens"][:, t:t + 1], t)
+    err = p14_err(torch, run["prefill"], lg)
+    check(err <= TOL, f"phase 14 (a) {P14_WIDE}: prefill {err:.3e} from "
+          f"the replay")
+    print(f"phase 14 (a) {P14_WIDE}: one unit at d {cfg.d_model}, "
+          f"{cfg.total_params() / 1e9:.2f}B params, on the card: finite; "
+          f"prefill within {err:.2e} of the replay "
+          f"({time.perf_counter() - t0:.1f}s)")
+    del params, run, cache
+    torch.cuda.empty_cache()
+
+
+def p14_float32(torch, M, L, cfg, params, batch, steps, feed=None):
+    """``p14_prefill_decode`` of the same weights widened to float32 (the
+    products in float32, TF32 off): the witness of a bfloat16 run."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = M.tree_map(lambda a: a.float(), params)
+    run = p14_prefill_decode(torch, M, L, cfg32, p32, batch, steps, feed)
+    del p32
+    torch.cuda.empty_cache()
+    return run
+
+
+def p14_witness(torch, got, want, witness):
+    """The bfloat16 prefill's logits ``got`` and the replay's ``want``
+    against a float32 ``witness``: (max |got - want|, max |got -
+    witness|, max |want - witness|, whether the reference test's atol =
+    rtol = 2e-2 holds between the two)."""
+    g, w, x = got.float(), want.float(), witness.float()
+    d = (g - w).abs()
+    return (float(d.max()), float((g - x).abs().max()),
+            float((w - x).abs().max()),
+            bool((d <= P14_ATOL + P14_RTOL * w.abs()).all()))
+
+
+@contextlib.contextmanager
+def p14_bf16_scores(torch):
+    """The control: attention scores rounded to bfloat16 (``dot_attention``'s
+    q.k product), a fault (a) in bf16 must catch; (b) and (c) print how
+    far it lands from their float32 runs.  Yields a list that counts the
+    rounded products."""
+    einsum, hits = torch.einsum, []
+
+    def rounded(eq, *ops):
+        out = einsum(eq, *ops)
+        if eq == "btkgd,bskd->btkgs":
+            hits.append(1)
+            return out.bfloat16().float()
+        return out
+    torch.einsum = rounded
+    try:
+        yield hits
+    finally:
+        torch.einsum = einsum
+
+
+def p14_held(what, e_p, e_r):
+    """The prefill path's and the replay's max distances from the float32
+    run (``e_p``, ``e_r``), each within twice the other's and within
+    ``P14_LIMIT``."""
+    check(max(e_p, e_r) <= 2 * min(e_p, e_r) and max(e_p, e_r) <= P14_LIMIT,
+          f"{what}: from the float32 run the prefill path {e_p:.4e}, the "
+          f"replay {e_r:.4e} (each held to twice the other and to "
+          f"{P14_LIMIT})")
+
+
+class P14Replay:
+    """Single-token decode captured once in a CUDA graph and replayed with
+    new tokens and positions (the cache updated in place): the long
+    prompt replays of (b) and (c), which are checks, not the timed path.
+    The cache must start empty (the warm-up writes at position 0, which
+    the first step overwrites) and hold attention layers only."""
+
+    def __init__(self, torch, M, cfg, params, cache, batch):
+        self.torch = torch
+        self.tok = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
+        self.pos = torch.zeros((batch,), dtype=torch.long, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), torch.no_grad():
+            for _ in range(2):
+                M.decode_step(params, cfg, cache, self.tok, self.pos)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph), torch.no_grad():
+            self.logits, _ = M.decode_step(params, cfg, cache, self.tok,
+                                           self.pos)
+
+    def __call__(self, tok, pos):
+        self.tok.copy_(tok)
+        self.pos.fill_(pos)
+        self.graph.replay()
+        return self.logits
+
+
+def p14_alone(torch, M, cfg, params, reqs, rows, cache_len):
+    """Each request decoded greedily on its own, in waves of ``rows``
+    independent rows at one position (no scheduler: no admission, no slot
+    reuse; each request in another row than its slot), at the
+    scheduler's batch shape so the card's products take the same
+    kernels, through ``P14Replay``: {rid: ids}."""
+    out = {}
+    for w in range(0, len(reqs), rows):
+        wave = reqs[w:w + rows][::-1]
+        cache = M.init_cache(cfg, rows, cache_len, device="cuda")
+        step = P14Replay(torch, M, cfg, params, cache, rows)
+        gen = [[] for _ in wave]
+        steps = max(len(r.prompt) + r.max_tokens - 1 for r in wave)
+        tok = torch.zeros((rows, 1), dtype=torch.long)
+        for s in range(steps):
+            for i, r in enumerate(wave):
+                seq = list(r.prompt) + gen[i]
+                tok[i, 0] = seq[min(s, len(seq) - 1)]
+            nxt = torch.argmax(step(tok.to("cuda"), s)[:, -1], -1).cpu()
+            for i, r in enumerate(wave):
+                if s >= len(r.prompt) - 1 and len(gen[i]) < r.max_tokens:
+                    gen[i].append(int(nxt[i]))
+        out.update({r.rid: g for r, g in zip(wave, gen)})
+        del step, cache
+    return out
+
+
+def phase14_main(torch, np, card):
+    """(b) minitron-4b at full width and depth in bfloat16: prefill 4 x
+    2,048 and 64 decode steps through ``make_prefill_step`` /
+    ``make_serve_step``, the prefill's last logits held to the prompt
+    replayed through decode; then ``BatchScheduler`` (8 slots, 16
+    requests, slots reused) held to each request decoded alone.  The LM
+    path launches none of the GNN kernels (counts 0 before, 0 after)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serve.scheduler import BatchScheduler, Request
+    from repro_torch.train import lm_trainer as L
+    cfg = get_arch(P14_MAIN)
+    params = p14_params(torch, M, cfg, 14, torch.bfloat16)
+    nparams = sum(t.numel() for t in M.tree_leaves(params))
+    B, T = P14_MAIN_BATCH, P14_MAIN_PROMPT
+    batch = p14_inputs(torch, np, cfg, B, T, "cuda")
+    prefill, serve = L.make_prefill_step(cfg), L.make_serve_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    prefill(params, batch)                     # warm-up (cuBLAS handles)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache = M.init_cache(cfg, B, T + P14_MAIN_DECODE, device="cuda")
+    for si, seg in enumerate(caches):          # the prompt's KV, then room
+        M.tree_map(lambda d, s: d[:, :, :s.shape[2]].copy_(s),
+                   cache[si], seg)
+    del caches
+    tok = torch.argmax(logits[:, -1], -1)[:, None]
+    ids = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(P14_MAIN_DECODE - 1):
+        tok, lg, cache = serve(params, cache, tok.long(), T + i)
+        ids.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"phase 14 (b): the LM path launched GNN kernels: {launches}")
+    ids = torch.cat(ids, 1)
+    check(bool(torch.isfinite(lg).all()) and ids.shape == (
+        B, P14_MAIN_DECODE) and bool(((ids >= 0) & (ids < cfg.vocab_size))
+                                     .all()), "phase 14 (b): decode output")
+    peak = torch.cuda.max_memory_allocated()
+    # where a step's time goes: one traced decode step and one prefill
+    from repro_torch import obs
+    for name, fn in (("decode", lambda: serve(params, cache, tok.long(),
+                                              T + P14_MAIN_DECODE - 1)),
+                     ("prefill", lambda: prefill(params, batch))):
+        with obs.DeviceTrace("cuda") as tr:
+            fn()
+        sm = tr.summary()
+        top = ", ".join(f"{t['name'][:40]} {t['device_us'] / 1e3:.2f} ms"
+                        for t in sm["top"][:3])
+        print(f"phase 14 (b) traced {name}: wall {sm['wall_us'] / 1e3:.2f} "
+              f"ms, device busy {sm['busy_us'] / 1e3:.2f} ms "
+              f"({100 * sm['busy_share']:.1f}%), "
+              f"{sum(st['kernels'] for st in sm['streams'].values())} "
+              f"kernels; top: {top}")
+    del cache
+    print(f"phase 14 (b) {P14_MAIN}: {cfg.num_layers} layers, "
+          f"{nparams / 1e9:.2f}B params in bfloat16; prefill {B}x{T}: "
+          f"{prefill_s * 1e3:.1f} ms ({B * T / prefill_s:.0f} tokens/s); "
+          f"decode {P14_MAIN_DECODE - 1} steps at batch {B}: "
+          f"{decode_s * 1e3 / (P14_MAIN_DECODE - 1):.2f} ms/step "
+          f"({B * (P14_MAIN_DECODE - 1) / decode_s:.1f} tokens/s); peak "
+          f"{peak / 2 ** 30:.2f} GiB; GNN kernel launches 0 [{card}]")
+    # the prefill's last logits against the prompt replayed through
+    # decode, both against a float32 run of the same weights
+    t0 = time.perf_counter()
+    cache = M.init_cache(cfg, B, T, device="cuda")
+    step = P14Replay(torch, M, cfg, params, cache, B)
+    for t in range(T):
+        lg = step(batch["tokens"][:, t:t + 1], t)
+    lg = lg.clone()
+    del step, cache
+    witness = p14_float32(torch, M, L, cfg, params, batch, 0)["prefill"]
+    with p14_bf16_scores(torch) as hits:
+        control = prefill(params, batch)[0]
+    d, e_p, e_r, allclose = p14_witness(torch, logits, lg, witness)
+    e_c = float((control.float() - witness.float()).abs().max())
+    rms = [float((x.float() - witness.float()).pow(2).mean().sqrt())
+           for x in (logits, lg, control)]
+    check(bool(hits), "phase 14 (b): the control rounded no scores")
+    p14_held("phase 14 (b)", e_p, e_r)
+    print(f"phase 14 (b): the prefill's last logits within {d:.4e} of the "
+          f"{T}-step replay ({'within' if allclose else 'past'} the "
+          f"reference test's atol = rtol = 2e-2); max |x - float32 run| "
+          f"of the same weights: the prefill {e_p:.4e}, the replay "
+          f"{e_r:.4e} (held to {P14_LIMIT}), the bf16-scores control "
+          f"{e_c:.4e}; rms {rms[0]:.4e}, {rms[1]:.4e}, {rms[2]:.4e} "
+          f"({time.perf_counter() - t0:.1f}s)")
+    del control
+    # the scheduler: 16 requests through 8 slots
+    rng = np.random.default_rng(15)
+    specs = [(i, rng.integers(0, cfg.vocab_size,
+                              int(rng.integers(*P14_REQ_PROMPT))).tolist())
+             for i in range(P14_REQUESTS)]
+    reqs = [Request(rid=i, prompt=p, max_tokens=P14_REQ_NEW)
+            for i, p in specs]
+    sched = BatchScheduler(cfg, params, P14_SLOTS, P14_CACHE, device="cuda")
+    reused = []
+    admit = sched._admit
+
+    def counted_admit():
+        before = [r.rid if r else None for r in sched.slot_req]
+        admit()
+        reused.extend(r.rid for s, r in enumerate(sched.slot_req)
+                      if r is not None and before[s] is None
+                      and r.rid >= P14_SLOTS)
+    sched._admit = counted_admit
+    for r in reqs:
+        sched.submit(r)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = sched.run()
+    torch.cuda.synchronize()
+    sched_s = time.perf_counter() - t0
+    check(not any(read_launches().values()),
+          "phase 14 (b): the scheduler launched GNN kernels")
+    tokens = sum(len(r.generated) for r in reqs)
+    check(all(r.done and len(r.generated) == P14_REQ_NEW for r in reqs)
+          and len(reused) >= 8, f"phase 14 (b): scheduler finished "
+          f"{sum(r.done for r in reqs)} requests, {len(reused)} reused a slot")
+    t0 = time.perf_counter()
+    alone = p14_alone(torch, M, cfg, params, reqs, P14_SLOTS, P14_CACHE)
+    same = sum(alone[r.rid] == r.generated for r in reqs)
+    check(same == len(reqs), f"phase 14 (b): {len(reqs) - same} requests' "
+          f"ids differ from their decode alone")
+    print(f"phase 14 (b) scheduler: {P14_REQUESTS} requests (prompts "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)} tokens, {P14_REQ_NEW} new "
+          f"each) through {P14_SLOTS} slots, cache {P14_CACHE}: {steps} "
+          f"steps, {tokens} tokens in {sched_s:.2f}s ({tokens / sched_s:.1f} "
+          f"tokens/s, {sched_s * 1e3 / steps:.2f} ms/step); {len(reused)} "
+          f"requests reused a slot; every request's ids equal to its "
+          f"decode alone ({time.perf_counter() - t0:.1f}s) [{card}]")
+    del params, logits
+    torch.cuda.empty_cache()
+
+
+def phase14_swa(torch, np, card):
+    """(c) h2o-danube-3-4b at full depth in bfloat16: a 6,144-token
+    prompt past the 4,096 window (the ring caches keep the trailing
+    window, rolled to slot p % 4096) and 16 decode steps, against the
+    same tokens decoded through the cache from empty, both held to a
+    float32 run of the same weights fed the same ids."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as M
+    from repro_torch.train import lm_trainer as L
+    t0 = time.perf_counter()
+    cfg = get_arch(P14_SWA)
+    W, T = cfg.sliding_window, P14_SWA_PROMPT
+    params = p14_params(torch, M, cfg, 16, torch.bfloat16)
+    batch = p14_inputs(torch, np, cfg, 1, T, "cuda")
+    run = p14_prefill_decode(torch, M, L, cfg, params, batch, P14_SWA_DECODE)
+    pos = run["prefill_cache"][0]["b0"]["kv"].pos
+    check(pos.shape[-1] == W and bool((pos % W == torch.arange(
+        W, device="cuda")).all()) and int(pos.min()) == T - W,
+        "phase 14 (c): the prefill's ring cache is not the rolled window")
+    cache = M.init_cache(cfg, 1, T + P14_SWA_DECODE, device="cuda")
+    step = P14Replay(torch, M, cfg, params, cache, 1)
+    for t in range(T):
+        lg = step(batch["tokens"][:, t:t + 1], t)
+    replay = [lg.clone()]
+    for i in range(P14_SWA_DECODE):
+        replay.append(step(run["ids"][i], T + i).clone())
+    del step, cache
+    wit = p14_float32(torch, M, L, cfg, params, batch, P14_SWA_DECODE,
+                      feed=run["ids"])
+    with p14_bf16_scores(torch) as hits:
+        control = p14_prefill_decode(torch, M, L, cfg, params, batch,
+                                     P14_SWA_DECODE, feed=run["ids"])
+    res = [p14_witness(torch, g, r, w) for g, r, w in zip(
+        [run["prefill"]] + run["decode"], replay,
+        [wit["prefill"]] + wit["decode"])]
+    d, e_p, e_r = (max(r[i] for r in res) for i in range(3))
+    e_c = max(float((c.float() - w.float()).abs().max()) for c, w in zip(
+        [control["prefill"]] + control["decode"],
+        [wit["prefill"]] + wit["decode"]))
+    check(bool(hits), "phase 14 (c): the control rounded no scores")
+    p14_held("phase 14 (c)", e_p, e_r)
+    print(f"phase 14 (c) {P14_SWA}: {cfg.num_layers} layers, window {W}, "
+          f"bfloat16; prefill 1x{T} (the ring rolled) + {P14_SWA_DECODE} "
+          f"decode steps: logits within {d:.4e} of the {T}-token replay "
+          f"through the cache ({sum(r[3] for r in res)} of {len(res)} "
+          f"within the reference test's atol = rtol = 2e-2); max |x - "
+          f"float32 run|: the prefill path {e_p:.4e}, the replay "
+          f"{e_r:.4e} (held to {P14_LIMIT}), the bf16-scores control "
+          f"{e_c:.4e} ({time.perf_counter() - t0:.1f}s) [{card}]")
+    del control
+    del params, run, wit
+    torch.cuda.empty_cache()
+
+
+def phase14(torch, np, card):
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        phase14_units(torch, np)
+        phase14_bf16_units(torch, np)
+        phase14_wide(torch, np)
+        print(f"phase 14 (a): done in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase14_main(torch, np, card)
+        print(f"phase 14 (b): done in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase14_swa(torch, np, card)
+        print(f"phase 14 (c): done in {time.perf_counter() - t0:.1f}s")
+
+
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
     """One contract row: per-launch means over the timed shapes, shape i
     standing for ``weights[i]`` launches of the main paths."""
@@ -4708,6 +5361,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launches13 = phase13(torch)
     print(f"phase 13: done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase14(torch, np, card)
+    print(f"phase 14: done in {time.perf_counter() - t0:.1f}s")
 
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]

@@ -18,6 +18,10 @@ Ported so far:
   one device over the stacked collective backend (``comm/``), with the
   HEC and the delayed embedding push, through the UPDATE and AGG kernels
   (GraphSAGE) or the GAT AGG kernel (GAT) and their gradients, and the
-  HEC probe + load kernel.
+  HEC probe + load kernel;
+* LM serving for the ten transformer configs (``configs/``,
+  ``models/transformer``, ``train/lm_trainer``, ``serve/scheduler``):
+  prefill, decode and the continuous-batching scheduler in plain torch
+  (the reference's LM stack has no Pallas kernel).
 """
 from repro_torch.device import resolve_device  # noqa: F401

@@ -34,8 +34,9 @@ tensors (adds wrap as u32 adds do), with the 20 rounds unrolled in
 Python, so the same code runs on the CPU and on the card (about 130
 elementwise launches per call); the AEP push selection draws its uniforms
 with it
-(``train/gnn_trainer.py:default_push_uniforms``) and the models' initial
-weights their normals (``models/gnn/init.py``).  ``tests/test_torch_rng.py``
+(``train/gnn_trainer.py:default_push_uniforms``), the models' initial
+weights their normals (``models/normal.py``) and the LM serving example
+its prompt (:func:`randint`).  ``tests/test_torch_rng.py``
 holds both to ``jax.random`` bit for bit.
 """
 from __future__ import annotations
@@ -170,3 +171,22 @@ def uniform(k: Key, shape: Sequence[int], minval: float = 0.0,
     f = (((bits >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32) - 1.0
     u = (f.double() * float(scale) + float(lo)).float()
     return torch.clamp_min(u, float(lo))
+
+
+def randint(k: Key, shape: Sequence[int], minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32), bit for
+    bit, for ``0 <= minval < maxval < 2^31``: two words per element from
+    ``split(k)``'s two keys, ``hi % span * ((2^16 % span)^2 % span) + lo %
+    span`` with every product and sum wrapping as a u32, then ``% span``,
+    plus ``minval``."""
+    if not 0 <= minval < maxval < 2 ** 31:
+        raise ValueError(f"randint over [{minval}, {maxval}) is outside "
+                         f"what is drawn here")
+    k1, k2 = split(k, 2)
+    hi = random_bits(k1, shape, device).long() & _U32
+    lo = random_bits(k2, shape, device).long() & _U32
+    span = maxval - minval
+    mult = ((2 ** 16 % span) ** 2 & _U32) % span
+    off = (((hi % span) * mult & _U32) + lo % span) & _U32
+    return (minval + off % span).int()

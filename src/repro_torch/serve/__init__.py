@@ -1,0 +1,1 @@
+from repro_torch.serve.scheduler import BatchScheduler, Request  # noqa: F401

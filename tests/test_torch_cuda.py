@@ -22,6 +22,13 @@ for AGG, +-inf) rows C, A, E and G give NaN exactly where their plain
 versions do, and H does on a fanout whose every slot is included; the
 resilience plane's armed step is the unarmed step's bits and launches,
 and a skipped step leaves the parameters, moments and Adam's count.
+LM serving (plain torch, no kernel) is held to the CPU: logits and
+cache states within 1e-4 * max(1, |x|) (xLSTM within 4x the card's own
+spread), positions and greedy ids equal; the scheduler's ids to each
+request decoded alone; bfloat16 prefill to its replay within the
+reference test's atol = rtol = 2e-2 at reduced depth; bfloat16 on the
+card to the CPU: 99% of an attention's bf16 outputs bit for bit,
+logits within 0.65 of the CPU's bf16-float32 rms distance.
 """
 import hashlib
 
@@ -1703,3 +1710,228 @@ def test_skipped_step_keeps_params_moments_and_count(dev, model):
     m2 = tr.train_step(st, data, minibatch_to_device(hosts[1], dev), 2)
     assert m2["skipped"] == 0.0 and st["opt"].step == 2
     assert np.isfinite(m2["loss"])
+
+
+# ---------------------------------------------------------------------------
+# LM serving (no kernel of its own: plain torch on the card against the
+# CPU; small versions of chip_smoke.py phase 14)
+# ---------------------------------------------------------------------------
+LM_ARCHS = ("command-r-plus-104b", "h2o-danube-3-4b", "minitron-4b",
+            "minitron-8b", "mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
+            "qwen2-vl-7b", "recurrentgemma-9b", "seamless-m4t-medium",
+            "xlstm-1.3b")
+
+
+def lm_setup(arch, dev, dtype="float32", seed=0):
+    import dataclasses as dc
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as M
+    cfg = dc.replace(get_arch(arch).reduced(), dtype=dtype)
+    return cfg, M.init_params(seed, cfg, "cpu")
+
+
+def lm_batch(cfg, B, T, device, seed=1):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T)),
+                                     device=device)}
+    if cfg.num_patch_tokens:
+        out["patch_embeds"] = torch.as_tensor(rng.normal(size=(
+            B, cfg.num_patch_tokens, cfg.d_model)).astype(np.float32),
+            device=device)
+    if cfg.is_encoder_decoder:
+        out["frame_embeds"] = torch.as_tensor(rng.normal(size=(
+            B, cfg.num_frame_tokens, cfg.d_model)).astype(np.float32),
+            device=device)
+    return out
+
+
+def lm_run(cfg, params, batch, steps, feed=None):
+    """Prefill, then ``steps`` greedy decode steps (or the ids ``feed``)
+    from the prefill caches: (logits, ids, caches)."""
+    from repro_torch.models.transformer import model as M
+    from repro_torch.train import lm_trainer as L
+    logits, caches = L.make_prefill_step(cfg)(params, batch)
+    pos = batch["tokens"].shape[1] + (cfg.num_patch_tokens
+                                      if "patch_embeds" in batch else 0)
+    tok = torch.argmax(logits[:, -1], -1)[:, None]
+    outs, ids = [logits], [tok]
+    serve = L.make_serve_step(cfg)
+    for i in range(steps):
+        if feed is not None:
+            tok = feed[i]
+        tok, lg, caches = serve(params, caches, tok.long(), pos + i)
+        outs.append(lg)
+        ids.append(tok)
+    return outs, ids, M.tree_leaves(caches)
+
+
+def lm_err(got, want):
+    g, w = got.double().cpu(), want.double().cpu()
+    return float(((g - w).abs() / w.abs().clamp_min(1.0)).max())
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_card_matches_cpu(dev, arch):
+    """Each family (reduced, float32): prefill 2 x 16 and 4 decode steps
+    on the card against the CPU from the same weights: logits and cache
+    states within 1e-4 * max(1, |x|) (xLSTM: four times the card's own
+    spread, its logits' and cache states' under 1e-7 relative embedding
+    noise, as phase 14 (a)), cache positions and greedy ids equal."""
+    from repro_torch.models.transformer import model as M
+    from repro_torch.train import lm_trainer as L
+    cfg, params = lm_setup(arch, dev)
+    card_params = M.tree_map(lambda a: a.to(dev), params)
+    batch = lm_batch(cfg, 2, 16, dev)
+    got, ids, cache = lm_run(cfg, card_params, batch, 4)
+    want, want_ids, want_cache = lm_run(
+        cfg, params, {k: v.cpu() for k, v in batch.items()}, 4,
+        feed=[t.cpu() for t in ids])
+    tol = 1e-4
+    if arch == "xlstm-1.3b":
+        prefill = L.make_prefill_step(cfg)
+        base, base_cache = prefill(card_params, batch)
+        noisy = dict(card_params, embed=card_params["embed"] * (
+            1 + 1e-7 * torch.randn_like(card_params["embed"])))
+        lg, nc = prefill(noisy, batch)
+        spread = max([lm_err(lg, base)] + [
+            lm_err(a, b) for a, b in zip(M.tree_leaves(nc),
+                                         M.tree_leaves(base_cache))
+            if a.dtype.is_floating_point])
+        tol = max(tol, 4 * spread)
+    assert max(lm_err(a, b) for a, b in zip(got, want)) <= tol
+    assert all(torch.equal(a.cpu(), b.to(a.dtype))
+               for a, b in zip(ids, want_ids))
+    for a, b in zip(cache, want_cache):
+        if a.dtype.is_floating_point:
+            assert lm_err(a, b) <= tol
+        else:
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "mixtral-8x7b",
+                                  "recurrentgemma-9b"])
+def test_scheduler_rows_match_per_slot_loop(dev, arch):
+    """The scheduler's one decode with a position per slot against a loop
+    that decodes each request alone (batch 1, scalar positions) on the
+    card: the same ids; mixtral routes each slot as a group of its own
+    (5 slots > E/K = 2)."""
+    from repro_torch.models.transformer import model as M
+    from repro_torch.serve.scheduler import Request, serve_requests
+    cfg, params = lm_setup(arch, dev)
+    params = M.tree_map(lambda a: a.to(dev), params)
+    reqs = [Request(rid=i, prompt=[(5 * i + j) % 97 + 1
+                                   for j in range(2 + i % 4)], max_tokens=5)
+            for i in range(9)]
+    serve_requests(cfg, params, reqs, num_slots=5, cache_len=24, device=dev)
+    for r in reqs:
+        cache = M.init_cache(cfg, 1, 24, device=dev)
+        seq, gen = list(r.prompt), []
+        for pos in range(len(r.prompt) + r.max_tokens - 1):
+            tok = torch.tensor([[seq[pos]]], device=dev)
+            logits, cache = M.decode_step(params, cfg, cache, tok, pos)
+            if pos >= len(r.prompt) - 1:
+                gen.append(int(torch.argmax(logits[0, -1])))
+                seq.append(gen[-1])
+        assert r.done and r.generated == gen, r.rid
+
+
+def test_moe_group_of_one_matches_vmap(dev):
+    """``apply_moe(per_row=True)`` routes each row alone, as the
+    reference's vmap of a single token does: equal to one call per row on
+    the card, within 1e-4; one group of all 24 rows (C = 16 < 24 picks
+    of expert 1) is not."""
+    from repro_torch.models.transformer import moe
+    cfg, params = lm_setup("mixtral-8x7b", dev)
+    mp = {k: v[0].to(dev) for k, v in params["seg0"]["b0"]["moe"].items()}
+    mp["router"] = torch.zeros_like(mp["router"])
+    mp["router"][:, 1] = 1.0
+    x = torch.as_tensor(np.abs(np.random.default_rng(2).normal(
+        size=(24, 1, cfg.d_model))).astype(np.float32), device=dev)
+    got = moe.apply_moe(mp, x, cfg, per_row=True)
+    want = torch.cat([moe.apply_moe(mp, x[i:i + 1], cfg) for i in range(24)])
+    assert lm_err(got, want) <= 1e-4
+    grouped = moe.apply_moe(mp, x.reshape(1, 24, -1), cfg).reshape(24, 1, -1)
+    assert lm_err(grouped, want) > 1e-2
+
+
+@pytest.mark.parametrize("arch,T", [("minitron-4b", 48),
+                                    ("h2o-danube-3-4b", 96),
+                                    ("command-r-plus-104b", 32)])
+def test_lm_prefill_matches_replay_bf16(dev, arch, T):
+    """bfloat16 on the card: the prefill's last logits against the prompt
+    replayed through decode from an empty cache (danube at 96 tokens past
+    its reduced 64-slot ring), within the reference test's atol = rtol =
+    2e-2; command-r's one unit likewise, finite."""
+    from repro_torch.models.transformer import model as M
+    from repro_torch.train import lm_trainer as L
+    cfg, params = lm_setup(arch, dev, dtype="bfloat16")
+    params = M.tree_map(lambda a: a.to(dev, torch.bfloat16), params)
+    batch = lm_batch(cfg, 2, T, dev)
+    logits, _ = L.make_prefill_step(cfg)(params, batch)
+    cache = M.init_cache(cfg, 2, T, device=dev)
+    serve = L.make_serve_step(cfg)
+    for t in range(T):
+        _, lg, cache = serve(params, cache, batch["tokens"][:, t:t + 1], t)
+    assert bool(torch.isfinite(logits).all())
+    assert bool(((lg - logits).abs() <= 2e-2 + 2e-2 * logits.abs()).all())
+
+
+def _lm_rms(got, want):
+    sq = sum(float((g.double().cpu() - w.double().cpu()).pow(2).sum())
+             for g, w in zip(got, want))
+    return (sq / sum(w.numel() for w in want)) ** 0.5
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "mixtral-8x7b"])
+def test_lm_bf16_card_matches_cpu(dev, arch, monkeypatch):
+    """bfloat16 (reduced), as phase 14 (a) in bf16: the first block's
+    attention on the CPU's bf16 rotated q, k and v of a 2 x 32 prompt, at
+    least 99% of its bf16 outputs bit for bit on the card; the logits of
+    the prefill and 2 decode steps (the CPU fed the card's ids) within
+    0.65 of the CPU's bf16-vs-float32 rms distance from the CPU's (the CPU
+    path that ``tests/test_torch_lm_bf16.py`` holds to the reference's
+    own bf16 run).  The card with its scores rounded to bf16 falls past
+    both."""
+    import dataclasses as dc
+    from repro_torch.models.transformer import blocks as TB
+    from repro_torch.models.transformer import model as M
+    from repro_torch.models.transformer.attention import dot_attention
+    from repro_torch.models.transformer.rope import (rope_angles,
+                                                     rope_cos_sin, rotate)
+    from repro_torch.models.transformer.xlstm import rms_norm
+    cfg, params = lm_setup(arch, dev, dtype="bfloat16")
+    card_params = M.tree_map(lambda a: a.to(dev), params)
+    batch = lm_batch(cfg, 2, 32, dev)
+    host = {k: v.cpu() for k, v in batch.items()}
+    x = M.embed_inputs(params, cfg, host["tokens"], None)[0]
+    pos = torch.arange(32, dtype=torch.int32)[None].expand(2, 32)
+    bp = M.tree_map(lambda a: a[0], params["seg0"]["b0"])
+    q, k, v = TB._qkv(bp, rms_norm(x, bp["ln1"], cfg.norm_eps), cfg)
+    cos, sin = rope_cos_sin(rope_angles(pos, cfg.head_dim, cfg.rope_theta,
+                                        None), x.dtype)
+    q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+
+    def attention(d):
+        return dot_attention(q.to(d), k.to(d), v.to(d), pos.to(d), pos.to(d),
+                             window=TB.block_window(cfg, cfg.pattern[0])).cpu()
+
+    def card():
+        got, ids, _ = lm_run(cfg, card_params, batch, 2)
+        return got, ids, attention(dev)
+    got, ids, attn = card()
+    feed = [t.cpu() for t in ids]
+    want = lm_run(cfg, params, host, 2, feed=feed)[0]
+    f32 = lm_run(dc.replace(cfg, dtype="float32"), params, host, 2,
+                 feed=feed)[0]
+    want_attn = attention("cpu")
+    dist = _lm_rms(want, f32)
+    assert float((attn == want_attn).float().mean()) >= 0.99
+    assert _lm_rms(got, want) <= 0.65 * dist
+    einsum = torch.einsum
+    monkeypatch.setattr(torch, "einsum", lambda eq, *ops: (
+        einsum(eq, *ops).bfloat16().float() if eq == "btkgd,bskd->btkgs"
+        else einsum(eq, *ops)))
+    got_c, _, attn_c = card()
+    monkeypatch.undo()
+    assert float((attn_c == want_attn).float().mean()) < 0.99
+    assert _lm_rms(got_c, want) > 0.65 * dist

@@ -12,10 +12,20 @@ port's last two lines are held to what they state (no rounds, the same
 bits, no stale answer), not to the reference's output.
 ``distributed_gat.py`` is cut for the CPU (module-level sizes patched) and
 held to the reference's byte models, which are exact.
+
+The LM serving examples (``torch_serve_lm.py``, ``torch_batch_serve.py``)
+run beside the reference's ``serve_lm.py`` and ``batch_serve.py`` (in this
+process, jax on the CPU) on the same weights (``init_params(0, ...)``, bit
+for bit): ``serve_lm`` draws the reference's prompt itself
+(``threefry.randint`` of ``jax.random.randint(key(1), ...)``, and the
+frame embeddings with ``normal``), ``batch_serve``'s prompts are fixed.
+The generated ids, and every line but the timings, are held equal.
 """
 import importlib.util
 import json
 import os
+import re
+import runpy
 import subprocess
 import sys
 from pathlib import Path
@@ -131,3 +141,27 @@ def test_distributed_gat_prints_the_byte_models(capsys):
         row = [ln for ln in lines if ln.startswith(f"{mode:5s}: test_acc=")]
         assert len(row) == 1 and f"comm_bytes/step={comm}" in row[0]
     assert want["aep"] == 2_105_344 and want["sync"] == 139_264
+
+
+LM_CASES = [("serve_lm", "minitron-4b"), ("serve_lm", "qwen2-vl-7b"),
+            ("serve_lm", "seamless-m4t-medium"),
+            ("batch_serve", "minitron-4b"), ("batch_serve", "mixtral-8x7b")]
+
+
+def untimed(line: str) -> str:
+    """A line up to its own device's timing (``0.52s`` and what follows)."""
+    return re.sub(r" [\d.]+s( .*)?$", " ", line)
+
+
+@pytest.mark.parametrize("name,arch", LM_CASES)
+def test_lm_example_prints_the_reference_ids(name, arch, capsys, monkeypatch):
+    monkeypatch.setattr(sys, "argv", [f"{name}.py", "--arch", arch])
+    runpy.run_path(str(REPO / "examples" / f"{name}.py"), run_name="__main__")
+    want = capsys.readouterr().out.splitlines()
+    load_example(name).main(["--arch", arch, "--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) >= 3
+    for g, w in zip(got, want):
+        assert untimed(g) == untimed(w), (g, w)
+    ids = [ln for ln in got if ln.startswith(("generated ids:", "req "))]
+    assert ids and all(ln in want for ln in ids)

@@ -5,8 +5,9 @@
   reference's draw in ``repro/comm/engine.py:select_push``, and the hot
   tier's (``DistTrainer.hot_uniforms``) against ``select_hot_push``'s;
 * ``split``, ``random_bits`` and ``uniform`` of ``pipeline/threefry.py``;
-* ``models/gnn/init.py``: ``erf_inv_f32`` on every float32 a normal can
-  draw, ``normal``, and the GraphSAGE and GAT initial weights against
+* ``models/normal.py``: ``erf_inv_f32`` on every float32 a normal can
+  draw, and ``normal``; ``models/gnn/init.py``: the GraphSAGE and GAT
+  initial weights against
   ``repro``'s ``init_model_params(jax.random.key(seed), cfg)`` at the
   paper's widths and at narrow ones, as ``from_config`` and the launchers
   build them.
@@ -23,7 +24,8 @@ from jax import lax
 from repro.configs import gnn as j_cfg
 from repro.train.gnn_trainer import init_model_params
 from repro_torch.configs import gnn as t_cfg
-from repro_torch.models.gnn import build_model, init
+from repro_torch.models import normal as normal_lib
+from repro_torch.models.gnn import build_model
 from repro_torch.models.gnn.gat import init_params_np as gat_params_np
 from repro_torch.models.gnn.gat import layer_shapes
 from repro_torch.models.gnn.graphsage import init_params_np, layer_dims
@@ -125,7 +127,7 @@ def test_erf_inv_matches_xla_on_every_draw(part):
     lo = np.nextafter(np.float32(-1), np.float32(0), dtype=np.float32)
     u = np.maximum(lo, f * np.float32(2) + lo)
     want = jax.jit(lambda x: np.float32(np.sqrt(2)) * lax.erf_inv(x))(u)
-    got = init.erf_inv_f32(u) * np.float32(np.sqrt(2))
+    got = normal_lib.erf_inv_f32(u) * np.float32(np.sqrt(2))
     np.testing.assert_array_equal(bits(got), bits(want))
 
 
@@ -133,7 +135,7 @@ def test_erf_inv_matches_xla_on_every_draw(part):
 def test_normal_matches_jax(seed):
     for shape in ((128, 256), (256, 4, 256), (5,)):
         np.testing.assert_array_equal(
-            bits(init.normal(threefry.key(seed), shape)),
+            bits(normal_lib.normal(threefry.key(seed), shape)),
             bits(jax.random.normal(jax.random.key(seed), shape, jnp.float32)))
 
 

@@ -398,7 +398,8 @@ def forbidden(name: str) -> bool:
     return name.split(".")[0] in ("jax", "jaxlib", "repro")
 
 
-EXAMPLES = ("quickstart", "distributed_gat", "serve_gnn", "serve_gnn_dist")
+EXAMPLES = ("quickstart", "distributed_gat", "serve_gnn", "serve_gnn_dist",
+            "serve_lm", "batch_serve")
 
 
 def test_port_never_imports_jax_or_repro_ast():
@@ -414,7 +415,10 @@ def test_port_never_imports_jax_or_repro_ast():
         "serve/gnn/distributed/sharded_cache",
         "serve/gnn/distributed/offline",
         "serve/gnn/distributed/scheduler", "utils/step_cost",
-        "launch/gnn_dryrun", "launch/mesh", "core/hec")} <= names
+        "launch/gnn_dryrun", "launch/mesh", "core/hec", "configs/base",
+        "configs/shapes", "configs/minitron_4b", "models/normal",
+        "models/transformer/model", "models/transformer/moe",
+        "serve/scheduler", "train/lm_trainer")} <= names
     bad = {str(f.relative_to(REPO)): m for f in files
            for m in imported_modules(f) if forbidden(m)}
     assert not bad
