@@ -5,12 +5,31 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
 source, all started together, into ``build/kernels/``), then runs
-fourteen phases on one card, phases 1-4, 7, 9 (b) and 10 at the paper's
+fifteen phases on one card, phases 1-4, 7, 9 (b) and 10 at the paper's
 full GraphSAGE width (128 -> 256 -> 256 -> 172, fanouts 5/10/15), phases
 5-6 at its full GAT width (128 -> 4 heads x 256 -> 4 heads x 256 -> 172,
 one head at the last layer), phases 8 and 9 (c) at both, phase 13 at
-the reference dry run's (128 -> 256 -> 16, fanouts 5/10) and phase 14,
-LM serving, at the transformer configs' published widths:
+the reference dry run's (128 -> 256 -> 16, fanouts 5/10) and phases 14
+and 15, LM serving and training, at the transformer configs' published
+widths.  A CPU worker (``CpuWorker``, one child process with
+``CPU_WORKER_THREADS`` torch threads, started after the build) runs the
+CPU halves of phases 4 (c) and 6 (c), and all of phases 9 (c), 14 (a)'s
+float32 units and 15 (a), beside the card phases of this process; phase
+15 (b) and (c) run their CPU halves in processes beside phase 14 (b) and
+(c).  Each phase's seconds are printed as it ends and, before the
+``kernels`` line, as one JSON line ``{"phase_seconds": {...}, "build_s",
+"total_s", "host_cpus"}`` (the worker's jobs by their own seconds).
+
+Depth cut to keep the script within two thirds of its time limit (seconds
+on one H100 80GB HBM3 at 700 W, before -> after, in ``PERF.md`` §7), with
+every check kept: phase 12 (a) runs on a ``P12_VERTICES`` = 180,000-vertex
+graph (5 steps an epoch, not 11) with ``P12_HEC_SIZE`` = 131,072 HEC lines
+(not 262,144), its fresh-process resume beside runs (2)-(4); phase 6 (c)'s
+check HEC is 262,144 entries (not 524,288) and its CPU half and float64
+witness run in the CPU worker, as do phase 4 (c)'s CPU half, phase 9
+(c) and phase 14 (a)'s float32 units; phases 11 (b) and 12 (b) run right
+after phase 6, so that the GAT runs at a 1M-entry HEC are done before
+the worker's card runs begin.
 
   1. kernels vs plain versions: each kernel's wrapper against its plain
      PyTorch version on the same inputs — the serve layer at the three
@@ -71,7 +90,7 @@ LM serving, at the transformer configs' published widths:
      bounds; (c) the first two steps on
      the card and on the CPU, as phase 4 (c), at batch
      ``GAT_CHECK_BATCH`` = 256 (a CPU step at batch 1000 takes over 60
-     s) with a HEC of ``GAT_CHECK_HEC_SIZE`` = 524,288 entries (the
+     s) with a HEC of ``GAT_CHECK_HEC_SIZE`` = 262,144 entries (the
      CPU's copy), and every gradient tensor against a float64 witness of
      the first step, which alone holds layer 0's ``a_u`` and ``a_v``; the
      card's and the CPU's ReLU branches pinned to the exact ones in both
@@ -189,9 +208,10 @@ LM serving, at the transformer configs' published widths:
      and row 0 (which every pad reads) poisoned: NaN exactly where the
      plain versions have it, elsewhere within tolerance (C's dZ and E's
      counts bit for bit; H on a fanout whose every slot is included); (a)
-     GraphSAGE at phase 4's graph, widths and settings, ``P12_EPOCHS`` = 3
-     epochs a run, the HEC cut to ``P12_HEC_SIZE`` = 262,144 lines x 8
-     ways per layer and rank (a whole-state archive of 2.7 GB, not 10.2):
+     GraphSAGE at phase 4's widths and settings on a ``P12_VERTICES`` =
+     180,000-vertex graph (5 steps an epoch), ``P12_EPOCHS`` = 3 epochs a
+     run, the HEC cut to ``P12_HEC_SIZE`` = 131,072 lines x 8 ways per
+     layer and rank (a whole-state archive of 1.4 GB, not 10.2):
      unarmed (checkpointed after epoch 1), armed with ``nan_guard`` and no
      fault (the same SHA-256 of the checkpoint leaves, metrics and
      launches), the chaos schedule ``P12_CHAOS`` twice (the same bits,
@@ -269,7 +289,36 @@ LM serving, at the transformer configs' published widths:
      past the 4,096 window (the prefill's ring caches hold positions
      2,048-6,143, slot p % 4,096) and 16 decode steps, against the same
      tokens decoded through the cache from empty, both held to a float32
-     run as (b).
+     run as (b);
+ 15. LM training (plain torch, no kernel: the GNN kernels' counts stay
+     0): (a) minitron-4b (vocab 256,000) and mixtral-8x7b one unit deep
+     at published widths (``p14_unit``, phase 14 (a)'s weights: the same
+     ``torch.Generator`` seeds), float32, ``cfg.remat`` on as published,
+     2 x 32 tokens: one ``make_train_step`` step (the chunked loss, Adam
+     at lr ``P15_LR``) on the card against the CPU on the same weights
+     (both in the CPU worker, beside phases 14 (b) and (c)): loss and
+     gradient norm within 1e-4 * max(1, |x|), each gradient leaf within
+     1e-4 relative in norm, the parameters after Adam within 1e-4 *
+     max(1, |x|) of the CPU's Adam on the card's own gradients, and of
+     the CPU's whole step within that plus ``lr * |u(g_card) -
+     u(g_cpu)|`` (``u(g) = g / (|g| + eps)``, Adam's first update: an
+     entry whose gradient is float32 noise, |g| near eps, moves by up to
+     2 lr on either device; ``p15_adam_arith``, ``p15_step_check``);
+     the card's step without remat from the same weights bit for bit
+     with the remat step (else within 1e-6, printed); the
+     step's peak memory printed; (b) ``examples/torch_train_lm.py`` at
+     its defaults (200 steps, batch 8, seq 256) in a process of its own on
+     the card: exit 0, the loss falls, tokens/s beside the card's name;
+     its parameter count and step-0 line those of ``--steps 3 --device
+     cpu`` beside it (:func:`same_report`; at 3 steps the CPU's run ends
+     at the example's own "loss must decrease" assertion, as the
+     reference example's does there); (c) ``python -m
+     repro_torch.launch.train lm --arch minitron-4b`` and ``--arch
+     mixtral-8x7b`` at the reference's defaults, with ``--trace-out``
+     under ``build/phase15/``, on the card in this process (every GNN
+     kernel's count 0 before and after, the trace valid) and with
+     ``--device cpu`` in processes of their own: the step lines the same
+     under :func:`same_report`.
 
 The serve layer's ``ms`` in the ``kernels`` line is a launch-weighted mean
 over the serving path's launches: the three online layer shapes stand for
@@ -328,6 +377,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -417,7 +467,7 @@ GAT_HEC_SIZE = 1_000_000
 GAT_CHECK_BATCH = 256
 # and its HEC: the CPU's copy at the main path's 1M would take 35 GB of
 # host memory (phase 6 (a) holds B on the 1M caches of (b) instead)
-GAT_CHECK_HEC_SIZE = 524_288
+GAT_CHECK_HEC_SIZE = 262_144
 # phase 6 (c): the leaves (layer 0's a_u and a_v, whose sums cancel
 # heavily) where the CPU's float32 gradient sits 9e-5 to 1.2e-4 from a
 # float64 witness, too far to hold the card to; the card is held to the
@@ -427,6 +477,29 @@ GAT_CPU_NOISY_LEAVES = (0, 1)
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+PHASE_SECONDS = {}          # each phase's seconds, printed as one JSON line
+CHILDREN = []               # processes that run beside the phases
+
+
+def stop_children():
+    """Kills what of :data:`CHILDREN` still runs (a failed phase leaves no
+    process behind)."""
+    for p in CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Times the block as phase ``name``: prints its seconds and keeps them
+    for the ``phase_seconds`` line."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    print(f"{name}: done in {PHASE_SECONDS[name]:.1f}s")
 
 
 def check(cond: bool, msg: str):
@@ -1454,38 +1527,47 @@ class ExactReluBranches:
         self.cls.project = self.orig
 
 
-def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
-              noisy_leaves=(), exact_relu=False, hec_size=None):
-    """(c): the main path's first ``steps`` steps from the same state,
-    minibatches and uniforms, on the card and on the CPU (``batch``: a
-    smaller batch for the check, should the CPU be too slow at full
-    width).  Gradients are compared after the first step (Adam's first
-    moment), before Adam's per-entry normalization can move a float-noise
-    gradient entry by a full step of either sign on each device: each
-    parameter tensor within 1e-4 relative but the ``noisy_leaves``; when
-    there are any, every tensor of the card is also held within 1e-4
-    relative of a float64 witness on the CPU (:func:`float64_first_moment`),
-    beside which the CPU's float32 is printed.  The card's last step at the
-    main path's batch is traced (once more on the card alone when the
-    check ran at another batch)."""
-    from repro_torch import obs
+def check_setup(phase):
+    """The launcher argv of phase 4 (c) or 6 (c) and the config its check
+    runs at (GAT: batch ``GAT_CHECK_BATCH``, HEC ``GAT_CHECK_HEC_SIZE``),
+    with its ``noisy_leaves`` and whether ReLU branches are pinned."""
+    argv = TRAIN_ARGS + ["--vertices", str(TRAIN_VERTICES)]
+    if phase == "phase 4":
+        return argv, launcher_config(argv), (), False
+    argv = argv + ["--model", "gat", "--lr", "0.001", "--hec-size",
+                   str(GAT_HEC_SIZE)]
+    cfg = launcher_config(argv, batch_size=GAT_CHECK_BATCH)
+    cfg = dataclasses.replace(cfg, hec=dataclasses.replace(
+        cfg.hec, cache_size=GAT_CHECK_HEC_SIZE))
+    return argv, cfg, GAT_CPU_NOISY_LEAVES, True
+
+
+def first_steps(ps, cfg, steps=CHECK_STEPS):
+    """The host minibatches of an epoch-0 run's first ``steps`` steps."""
     from repro_torch.pipeline.prefetcher import SamplingPlan
-    from repro_torch.train.gnn_trainer import (DistTrainer, build_dist_data,
+    plan = SamplingPlan(ps, cfg, 0)
+    sched = plan.epoch_schedule(0)
+    return [plan.sample_host(0, i, sched[i]) for i in range(steps)]
+
+
+def check_run(torch, tr, ps, cfg, hosts, trace, exact_relu=False):
+    """(c)'s run of ``tr`` from the launcher's initial state over
+    ``hosts``: per step the metrics and seconds, Adam's first moment and
+    the pushed tags after step 0, the HEC tags after the last; the last
+    step traced with ``trace``; with ``exact_relu`` every GAT projection
+    on its exact ReLU branch (``flips``: how many float32 signs were
+    not)."""
+    from repro_torch import obs
+    from repro_torch.train.gnn_trainer import (build_dist_data,
                                                minibatch_to_device)
-    ps, R = res["ps"], res["trainer"].num_ranks
-
-    def first_steps(cfg):
-        plan = SamplingPlan(ps, cfg, 0)
-        sched = plan.epoch_schedule(0)
-        return [plan.sample_host(0, i, sched[i]) for i in range(steps)]
-
-    def run(tr, cfg, hosts, trace):
-        st = tr.init_state(seed=0)             # the launcher's --seed 0
-        data = build_dist_data(ps, cfg, tr.device)
-        out = {"logs": [], "secs": []}
+    pin = ExactReluBranches(torch) if exact_relu else None
+    st = tr.init_state(seed=0)             # the launcher's --seed 0
+    data = build_dist_data(ps, cfg, tr.device)
+    out = {"logs": [], "secs": []}
+    with pin if pin is not None else contextlib.nullcontext():
         for i, host in enumerate(hosts):
             mb = minibatch_to_device(host, tr.device)
-            traced = trace and i == steps - 1
+            traced = trace and i == len(hosts) - 1
             # the device's share of one step: the union of its intervals
             with (obs.DeviceTrace(tr.device) if traced
                   else contextlib.nullcontext()) as dt:
@@ -1498,17 +1580,61 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
                 out["mu"] = [m.cpu().clone() for m in st["opt"].mu]
                 out["pushed"] = [q["tags"][-1].cpu().clone()
                                  for q in st["inflight"]]
-        out["tags"] = [[s.tags.cpu() for s in layer] for layer in st["hec"]]
-        del st, data
+    out["tags"] = [[s.tags.cpu() for s in layer] for layer in st["hec"]]
+    out["flips"] = pin.flips if pin is not None else 0
+    del st, data
+    if tr.device.type == "cuda":
         torch.cuda.empty_cache()
-        return out
+    return out
 
-    cfg = res["cfg"] if batch is None else dataclasses.replace(
-        res["cfg"], batch_size=batch)
-    if hec_size is not None:
-        cfg = dataclasses.replace(cfg, hec=dataclasses.replace(
-            cfg.hec, cache_size=hec_size))
-    hosts = first_steps(cfg)
+
+def cpu_half(phase, path):
+    """(c)'s CPU half of ``phase`` (phase 4 or 6), in the CPU worker: the
+    launcher's graph, partition and config, the CPU's run over the same
+    first minibatches, and (GAT) the float64 witness of step 0; saved to
+    ``path``."""
+    import torch
+
+    from repro_torch.graph import partition_graph, synthetic_graph
+    from repro_torch.launch import train
+    from repro_torch.train.gnn_trainer import DistTrainer
+    argv, cfg, noisy, exact_relu = check_setup(phase)
+    args = train.parse_args(argv)
+    g = synthetic_graph(num_vertices=args.vertices, avg_degree=args.degree,
+                        num_classes=args.classes, feat_dim=args.feat_dim,
+                        seed=args.seed)
+    ps = partition_graph(g, args.ranks, seed=args.seed)
+    hosts = first_steps(ps, cfg)
+    out = check_run(torch, DistTrainer(cfg, args.ranks, device="cpu"), ps,
+                    cfg, hosts, trace=False, exact_relu=exact_relu)
+    if noisy:
+        t0 = time.perf_counter()
+        out["witness"] = float64_first_moment(torch, ps, cfg, args.ranks,
+                                              hosts[0])
+        out["witness_s"] = time.perf_counter() - t0
+    CpuWorker.save(torch, out, path)
+
+
+def cpu_check(torch, np, phase, res, worker):
+    """(c): the main path's first ``CHECK_STEPS`` steps from the same
+    state, minibatches and uniforms, on the card here and on the CPU in
+    the CPU worker (:class:`CpuWorker`; GAT at batch ``GAT_CHECK_BATCH``,
+    as a CPU step at the main path's batch is too slow).  Gradients are
+    compared after the first step (Adam's first moment), before Adam's
+    per-entry normalization can move a float-noise gradient entry by a
+    full step of either sign on each device: each parameter tensor within
+    1e-4 relative but the ``noisy_leaves``; when there are any, every
+    tensor of the card is also held within 1e-4 relative of a float64
+    witness on the CPU (:func:`float64_first_moment`), beside which the
+    CPU's float32 is printed.  The card's last step at the main path's
+    batch is traced (once more on the card alone when the check ran at
+    another batch).  Returns a function that waits for the CPU's half and
+    makes the comparison."""
+    from repro_torch.train.gnn_trainer import DistTrainer
+    ps, R = res["ps"], res["trainer"].num_ranks
+    _, cfg, noisy_leaves, exact_relu = check_setup(phase)
+    steps = CHECK_STEPS
+    hosts = first_steps(ps, cfg)
     # both trainers draw the reference's selection uniforms themselves:
     # the card's Threefry must give the CPU's bits
     card = DistTrainer(cfg, R, device="cuda")
@@ -1523,84 +1649,201 @@ def cpu_check(torch, np, phase, res, steps=CHECK_STEPS, batch=None,
     print(f"{phase} (c): push uniforms {shape} per rank, bit-equal on the "
           f"card and the CPU: device ms {u_ms:.4f}, per call {u_call:.4f} "
           f"(x {R} ranks per step)")
-    if exact_relu:
-        runs = {}
-        for dev, tr in (("card", card), ("cpu", cpu)):
-            with ExactReluBranches(torch) as pin:
-                runs[dev] = run(tr, cfg, hosts, trace=False)
-            print(f"{phase} (c): {dev}: {pin.flips} pre-activations took "
-                  f"the other ReLU branch in float32; pinned to the exact "
-                  f"branch for the comparison")
-    else:
-        runs = {"card": run(card, cfg, hosts, trace=batch is None),
-                "cpu": run(cpu, cfg, hosts, trace=False)}
-    traced_profile = runs["card"].get("profile")
+    at_main = cfg == res["cfg"]
+    c = check_run(torch, card, ps, cfg, hosts, trace=at_main and
+                  not exact_relu, exact_relu=exact_relu)
+    traced_profile = c.get("profile")
     if traced_profile is None:     # the check ran at another batch or pinned
-        traced_profile = run(DistTrainer(res["cfg"], R, device="cuda"),
-                             res["cfg"], first_steps(res["cfg"]),
-                             trace=True)["profile"]
-    c, p = runs["card"], runs["cpu"]
-    if batch is None:
+        traced_profile = check_run(
+            torch, DistTrainer(res["cfg"], R, device="cuda"), ps,
+            res["cfg"], first_steps(ps, res["cfg"]), trace=True)["profile"]
+    if at_main:
         check(c["logs"][0]["loss"] == res["trainer"].step_log[0]["loss"],
               f"{phase} (c): the card's first step is not the main path's")
-    for i in range(steps):
-        for key in ("loss", "grad_norm"):
-            a, b = c["logs"][i][key], p["logs"][i][key]
-            check(abs(a - b) <= 1e-4 * abs(b), f"{phase} (c): step {i} "
-                  f"{key}: card {a} vs CPU {b}")
-    fmt = lambda xs: [float(f"{x:.3e}") for x in xs]  # noqa: E731
-    rels = [rel_norm(a, b) for a, b in zip(c["mu"], p["mu"])]
-    print(f"{phase} (c): gradient (Adam mu) relative difference per "
-          f"parameter, leaf order: {fmt(rels)}; norms "
-          f"{fmt(float(m.norm()) for m in p['mu'])}")
-    held = max((r for i, r in enumerate(rels) if i not in noisy_leaves),
-               default=0.0)
-    witness = ""
-    if noisy_leaves:
-        t0 = time.perf_counter()
-        w = float64_first_moment(torch, ps, cfg, R, hosts[0])
-        secs = time.perf_counter() - t0
-        vs = {dev: [rel_norm(a.double(), b) for a, b in zip(runs[dev]["mu"],
-                                                            w)]
-              for dev in ("card", "cpu")}
-        witness = (f"against the float64 witness ({secs:.1f} s on the "
-                   f"CPU), per parameter: card {fmt(vs['card'])}; CPU "
-                   f"float32 {fmt(vs['cpu'])}")
-        print(f"{phase} (c): {witness}")
-        worst = max(vs["card"])
-        check(worst <= 1e-4, f"{phase} (c): the card's gradient (Adam mu) "
-              f"is {worst:.3e} relative from the float64 witness")
-    check(held <= 1e-4, f"{phase} (c): gradient (Adam mu) differs by "
-          f"{held:.3e} relative" + (f"; {witness}" if witness else ""))
-    check(all(torch.equal(a, b) for a, b in zip(c["pushed"], p["pushed"])),
-          f"{phase} (c): the pushed tags differ")
-    check(all(torch.equal(a, b) for la, lb in zip(c["tags"], p["tags"])
-              for a, b in zip(la, lb)), f"{phase} (c): the HEC tags differ")
-    filled = sum(int((t >= 0).sum()) for layer in c["tags"] for t in layer)
-    check(steps < 2 or filled > 0, f"{phase} (c): no HEC line was filled")
-    print(f"{phase} (c): {steps} steps at batch {cfg.batch_size}, card vs "
-          f"CPU: losses {[m['loss'] for m in c['logs']]} vs "
-          f"{[m['loss'] for m in p['logs']]}; gradient rel. diff "
-          f"{held:.2e}" + (f" but for leaves {list(noisy_leaves)}"
-                           if noisy_leaves else "") + "; pushed "
-          f"tags and {filled} HEC tags equal; CPU s/step "
-          f"{[round(s, 1) for s in p['secs']]}")
-    dp = traced_profile
     h = res["history"][0]
     steps_b = len(res["trainer"].step_log)
-    busy_ms = dp["busy_us"] / 1e3
-    print(f"{phase} (c): traced card step {steps - 1} at batch "
-          f"{res['cfg'].batch_size}: {dp['wall_us'] / 1e3:.1f} "
-          f"ms wall, device busy {busy_ms:.2f} ms "
-          f"({100 * dp['busy_share']:.1f}%, the union over "
-          f"{len(dp['streams'])} streams); against the main path's "
-          f"{1e3 * h['t_wall'] / steps_b:.1f} ms of epoch wall per step, a "
-          f"busy share of {100 * busy_ms * steps_b / (1e3 * h['t_wall']):.1f}"
-          f"% (indicative)")
-    for row in dp["top"]:
-        print(f"{phase} (c):   {row['device_us'] / 1e3:8.3f} ms  "
-              f"{row['calls']:5d}x  {row['name'][:90]}")
-    return dp
+    main_cfg = res["cfg"]
+
+    def compare():
+        p = worker.result(phase)
+        if exact_relu:
+            for dev, run in (("card", c), ("cpu", p)):
+                print(f"{phase} (c): {dev}: {run['flips']} pre-activations "
+                      f"took the other ReLU branch in float32; pinned to "
+                      f"the exact branch for the comparison")
+        for i in range(steps):
+            for key in ("loss", "grad_norm"):
+                a, b = c["logs"][i][key], p["logs"][i][key]
+                check(abs(a - b) <= 1e-4 * abs(b), f"{phase} (c): step {i} "
+                      f"{key}: card {a} vs CPU {b}")
+        fmt = lambda xs: [float(f"{x:.3e}") for x in xs]  # noqa: E731
+        rels = [rel_norm(a, b) for a, b in zip(c["mu"], p["mu"])]
+        print(f"{phase} (c): gradient (Adam mu) relative difference per "
+              f"parameter, leaf order: {fmt(rels)}; norms "
+              f"{fmt(float(m.norm()) for m in p['mu'])}")
+        held = max((r for i, r in enumerate(rels) if i not in noisy_leaves),
+                   default=0.0)
+        witness = ""
+        if noisy_leaves:
+            w = p["witness"]
+            vs = {dev: [rel_norm(a.double(), b) for a, b in zip(run["mu"], w)]
+                  for dev, run in (("card", c), ("cpu", p))}
+            witness = (f"against the float64 witness ({p['witness_s']:.1f} "
+                       f"s on the CPU), per parameter: card "
+                       f"{fmt(vs['card'])}; CPU float32 {fmt(vs['cpu'])}")
+            print(f"{phase} (c): {witness}")
+            worst = max(vs["card"])
+            check(worst <= 1e-4, f"{phase} (c): the card's gradient (Adam "
+                  f"mu) is {worst:.3e} relative from the float64 witness")
+        check(held <= 1e-4, f"{phase} (c): gradient (Adam mu) differs by "
+              f"{held:.3e} relative" + (f"; {witness}" if witness else ""))
+        check(all(torch.equal(a, b) for a, b in zip(c["pushed"],
+                                                    p["pushed"])),
+              f"{phase} (c): the pushed tags differ")
+        check(all(torch.equal(a, b) for la, lb in zip(c["tags"], p["tags"])
+                  for a, b in zip(la, lb)), f"{phase} (c): the HEC tags "
+              f"differ")
+        filled = sum(int((t >= 0).sum()) for layer in c["tags"]
+                     for t in layer)
+        check(steps < 2 or filled > 0, f"{phase} (c): no HEC line was "
+              f"filled")
+        print(f"{phase} (c): {steps} steps at batch {cfg.batch_size}, card "
+              f"vs CPU: losses {[m['loss'] for m in c['logs']]} vs "
+              f"{[m['loss'] for m in p['logs']]}; gradient rel. diff "
+              f"{held:.2e}" + (f" but for leaves {list(noisy_leaves)}"
+                               if noisy_leaves else "") + "; pushed "
+              f"tags and {filled} HEC tags equal; CPU s/step (in the CPU "
+              f"worker) {[round(s, 1) for s in p['secs']]}")
+        dp = traced_profile
+        busy_ms = dp["busy_us"] / 1e3
+        print(f"{phase} (c): traced card step {steps - 1} at batch "
+              f"{main_cfg.batch_size}: {dp['wall_us'] / 1e3:.1f} "
+              f"ms wall, device busy {busy_ms:.2f} ms "
+              f"({100 * dp['busy_share']:.1f}%, the union over "
+              f"{len(dp['streams'])} streams); against the main path's "
+              f"{1e3 * h['t_wall'] / steps_b:.1f} ms of epoch wall per "
+              f"step, a busy share of "
+              f"{100 * busy_ms * steps_b / (1e3 * h['t_wall']):.1f}"
+              f"% (indicative)")
+        for row in dp["top"]:
+            print(f"{phase} (c):   {row['device_us'] / 1e3:8.3f} ms  "
+                  f"{row['calls']:5d}x  {row['name'][:90]}")
+        return dp
+    return compare
+
+
+CPU_WORKER_DIR = os.path.join(ROOT, "build", "cpu_worker")
+CPU_WORKER_THREADS = 4      # torch threads of the CPU worker (of the host's)
+CPU_WORKER_JOBS = ("phase 4", "phase 6", "phase 9 (c)", "phase 14 (a)",
+                   "phase 15 (a)")
+
+
+class CpuWorker:
+    """One child process beside the card phases, started after the build:
+    the CPU halves of phases 4 (c) and 6 (c) (each saved under
+    ``CPU_WORKER_DIR`` for this process to compare with its card half),
+    then all of phase 9 (c) (its CPU runs and the card runs that start from
+    their states; its lines are printed here by :meth:`finish`), in that
+    order, then phase 14 (a)'s float32 units and phase 15 (a) (both
+    halves, their lines printed by :meth:`finish`), with
+    ``CPU_WORKER_THREADS`` torch threads.  Phase 9 (c) waits for
+    :meth:`go` (its card runs take ~10 GB, which phase 11 (b)'s and 12
+    (b)'s GAT at a 1M-entry HEC, ~68 GB, leave no room for), phase 15 (a)
+    for ``go("15")`` (~34 GB, past phase 13's 47 GB)."""
+
+    def __init__(self):
+        import shutil
+        shutil.rmtree(CPU_WORKER_DIR, ignore_errors=True)
+        os.makedirs(CPU_WORKER_DIR)
+        self.log = os.path.join(CPU_WORKER_DIR, "worker.log")
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke; "
+                 "chip_smoke.cpu_worker_main()"], cwd=ROOT, stdout=f,
+                stderr=subprocess.STDOUT)
+        CHILDREN.append(self.proc)
+        return self
+
+    @staticmethod
+    def path(job):
+        return os.path.join(CPU_WORKER_DIR, job.replace(" ", "_")
+                            .replace("(", "").replace(")", "") + ".pt")
+
+    @staticmethod
+    def save(torch, obj, path):
+        torch.save(obj, path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+    def go(self, gate="9"):
+        """Lets the worker start phase 9 (c) (gate "9") or 15 (a) ("15")."""
+        with open(os.path.join(CPU_WORKER_DIR, f"go{gate}"), "w"):
+            pass
+
+    def _tail(self):
+        with open(self.log) as f:
+            return f.read()[-3000:]
+
+    def result(self, job):
+        """Waits for ``job``'s file (failing if the worker died first)."""
+        import torch
+        path = self.path(job)
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            check(self.proc.poll() is None, f"the CPU worker exited "
+                  f"{self.proc.returncode} before {job}:\n{self._tail()}")
+            time.sleep(0.2)
+        waited = time.perf_counter() - t0
+        if waited > 1:
+            print(f"{job}: waited {waited:.1f} s for the CPU worker")
+        return torch.load(path, weights_only=False)
+
+    def finish(self):
+        """Waits for the worker, prints phase 9 (c)'s lines from its log
+        and its seconds."""
+        rc = self.proc.wait()
+        check(rc == 0, f"the CPU worker exited {rc}:\n{self._tail()}")
+        with open(self.log) as f:
+            for line in f:
+                if line.startswith(("phase 9 (c)", "phase 14 (a)",
+                                    "phase 15 (a)")):
+                    print(line.rstrip())
+                elif line.startswith("cpu worker: "):
+                    job, secs = line[12:].rsplit(" in ", 1)
+                    PHASE_SECONDS[f"{job} (CPU worker)"] = float(
+                        secs.split()[0])
+                    print(line.rstrip())
+        return time.perf_counter() - self.t0
+
+
+def cpu_worker_main():
+    """The CPU worker's process (see :class:`CpuWorker`)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gates = {"phase 9 (c)": "go9", "phase 15 (a)": "go15"}
+    for job in CPU_WORKER_JOBS:
+        while job in gates and not os.path.exists(
+                os.path.join(CPU_WORKER_DIR, gates[job])):
+            time.sleep(0.2)
+        t0 = time.perf_counter()
+        if job == "phase 9 (c)":
+            _build.build(KERNELS)
+            phase9_check(torch, np)
+        elif job == "phase 14 (a)":
+            with torch.no_grad():
+                phase14_units(torch, np)
+        elif job == "phase 15 (a)":
+            phase15_units(torch, np)
+        else:
+            cpu_half(job, CpuWorker.path(job))
+        print(f"cpu worker: {job} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3662,9 +3905,12 @@ def phase11_kernels(torch, np):
 # ---------------------------------------------------------------------------
 P12_DIR = os.path.join(ROOT, "build", "phase12")
 P12_EPOCHS = 3              # (a): epochs of each run
-# (a)'s one cut: 262,144 HEC lines (x 8 ways) per layer and rank, not 1M,
-# so an archive of the whole state holds 2.7 GB, not 10.2 GB
-P12_HEC_SIZE = 262_144
+# (a)'s cuts: a graph of 180,000 vertices at phase 4's degree, widths and
+# batch (5 steps an epoch, not 11: the latest fault of P12_CHAOS is at
+# epoch 1, step 3) and 131,072 HEC lines (x 8 ways) per layer and rank,
+# not 1M, so an archive of the whole state holds 1.4 GB, not 10.2 GB
+P12_VERTICES = 180_000
+P12_HEC_SIZE = 131_072
 P12_CHAOS = [{"kind": "nan_step", "epoch": 1, "step": 0, "rank": 1},
              {"kind": "corrupt_push", "epoch": 1, "step": 3, "rank": 1},
              {"kind": "drop_push", "epoch": 2, "step": 1, "rank": 0},
@@ -3901,17 +4147,19 @@ def sha256_leaves(torch, state) -> str:
 
 
 def phase12_setup(model="graphsage"):
-    """Phase 4's (6's) graph, partition, launcher config (HEC cut to
-    ``P12_HEC_SIZE`` for GraphSAGE) and data on the card."""
+    """Phase 6's graph, partition, launcher config and data on the card
+    for GAT; for GraphSAGE phase 4's settings on a ``P12_VERTICES`` graph
+    with the HEC cut to ``P12_HEC_SIZE``."""
     from repro_torch.graph import partition_graph, synthetic_graph
     from repro_torch.launch import train
     from repro_torch.train.gnn_trainer import build_dist_data
-    argv = TRAIN_ARGS + ["--vertices", str(TRAIN_VERTICES)]
     if model == "gat":
-        argv += ["--model", "gat", "--lr", "0.001", "--hec-size",
-                 str(GAT_HEC_SIZE)]
+        argv = TRAIN_ARGS + ["--vertices", str(TRAIN_VERTICES), "--model",
+                             "gat", "--lr", "0.001", "--hec-size",
+                             str(GAT_HEC_SIZE)]
     else:
-        argv += ["--hec-size", str(P12_HEC_SIZE)]
+        argv = TRAIN_ARGS + ["--vertices", str(P12_VERTICES), "--hec-size",
+                             str(P12_HEC_SIZE)]
     args = train.parse_args(argv)
     cfg = train.gnn_config(args)
     g = synthetic_graph(num_vertices=args.vertices, avg_degree=args.degree,
@@ -3952,16 +4200,18 @@ def phase12_resume(ckpt_dir: str, epoch: int) -> None:
 
 
 def phase12_train(torch, np, card):
-    """(a): GraphSAGE at phase 4's graph, widths and settings (HEC cut to
-    ``P12_HEC_SIZE`` lines per layer and rank), ``P12_EPOCHS`` epochs per
-    run, compared by the SHA-256 of the checkpoint leaves: (1) unarmed
+    """(a): GraphSAGE at phase 4's widths and settings on a
+    ``P12_VERTICES`` graph (HEC cut to ``P12_HEC_SIZE`` lines per layer
+    and rank), ``P12_EPOCHS`` epochs per run, compared by the SHA-256 of
+    the checkpoint leaves: (1) unarmed
     (with a checkpoint after epoch 1: a plane that only checkpoints does
     not arm the step), (2) armed with ``nan_guard`` and no fault: (1)'s
     bits and launches, (3) the chaos schedule ``P12_CHAOS`` twice: equal,
     every fault fired, steps skipped, parameters finite, not (1)'s bits,
     ``FLIGHT_resilience.json`` written, (4) ``kill_prefetch`` at (0, 1),
     one epoch: one retry and (1)'s bits after epoch 0, (5) a fresh
-    process restores (1)'s checkpoint and trains epoch 2: (1)'s bits.
+    process, started when (1) ends and run beside (2)-(4), restores (1)'s
+    checkpoint and trains epoch 2: (1)'s bits.
     Returns run (2)'s launches."""
     import shutil
 
@@ -4027,6 +4277,13 @@ def phase12_train(torch, np, card):
     check(sorted(os.listdir(ck_dir)) == ["LATEST", "ckpt_ep00001.npz"],
           f"{phase}: checkpoints {sorted(os.listdir(ck_dir))}")
     nbytes = os.path.getsize(archive)
+    # (5) beside (2)-(4): a fresh process restores (1)'s checkpoint
+    resume = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.phase12_resume(sys.argv[1], int(sys.argv[2]))",
+         ck_dir, "2"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(resume)
     armed = run("armed", resilience.ResiliencePlane(
         resilience.ResilienceConfig(nan_guard=True)))
     check(armed["shas"][-1] == base["shas"][-1],
@@ -4067,15 +4324,15 @@ def phase12_train(torch, np, card):
     check(retries == 1 and kill["shas"][0] == base["shas"][0],
           f"{phase}: kill_prefetch: {retries} retries, bits "
           f"{'equal' if kill['shas'][0] == base['shas'][0] else 'differ'}")
-    torch.cuda.empty_cache()
-    proc = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "chip_smoke.phase12_resume(sys.argv[1], int(sys.argv[2]))",
-         ck_dir, "2"], cwd=ROOT, capture_output=True, text=True,
-        timeout=600)
-    check(proc.returncode == 0, f"{phase}: the resuming process failed:\n"
-          f"{proc.stderr[-3000:]}")
-    child = json.loads([x for x in proc.stdout.splitlines()
+    try:
+        out, err = resume.communicate(timeout=600)
+    finally:
+        if resume.poll() is None:
+            resume.kill()
+            resume.wait()
+    check(resume.returncode == 0, f"{phase}: the resuming process "
+          f"failed:\n{err[-3000:]}")
+    child = json.loads([x for x in out.splitlines()
                         if x.startswith("RESULT")][-1][len("RESULT"):])
     check(child["saved"] == 1 and child["sha"] == base["shas"][-1]
           and child["adam"] == base["adam"]
@@ -4083,7 +4340,8 @@ def phase12_train(torch, np, card):
           f"{phase}: the fresh process's run parts from the uninterrupted "
           f"one: {child}")
     shutil.rmtree(ck_dir, ignore_errors=True)
-    print(f"{phase}: GraphSAGE, 4 ranks, phase 4's graph and settings, HEC "
+    print(f"{phase}: GraphSAGE, 4 ranks, phase 4's settings on "
+          f"{P12_VERTICES:,} vertices (phase 4: {TRAIN_VERTICES:,}), HEC "
           f"cut to {P12_HEC_SIZE:,} lines x 8 ways per layer and rank "
           f"(phase 4: 1M), {P12_EPOCHS} epochs of "
           f"{base['steps'] // P12_EPOCHS} steps per run")
@@ -4100,9 +4358,9 @@ def phase12_train(torch, np, card):
           f"FLIGHT_resilience.json written; step {c0['step_ms']:.1f} ms")
     print(f"{phase}: (4) kill_prefetch at (0, 1): {retries:.0f} retry, "
           f"epoch 0's bits; (5) archive {nbytes:,} bytes, saved in "
-          f"{base['save_s'][0]:.2f} s, restored in a fresh process in "
-          f"{child['restore_s']:.2f} s, epoch 2 trained there: the "
-          f"uninterrupted run's SHA-256 [{card}]")
+          f"{base['save_s'][0]:.2f} s, restored in a fresh process (beside "
+          f"(2)-(4)) in {child['restore_s']:.2f} s, epoch 2 trained there: "
+          f"the uninterrupted run's SHA-256 [{card}]")
     return armed["launches"]
 
 
@@ -4880,7 +5138,10 @@ class P14Replay:
                 M.decode_step(params, cfg, cache, self.tok, self.pos)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph), torch.no_grad():
+        # thread-local: the host thread of phase 14 (a) and 15 (a) may run
+        # CPU work while this thread captures
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"
+                              ), torch.no_grad():
             self.logits, _ = M.decode_step(params, cfg, cache, self.tok,
                                            self.pos)
 
@@ -5117,19 +5378,283 @@ def phase14_swa(torch, np, card):
     torch.cuda.empty_cache()
 
 
-def phase14(torch, np, card):
-    with torch.no_grad():
+# ---------------------------------------------------------------------------
+# phase 15: LM training
+# ---------------------------------------------------------------------------
+P15_ARCHS = ("minitron-4b", "mixtral-8x7b")   # (a): phase 14 (a)'s weights
+P15_LR = 3e-4                       # the reference launcher's
+P15_DIR = os.path.join(ROOT, "build", "phase15")
+P15_LAUNCH = ("minitron-4b", "mixtral-8x7b")  # (c), at the defaults
+P15_EXAMPLE_CPU_STEPS = 3           # (b): the example on the CPU
+P15_EXAMPLE_STOP = "AssertionError: loss must decrease"
+
+
+def p15_step(torch, cfg, params, batch):
+    """One train step of ``make_train_step`` (Adam at ``P15_LR``) in place
+    on ``params``: (loss, grad_norm, the gradient leaves Adam was given)."""
+    from repro_torch.models.transformer import model as M
+    from repro_torch.train import lm_trainer as L
+    from repro_torch.train import optimizer as O
+    seen = {}
+    real = O.adam_update
+
+    def spy(grads, state, leaves, opt_cfg):
+        seen["grads"] = list(grads)       # Adam reads them, never writes
+        return real(grads, state, leaves, opt_cfg)
+    O.adam_update = spy
+    try:
+        opt = O.adam_init(M.tree_leaves(params))
+        _, _, m = L.make_train_step(cfg, O.AdamConfig(lr=P15_LR))(
+            params, opt, batch)
+    finally:
+        O.adam_update = real
+    return float(m["loss"]), float(m["grad_norm"]), seen["grads"]
+
+
+def p15_errs(torch, got, want):
+    """(max |got - want| / max(1, |want|) elementwise, |got - want| /
+    |want| in norm) of two float32 tensors on the host."""
+    d = (got - want).abs_()
+    elem = float((d / want.abs().clamp_min(1.0)).max()) if d.numel() else 0.0
+    norm = float(d.norm() / want.norm().clamp_min(1e-30))
+    return elem, norm
+
+
+def p15_adam_arith(torch, init, card_grads, card_params):
+    """The CPU's ``adam_update`` from the initial weights ``init`` on the
+    card's own gradients, leaf by leaf (no clip: each leaf's step is its
+    own), against the card's parameters after its step: max ``|card -
+    cpu| / max(1, |cpu|)``."""
+    from repro_torch.train import optimizer as O
+    cfg = O.AdamConfig(lr=P15_LR)
+    err = 0.0
+    for p0, g, pc in zip(init, card_grads, card_params):
+        q = p0.clone()
+        O.adam_update([g], O.adam_init([q]), [q], cfg)
+        err = max(err, p15_errs(torch, pc, q)[0])
+    return err
+
+
+def p15_step_check(torch, card_grads, card_params, cpu_grads, cpu_params):
+    """The card's whole step against the CPU's: max ``|card - cpu| /
+    max(1, |cpu|)`` of the parameters, and how far ``|card - cpu|`` passes
+    ``TOL * max(1, |cpu|) + lr * |u(g_card) - u(g_cpu)|``, ``u(g) = g /
+    (|g| + eps)`` being Adam's first update: a gradient entry at float32
+    noise (|g| near eps) moves its parameter by up to 2 lr on either
+    device, and its two devices' gradients say by how much."""
+    from repro_torch.train import optimizer as O
+    cfg = O.AdamConfig(lr=P15_LR)
+    p_err, excess = 0.0, float("-inf")
+    for gc, pc, gp, pp in zip(card_grads, card_params, cpu_grads,
+                              cpu_params):
+        d = (pc - pp).abs_()
+        p_err = max(p_err, float((d / pp.abs().clamp_min(1.0)).max()))
+        u = (gc / (gc.abs() + cfg.eps) - gp / (gp.abs() + cfg.eps)).abs_()
+        allow = pp.abs().clamp_min(1.0).mul_(TOL).add_(u.mul_(cfg.lr))
+        excess = max(excess, float((d - allow).max()))
+    return p_err, excess
+
+
+def phase15_units(torch, np):
+    """(a), in the CPU worker: minitron-4b and mixtral-8x7b one unit deep
+    at published widths (``p14_unit``, phase 14 (a)'s weights: the same
+    ``torch.Generator`` seeds), float32, ``cfg.remat`` on as published,
+    2 x 32 tokens: one train step with remat on the card; from the same
+    weights the step without remat on the card (bit for bit with the
+    remat step, or within 1e-6, printed) and the step on the CPU (loss
+    and gradient norm within 1e-4 * max(1, |x|), each gradient leaf
+    within 1e-4 relative in norm); the card's parameters after Adam
+    within 1e-4 * max(1, |x|) of the CPU's Adam on the card's own
+    gradients (:func:`p15_adam_arith`), and of the CPU's step as
+    :func:`p15_step_check` holds them; the remat step's peak memory."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import model as M
+    for arch in P15_ARCHS:
         t0 = time.perf_counter()
-        phase14_units(torch, np)
-        phase14_bf16_units(torch, np)
-        phase14_wide(torch, np)
-        print(f"phase 14 (a): done in {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        phase14_main(torch, np, card)
-        print(f"phase 14 (b): done in {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        phase14_swa(torch, np, card)
-        print(f"phase 14 (c): done in {time.perf_counter() - t0:.1f}s")
+        cfg = p14_unit(get_arch(arch))
+        check(cfg.remat, f"phase 15 (a) {arch}: the published config has "
+              f"no remat")
+        seed = 140 + P14_UNIT_ARCHS.index(arch)
+        params = p14_params(torch, M, cfg, seed, torch.float32)
+        host = M.tree_map(lambda a: a.to("cpu", copy=True), params)
+        batch = p14_inputs(torch, np, cfg, P14_BATCH, P14_PROMPT, "cuda")
+        batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        s0 = time.perf_counter()
+        loss, gnorm, grads = p15_step(torch, cfg, params, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - s0
+        peak = torch.cuda.max_memory_allocated()
+        n = len(grads)
+        # the card's gradients and new parameters go to the host
+        card = [g.to("cpu") for g in grads] + [
+            a.to("cpu") for a in M.tree_leaves(params)]
+        del params, grads
+        torch.cuda.empty_cache()
+        # the card's step without remat from the same weights
+        plain = M.tree_map(lambda a: a.to("cuda", copy=True), host)
+        p_loss, p_gnorm, p_grads = p15_step(
+            torch, dc.replace(cfg, remat=False), plain, batch)
+        pairs = list(zip(card, p_grads + M.tree_leaves(plain)))
+        same = (loss == p_loss and gnorm == p_gnorm
+                and all(torch.equal(a.to("cuda"), b) for a, b in pairs))
+        gap = 0.0 if same else max(p15_errs(torch, b.cpu(), a)[0]
+                                   for a, b in pairs)
+        del plain, p_grads, pairs
+        torch.cuda.empty_cache()
+        check(same or (abs(loss - p_loss) <= 1e-6 * max(1, abs(p_loss))
+                       and gap <= 1e-6),
+              f"phase 15 (a) {arch}: remat on and off part by {gap:.3e}")
+        a_err = p15_adam_arith(torch, M.tree_leaves(host), card[:n],
+                               card[n:])
+        # the CPU's step from the same weights (in place on the host copy)
+        c0 = time.perf_counter()
+        c_loss, c_gnorm, c_grads = p15_step(
+            torch, cfg, host, {k: v.cpu() for k, v in batch.items()})
+        cpu_s = time.perf_counter() - c0
+        for what, a, b in (("loss", loss, c_loss),
+                           ("grad norm", gnorm, c_gnorm)):
+            check(abs(a - b) <= TOL * max(1.0, abs(b)),
+                  f"phase 15 (a) {arch}: {what} card {a} vs CPU {b}")
+        g_err = max(p15_errs(torch, a, b)[1] for a, b in
+                    zip(card[:n], c_grads))
+        check(g_err <= TOL, f"phase 15 (a) {arch}: a gradient leaf is "
+              f"{g_err:.3e} relative from the CPU's")
+        p_err, excess = p15_step_check(torch, card[:n], card[n:], c_grads,
+                                       M.tree_leaves(host))
+        check(a_err <= TOL and excess <= 0.0, f"phase 15 (a) {arch}: the "
+              f"parameters after Adam are {a_err:.3e} from the CPU's Adam "
+              f"on the card's gradients and {p_err:.3e} from the CPU's "
+              f"step ({excess:.3e} past 1e-4 * max(1, |x|) and the "
+              f"gradients' own difference through Adam's normalisation)")
+        print(f"phase 15 (a) {arch}: one unit ({cfg.num_layers} layer(s), d "
+              f"{cfg.d_model}, vocab {cfg.vocab_size:,}), "
+              f"{sum(a.numel() for a in card[n:]) / 1e9:.2f}B params, "
+              f"float32, remat on, batch {P14_BATCH} x {P14_PROMPT}: card "
+              f"vs CPU: loss {loss:.6f} vs {c_loss:.6f}, grad norm "
+              f"{gnorm:.6f} vs {c_gnorm:.6f}; {n} gradient leaves within "
+              f"{g_err:.2e} relative in norm; the parameters after Adam (lr "
+              f"{P15_LR}) within {a_err:.2e} of the CPU's Adam on the "
+              f"card's gradients and {p_err:.2e} of the CPU's step (held to "
+              f"{TOL:.0e} * max(1, |x|) plus the gradients' own difference "
+              f"through Adam's normalisation); the card's step without "
+              f"remat " + ("bit for bit" if same else f"within {gap:.2e}")
+              + f"; card step {step_s:.2f} s (host clock, the first), peak "
+              f"{(peak - base) / 2 ** 30:.2f} GiB above the weights' "
+              f"{base / 2 ** 30:.2f} GiB; CPU step {cpu_s:.1f} s "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        del card, host, c_grads
+
+
+def p15_popen(args, device):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen([sys.executable] + args + ["--device", device],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+def phase15_start_cpu_runs():
+    """(b) and (c)'s CPU runs, each a process of its own, started before
+    the card's: the example at ``--steps 3`` and the launcher at the
+    reference's defaults, both ``--device cpu``."""
+    procs = {"example": p15_popen(
+        [os.path.join(ROOT, "examples", "torch_train_lm.py"), "--steps",
+         str(P15_EXAMPLE_CPU_STEPS)], "cpu")}
+    for arch in P15_LAUNCH:
+        procs[arch] = p15_popen(["-m", "repro_torch.launch.train", "lm",
+                                 "--arch", arch], "cpu")
+    return procs
+
+
+def p15_wait(procs, timeout=600):
+    try:
+        return {k: p.communicate(timeout=timeout)[0] for k, p in
+                procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase15_entry(torch, card, cpu_procs):
+    """(b) ``examples/torch_train_lm.py`` at its defaults (200 steps, batch
+    8, seq 256) in a process of its own on the card: exit 0, the loss
+    falls, tokens/s beside the card's name; its lines at steps 0 (and the
+    parameter count) those of the CPU's 3-step run under
+    :func:`same_report`.  (c) ``launch/train.py lm --arch <a>`` at the
+    reference's defaults on the card in this process, with ``--trace-out``
+    under ``build/phase15/``, every GNN kernel's count 0 before and after,
+    the trace valid, and its lines those of the CPU's run."""
+    from repro_torch import obs
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import model as M
+    os.makedirs(P15_DIR, exist_ok=True)
+    card_ex = p15_popen([os.path.join(ROOT, "examples",
+                                      "torch_train_lm.py")], "cuda")
+    lines = {}
+    for arch in P15_LAUNCH:
+        trace = os.path.join(P15_DIR, f"lm_{arch}.json")
+        zero_launches()
+        check(not any(read_launches().values()), "phase 15 (c): counts")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = train.run_lm(train.parse_args(
+                ["lm", "--arch", arch, "--trace-out", trace]))
+        launched = {k: v for k, v in read_launches().items() if v}
+        check(not launched, f"phase 15 (c) {arch}: GNN kernels launched "
+              f"{launched}")
+        with open(trace) as f:
+            spans = obs.validate_chrome_trace(json.load(f))
+        lines[arch] = buf.getvalue().splitlines()
+        busy = [ln for ln in lines[arch] if ln.startswith("device:")]
+        print(f"phase 15 (c) {arch}: {len(lines[arch])} lines, last "
+              f"{[ln for ln in lines[arch] if 'steps in' in ln]}, trace "
+              f"valid ({spans} spans); {busy[:1]} [{card}]")
+        check(all(bool(torch.isfinite(p).all()) for p in
+                  M.tree_leaves(res["params"])),
+              f"phase 15 (c) {arch}: parameters not finite")
+    procs = {**cpu_procs, "card_example": card_ex}
+    outs = p15_wait(procs)
+    for key, p in procs.items():
+        # at 3 steps the loss has not fallen yet: the CPU's example ends at
+        # its own assertion, as the reference's example does there
+        check(p.returncode == 0 or (key == "example" and outs[key].rstrip()
+                                    .endswith(P15_EXAMPLE_STOP)),
+              f"phase 15: {key} exited {p.returncode}:\n"
+              f"{outs[key][-2000:]}")
+    for arch in P15_LAUNCH:
+        got = [ln for ln in lines[arch] if ln.startswith("step ")]
+        want = [ln for ln in outs[arch].splitlines()
+                if ln.startswith("step ")]
+        check(len(got) == len(want) > 0 and all(
+            same_report(a, b) for a, b in zip(got, want)),
+            f"phase 15 (c) {arch}: the card printed\n" + "\n".join(got)
+            + "\nand the CPU\n" + "\n".join(want))
+    cut = lambda ln: ln.split(" (")[0]  # noqa: E731
+    ex = outs["card_example"].splitlines()
+    ex_cpu = outs["example"].splitlines()
+    check(any(ln.startswith("loss ") for ln in ex) and "tok/s on " + (
+        torch.cuda.get_device_name(0)) in "\n".join(ex),
+        f"phase 15 (b): the example printed\n" + "\n".join(ex[-5:]))
+    check(all(same_report(cut(a), cut(b)) for a, b in zip(ex[:2],
+                                                          ex_cpu[:2])),
+          f"phase 15 (b): the card's first lines\n" + "\n".join(ex[:2])
+          + "\nare not the CPU's\n" + "\n".join(ex_cpu[:2]))
+    for ln in ex[:2] + ex[-2:]:
+        print(f"phase 15 (b) torch_train_lm: {ln}")
+    print(f"phase 15 (b): the card's parameter count and step-0 line are "
+          f"the CPU's ({P15_EXAMPLE_CPU_STEPS}-step run, exit "
+          f"{procs['example'].returncode}: {ex_cpu[-1]!r}); "
+          f"(c): the launcher's step lines on the card are the CPU's "
+          f"(integers equal, each decimal within 2% or two units of its "
+          f"last digit) [{card}]")
 
 
 def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
@@ -5158,10 +5683,13 @@ def summarize(name, rows, launches, weights, ms_over, max_abs_err=0.0):
 
 
 def main(argv=None) -> int:
+    start = time.perf_counter()
     ap = argparse.ArgumentParser()
     ap.add_argument("--vertices", type=int, default=100_000)
     ap.add_argument("--queries", type=int, default=1024)
     args = ap.parse_args(argv)
+
+    import atexit
 
     import numpy as np
     import torch
@@ -5169,6 +5697,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 2
+    atexit.register(stop_children)
     from repro_torch.kernels import _build
     from repro_torch.launch.gnn_serve import model_config
     from repro_torch.models.gnn.graphsage import GraphSAGE
@@ -5189,7 +5718,10 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
-    print(f"build: {len(KERNELS)} sources in {time.perf_counter() - t0:.1f}s")
+    build_s = round(time.perf_counter() - t0, 1)
+    print(f"build: {len(KERNELS)} sources in {build_s:.1f}s")
+    # the CPU halves of 4 (c) and 6 (c), and 9 (c), beside the card phases
+    worker = CpuWorker().start()
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -5205,74 +5737,65 @@ def main(argv=None) -> int:
         setup = {"device": device, "cfg": cfg, "part": part,
                  "model": GraphSAGE.from_config(cfg, seed=0, device=device),
                  "cache_size": 65536}
-        t0 = time.perf_counter()
-        rows_a, rows_b = phase1(torch, np, setup)
-        print(f"phase 1: done in {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        phase2(torch, np, device)
-        print(f"phase 2: done in {time.perf_counter() - t0:.1f}s")
-        t0 = time.perf_counter()
-        launches, launches_offline, offline_err = phase3(torch, np, args)
-        print(f"phase 3: done in {time.perf_counter() - t0:.1f}s")
+        with timed("phase 1"):
+            rows_a, rows_b = phase1(torch, np, setup)
+        with timed("phase 2"):
+            phase2(torch, np, device)
+        with timed("phase 3"):
+            launches, launches_offline, offline_err = phase3(torch, np, args)
         del setup, g, part
 
     # phases 4, 6, 7 and 9 train on one graph and partition, built once
     reuse = ReuseGraphs().start()
-    t0 = time.perf_counter()
-    res, launches4 = phase4_main_path(torch, np, TRAIN_VERTICES)
-    print(f"phase 4 (b): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        rows4 = phase4_kernels(torch, np, res)
-    print(f"phase 4 (a): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    cpu_check(torch, np, "phase 4", res)
-    print(f"phase 4 (c): done in {time.perf_counter() - t0:.1f}s")
+    with timed("phase 4 (b)"):
+        res, launches4 = phase4_main_path(torch, np, TRAIN_VERTICES)
+    with timed("phase 4 (a)"):
+        with torch.no_grad():
+            rows4 = phase4_kernels(torch, np, res)
+    with timed("phase 4 (c)"):
+        cpu_check(torch, np, "phase 4", res, worker)()
     # phase 7 trains on phase 4's graph and data: its HEC goes before GAT
     res4 = {k: res[k] for k in ("ps", "data", "cfg", "history", "trainer")}
     ps4 = res["ps"]
     del res
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    with torch.no_grad():
+    with timed("phase 5"), torch.no_grad():
         launches5, rows5_g, rows5_b, microbatches5, chunks5, offline_err5 = \
             phase5(torch, np, args)
-    print(f"phase 5: done in {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    res, launches6 = phase6_main_path(torch, np, TRAIN_VERTICES)
-    print(f"phase 6 (b): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        rows6 = phase6_kernels(torch, np, res)
-    print(f"phase 6 (a): done in {time.perf_counter() - t0:.1f}s")
+    with timed("phase 6 (b)"):
+        res, launches6 = phase6_main_path(torch, np, TRAIN_VERTICES)
+    with timed("phase 6 (a)"):
+        with torch.no_grad():
+            rows6 = phase6_kernels(torch, np, res)
     res["state"] = res["data"] = None      # room for the check's own state
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    batch = None if GAT_CHECK_BATCH == int(TRAIN_ARGS[
-        TRAIN_ARGS.index("--batch") + 1]) else GAT_CHECK_BATCH
-    cpu_check(torch, np, "phase 6", res, batch=batch,
-              noisy_leaves=GAT_CPU_NOISY_LEAVES, exact_relu=True,
-              hec_size=GAT_CHECK_HEC_SIZE)
-    peak_line(torch, "phase 6 (c)")
-    print(f"phase 6 (c): done in {time.perf_counter() - t0:.1f}s")
+    with timed("phase 6 (c) card"):
+        compare6 = cpu_check(torch, np, "phase 6", res, worker)
+        peak_line(torch, "phase 6 (c)")
     del res
     torch.cuda.empty_cache()
+    # GAT at phase 6's 1M-entry HEC (~68 GB) next, before the CPU worker
+    # takes the card for phase 9 (c)
+    launches11, audit_s11 = {}, {}
+    with timed("phase 11 (b)"):
+        launches11["gat"], audit_s11["gat"] = phase11_train(
+            torch, np, "gat", card)
+    with timed("phase 12 (b)"):
+        launches12b = phase12_gat(torch, np, card)
+    worker.go()
 
-    t0 = time.perf_counter()
-    res7, launches7 = phase7_main_path(torch, np, res4)
-    print(f"phase 7 (b): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        rows7 = phase7_kernels(torch, np, res7)
-    print(f"phase 7 (a): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    compared = phase7_check(torch, np, res7)
-    print(f"phase 7 (c): {compared} arrays equal; done in "
-          f"{time.perf_counter() - t0:.1f}s")
+    with timed("phase 7 (b)"):
+        res7, launches7 = phase7_main_path(torch, np, res4)
+    with timed("phase 7 (a)"):
+        with torch.no_grad():
+            rows7 = phase7_kernels(torch, np, res7)
+    with timed("phase 7 (c)"):
+        compared = phase7_check(torch, np, res7)
+        print(f"phase 7 (c): {compared} arrays equal")
     del res7, res4
     torch.cuda.empty_cache()
 
@@ -5281,23 +5804,19 @@ def main(argv=None) -> int:
         for preset in ("graphsage-papers100m", "gat-papers100m"):
             model = preset.split("-")[0]
             tag = f"phase 8 (b) {model}"
-            t0 = time.perf_counter()
-            res8, launches8, rec8, probes8, lookups8 = phase8_main_path(
-                torch, np, args, preset, tag)
-            ANSWERS[f"sharded_{model}"] = (answers(np, res8["serve"]),
-                                           answers(np, res8["repeat"]))
-            ANSWERS[f"sharded_{model}_launches"] = launches8
-            print(f"{tag}: done in {time.perf_counter() - t0:.1f}s")
-            t0 = time.perf_counter()
-            rows_j, rows_b8, rows_f = phase8_kernels(
-                torch, np, res8, probes8, lookups8, f"phase 8 {model}", card)
-            print(f"phase 8 (a) {model}: done in "
-                  f"{time.perf_counter() - t0:.1f}s")
-            t0 = time.perf_counter()
-            replay_err = phase8_replay(torch, np, res8, rec8,
-                                       f"phase 8 {model}")
-            print(f"phase 8 (c) {model}: done in "
-                  f"{time.perf_counter() - t0:.1f}s")
+            with timed(tag):
+                res8, launches8, rec8, probes8, lookups8 = phase8_main_path(
+                    torch, np, args, preset, tag)
+                ANSWERS[f"sharded_{model}"] = (answers(np, res8["serve"]),
+                                               answers(np, res8["repeat"]))
+                ANSWERS[f"sharded_{model}_launches"] = launches8
+            with timed(f"phase 8 (a) {model}"):
+                rows_j, rows_b8, rows_f = phase8_kernels(
+                    torch, np, res8, probes8, lookups8, f"phase 8 {model}",
+                    card)
+            with timed(f"phase 8 (c) {model}"):
+                replay_err = phase8_replay(torch, np, res8, rec8,
+                                           f"phase 8 {model}")
             cfg8, ps8 = res8["cfg"], res8["ps"]
             rounds8 = sum(res8[f"{p}_metrics"]["steps_run"]
                           for p in ("warmup", "serve", "repeat"))
@@ -5310,60 +5829,57 @@ def main(argv=None) -> int:
                               for p in ps8.parts)}
             del res8, rec8, probes8, lookups8
             torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ragged_j = phase8_ragged(torch, np, card)
-        phase8_exact(torch, np)
-        print(f"phase 8 (a, c) ragged and exactness: done in "
-              f"{time.perf_counter() - t0:.1f}s")
+        with timed("phase 8 (a, c) ragged and exactness"):
+            ragged_j = phase8_ragged(torch, np, card)
+            phase8_exact(torch, np)
 
-    t0 = time.perf_counter()
-    launches9 = phase9_main_path(torch, np, ps4, card)
-    print(f"phase 9 (b): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    launches10 = phase10_main_path(torch, np, card)
-    print(f"phase 10 (a, b, d, e): done in {time.perf_counter() - t0:.1f}s")
-    launches11, audit_s11 = {}, {}
-    for model in ("graphsage", "gat"):
-        t0 = time.perf_counter()
-        launches11[model], audit_s11[model] = phase11_train(torch, np, model,
-                                                            card)
-        print(f"phase 11 ({'a' if model == 'graphsage' else 'b'}): done in "
-              f"{time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    launches12a = phase12_train(torch, np, card)
-    print(f"phase 12 (a): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    launches12b = phase12_gat(torch, np, card)
-    print(f"phase 12 (b): done in {time.perf_counter() - t0:.1f}s")
+    with timed("phase 9 (b)"):
+        launches9 = phase9_main_path(torch, np, ps4, card)
+    with timed("phase 10 (a, b, d, e)"):
+        launches10 = phase10_main_path(torch, np, card)
+    with timed("phase 11 (a)"):
+        launches11["graphsage"], audit_s11["graphsage"] = phase11_train(
+            torch, np, "graphsage", card)
+    with timed("phase 12 (a)"):
+        launches12a = phase12_train(torch, np, card)
     reuse.stop()
     del ps4
-    t0 = time.perf_counter()
-    phase9_check(torch, np)
-    print(f"phase 9 (c): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase10_unstaged(torch, np)
-    print(f"phase 10 (c): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        serve11 = phase11_serve(torch, np, args, card)
-    print(f"phase 11 (c): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase11_kernels(torch, np)
-    print(f"phase 11 (d): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        launches12c = phase12_serve(torch, np, args, card)
-    print(f"phase 12 (c): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        phase12_nan(torch, np)
-    print(f"phase 12 (0): done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    launches13 = phase13(torch)
-    print(f"phase 13: done in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase14(torch, np, card)
-    print(f"phase 14: done in {time.perf_counter() - t0:.1f}s")
+    with timed("phase 10 (c)"):
+        phase10_unstaged(torch, np)
+    with timed("phase 11 (c)"):
+        with torch.no_grad():
+            serve11 = phase11_serve(torch, np, args, card)
+    with timed("phase 11 (d)"):
+        phase11_kernels(torch, np)
+    with timed("phase 12 (c)"):
+        with torch.no_grad():
+            launches12c = phase12_serve(torch, np, args, card)
+    with timed("phase 12 (0)"):
+        with torch.no_grad():
+            phase12_nan(torch, np)
+    with timed("phase 6 (c) compare"):
+        compare6()
+    with timed("phase 13"):
+        launches13 = phase13(torch)
+    worker.go("15")             # phase 13's 47 GB are free again
+
+    # phase 14 (a)'s float32 units and phase 15 (a) run in the CPU worker
+    # (both halves); (b) and (c) of phase 15 run their CPU halves in
+    # processes beside phase 14 (b) and (c)
+    procs15 = phase15_start_cpu_runs()
+    with timed("phase 14 (a) bf16 and wide"), torch.no_grad():
+        phase14_bf16_units(torch, np)
+        phase14_wide(torch, np)
+    with timed("phase 14 (b)"), torch.no_grad():
+        phase14_main(torch, np, card)
+    with timed("phase 14 (c)"), torch.no_grad():
+        phase14_swa(torch, np, card)
+    with timed("phase 15 (b, c)"):
+        phase15_entry(torch, card, procs15)
+    with timed("CPU worker wait"):
+        worker_s = worker.finish()
+        print(f"the CPU worker ({', '.join(CPU_WORKER_JOBS)}): "
+              f"{worker_s:.1f} s beside the card phases")
 
     online = [r for r in rows_a if not r["offline"]]
     offline = [r for r in rows_a if r["offline"]]
@@ -5567,6 +6083,9 @@ def main(argv=None) -> int:
               f"{r['ms_over']}), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['launches']} "
               f"launches on the main paths")
+    print(json.dumps({"phase_seconds": PHASE_SECONDS, "build_s": build_s,
+                      "total_s": round(time.perf_counter() - start, 1),
+                      "host_cpus": os.cpu_count()}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,19 @@
-"""Training launcher (counterpart of ``repro/launch/train.py gnn``).
+"""Training launcher (counterpart of ``repro/launch/train.py``).
 
   python -m repro_torch.launch.train gnn [--model graphsage|gat] \\
       --ranks 4 --vertices 20000 --epochs 5 [--device cuda]
+  python -m repro_torch.launch.train lm --arch minitron-4b --steps 20 \\
+      --batch 4 --seq 128 [--device cuda]
+
+``lm`` trains one of the assigned architectures (its reduced config, as
+the reference's ``--reduced``, which is on by default and cannot be
+turned off there either) with Adam from ``init_params(0)``, on tokens
+drawn as the reference draws them (``split`` and ``randint`` of
+``jax.random.key(1)``, frame embeddings from ``normal``, bfloat16-rounded,
+zero patch embeddings), and prints the reference's lines: the loss and
+gradient norm at every tenth step and the last, and the run's seconds.
+``--trace-out`` writes the ``lm_step`` spans (on the card with the
+device's kernels, one track per CUDA stream).
 
 Distributed minibatch GraphSAGE or GAT in ``--mode aep`` (the paper's
 HEC and delayed push, the default), ``sync`` (fresh layer-0 halos
@@ -100,6 +112,19 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "the kernels)")
     add_obs_flags(g)
     add_plane_flags(g, serving=False)
+    g.set_defaults(fn=run_gnn)
+
+    lm = sub.add_parser("lm")
+    lm.add_argument("--arch", required=True)
+    lm.add_argument("--reduced", action="store_true", default=True)
+    lm.add_argument("--steps", type=int, default=20)
+    lm.add_argument("--batch", type=int, default=4)
+    lm.add_argument("--seq", type=int, default=128)
+    lm.add_argument("--lr", type=float, default=3e-4)
+    lm.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    add_obs_flags(lm)
+    lm.set_defaults(fn=run_lm)
     return ap.parse_args(argv)
 
 
@@ -220,9 +245,71 @@ def run_gnn(args, pipeline=None, overlap: bool = True) -> dict:
             "quality": quality, "resilience": rz}
 
 
+def lm_batch(cfg, key, batch: int, seq: int, device) -> dict:
+    """The reference launcher's batch from ``key``: tokens, labels rolled
+    by one, zero bfloat16 patch embeddings, bfloat16 frame embeddings."""
+    import torch
+
+    from repro_torch.models.normal import normal
+    from repro_torch.pipeline import threefry
+    tokens = threefry.randint(key, (batch, seq), 0, cfg.vocab_size,
+                              device=device).long()
+    out = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    if cfg.num_patch_tokens:
+        out["patch_embeds"] = torch.zeros(
+            (batch, cfg.num_patch_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device=device)
+    if cfg.is_encoder_decoder:
+        out["frame_embeds"] = torch.from_numpy(normal(
+            key, (batch, cfg.num_frame_tokens, cfg.d_model))).to(
+                device=device, dtype=torch.bfloat16)
+    return out
+
+
+def run_lm(args) -> dict:
+    """The reference launcher's ``lm`` flow; returns the last step's
+    metrics, the params and the seconds."""
+    from repro_torch import obs
+    from repro_torch.configs import get_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.models.transformer import model as M
+    from repro_torch.pipeline import threefry
+    from repro_torch.train import lm_trainer
+    from repro_torch.train.optimizer import AdamConfig, adam_init
+
+    device = resolve_device(args.device)
+    configure_obs(args)
+    prom = prom_writer(args)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = M.init_params(0, cfg, device)
+    opt = adam_init(M.tree_leaves(params))
+    step = lm_trainer.make_train_step(cfg, AdamConfig(lr=args.lr))
+    rng = threefry.key(1)
+    with device_trace(args, device) as trace:
+        t0 = time.time()
+        for i in range(args.steps):
+            rng, k = threefry.split(rng)
+            batch = lm_batch(cfg, k, args.batch, args.seq, device)
+            with obs.span("lm_step", step=i):
+                params, opt, metrics = step(params, opt, batch)
+            obs.count("lm_tokens", args.batch * args.seq, subsystem="lm")
+            if prom is not None:
+                prom.maybe_write(obs.get().registry)
+            if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
+                print(f"step {i}: loss={float(metrics['loss']):.4f} "
+                      f"gnorm={float(metrics['grad_norm']):.3f}")
+        dt = time.time() - t0
+    print(f"{args.steps} steps in {dt:.1f}s")
+    report_device(trace, "lm training", spans=("lm_step",))
+    finish_obs(prom)
+    return {"cfg": cfg, "params": params, "metrics": metrics, "seconds": dt}
+
+
 def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
-    run_gnn(args)
+    args.fn(args)
 
 
 if __name__ == "__main__":

@@ -120,8 +120,21 @@ def erf_inv_f32(u: np.ndarray) -> np.ndarray:
         return u * p
 
 
+CHUNK = 1 << 18        # elements per erf_inv pass (its temporaries fit L2)
+
+
 def normal(k: threefry.Key, shape: Sequence[int]) -> np.ndarray:
-    """``jax.random.normal(k, shape, jnp.float32)``, bit for bit."""
+    """``jax.random.normal(k, shape, jnp.float32)``, bit for bit.  The
+    elementwise ``erf_inv`` runs over chunks of ``CHUNK`` elements on a
+    thread pool (numpy's ufuncs release the GIL)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
     lo = np.nextafter(F32(-1), F32(0), dtype=F32)
     u = threefry.uniform(k, shape, float(lo), 1.0).numpy()
-    return erf_inv_f32(u) * F32(np.sqrt(2))
+    flat = u.reshape(-1)
+    parts = [flat[i:i + CHUNK] for i in range(0, flat.size, CHUNK)]
+    if len(parts) <= 1:
+        return erf_inv_f32(u) * F32(np.sqrt(2))
+    with ThreadPoolExecutor(min(len(parts), os.cpu_count() or 1)) as pool:
+        out = np.concatenate(list(pool.map(erf_inv_f32, parts)))
+    return out.reshape(u.shape) * F32(np.sqrt(2))

@@ -8,7 +8,8 @@ reference's tree, so weights carry across by name).  The reference scans
 the unit over the stack; here a Python loop takes unit u's slice.
 
 Four entry modes share the block implementations:
-  train   — full-sequence forward, no caches
+  train   — full-sequence forward, no caches (each unit rematerialised
+            in the backward under ``cfg.remat``)
   encode  — encoder stack (bidirectional), audio enc-dec only
   prefill — full-sequence forward that also EMITS per-layer caches
   decode  — one token in, caches consumed and updated IN PLACE
@@ -26,6 +27,7 @@ from typing import Any, Callable, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import base as cfgbase
 from repro_torch.models.normal import F32, normal
@@ -77,6 +79,18 @@ def params_from_reference(tree, device=None, dtype=None) -> Params:
     ``jax.tree_util.tree_map(np.asarray, params)``) as the port's."""
     return tree_map(lambda a: torch.as_tensor(np.array(a)).to(
         device=device, dtype=dtype or torch.float32), tree)
+
+
+def adam_state_from_reference(opt_state, device=None):
+    """The reference's Adam state (``{"mu", "nu", "step"}`` with numpy
+    leaves, e.g. ``jax.tree_util.tree_map(np.asarray, opt_state)``) as the
+    port's ``AdamState``: the moments as float32 lists in the reference's
+    leaf order, the step an int."""
+    from repro_torch.train.optimizer import AdamState
+    moments = lambda t: [torch.as_tensor(np.array(a)).to(  # noqa: E731
+        device=device, dtype=torch.float32) for a in tree_leaves(t)]
+    return AdamState(mu=moments(opt_state["mu"]), nu=moments(opt_state["nu"]),
+                     step=int(np.asarray(opt_state["step"])))
 
 
 def cache_from_reference(caches, device=None):
@@ -356,22 +370,55 @@ def _store(dst: torch.Tensor, src: torch.Tensor) -> None:
         dst.copy_(src)
 
 
+def _rebuild(like, it):
+    """A tree shaped as ``like`` whose leaves are taken from ``it`` in
+    :func:`tree_leaves`' order (dict keys kept in ``like``'s order)."""
+    if isinstance(like, dict):
+        vals = {k: _rebuild(like[k], it) for k in sorted(like)}
+        return {k: vals[k] for k in like}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(t, it) for t in like)
+    return next(it)
+
+
+def _units(seg_params, count: int) -> list:
+    """Each unit's slice of the stacked params: one ``unbind`` per leaf,
+    whose backward stacks the units' gradients in one op (``a[u]`` per
+    unit would add a zero tensor of the whole stack per unit)."""
+    parts = [a.unbind(0) for a in tree_leaves(seg_params)]
+    return [_rebuild(seg_params, iter([p[u] for p in parts]))
+            for u in range(count)]
+
+
 def _run_segment(seg_params, x, cfg, pattern, mode, positions,
                  seg_cache=None, pos=None, enc_out=None, causal=True):
     """Applies the unit to each of its stacked params in turn.  Returns
     (x, caches): prefill stacks the units' new caches; decode writes them
-    into ``seg_cache`` in place and returns it."""
+    into ``seg_cache`` in place and returns it.  In train mode with
+    ``cfg.remat`` (the reference's ``jax.checkpoint`` of the unit body)
+    each unit runs under ``torch.utils.checkpoint`` while autograd
+    records: only its input is kept, its activations are recomputed in
+    the backward."""
     count = tree_leaves(seg_params)[0].shape[0]
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     built = []
-    for u in range(count):
-        up = tree_map(lambda a: a[u], seg_params)
+    for u, up in enumerate(_units(seg_params, count)):
         uc = tree_map(lambda a: a[u], seg_cache) if mode == "decode" else None
-        new_uc = {}
-        for i, bt in enumerate(pattern):
-            bc = uc[f"b{i}"] if uc is not None else None
-            x, nc = _apply_block(up[f"b{i}"], x, cfg, bt, positions, mode,
-                                 bc, pos, enc_out, causal=causal)
-            new_uc[f"b{i}"] = nc
+
+        def body(x, up=up, uc=uc):
+            new_uc = {}
+            for i, bt in enumerate(pattern):
+                bc = uc[f"b{i}"] if uc is not None else None
+                x, nc = _apply_block(up[f"b{i}"], x, cfg, bt, positions,
+                                     mode, bc, pos, enc_out, causal=causal)
+                new_uc[f"b{i}"] = nc
+            return x, new_uc
+
+        if remat:
+            x = checkpoint(lambda x, body=body: body(x)[0], x,
+                           use_reentrant=False)
+            continue
+        x, new_uc = body(x)
         if mode == "decode":
             tree_map(_store, uc, new_uc)
         elif mode == "prefill":

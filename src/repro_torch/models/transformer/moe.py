@@ -140,3 +140,17 @@ def _dispatch_gather(params, xg, gates, expert_idx, pos, keep, E, C):
     y_k = y_k.reshape(G, S, K, d) * torch.where(
         keep, gates, torch.zeros((), dtype=gates.dtype, device=dev))[..., None]
     return y_k.sum(dim=2)
+
+
+def moe_aux_loss(params, x, cfg):
+    """Load-balance auxiliary loss (Switch): E * sum_e f_e * p_e, over the
+    whole batch as one group (the reference's train step does not call
+    it either)."""
+    B, T, d = x.shape
+    xg = x.reshape(1, B * T, d)
+    logits = xg.float() @ params["router"].to(x.dtype).float()
+    probs = torch.softmax(logits, dim=-1)
+    _, top_idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    frac = one_hot(top_idx[..., :cfg.top_k], cfg.num_experts,
+                   torch.float32).sum(2).mean(dim=(0, 1))
+    return cfg.num_experts * torch.sum(frac * probs.mean(dim=(0, 1)))

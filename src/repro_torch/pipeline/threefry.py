@@ -51,6 +51,8 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 Key = Tuple[int, int]
+# many keys at once: the two words of each, as int32 tensors of their bits
+Keys = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _rotl(v: int, r: int) -> int:
@@ -118,20 +120,28 @@ def _i32(c: int) -> int:
     return c - (1 << 32) if c >> 31 else c
 
 
-def threefry2x32_tensor(key: Key, x0: torch.Tensor,
+def _add(x: torch.Tensor, w, c: int = 0) -> torch.Tensor:
+    """``x`` plus the u32 word ``w`` (an int, or an int32 tensor of the
+    words' bits) plus ``c``, wrapping as u32 adds do."""
+    return x + (w + c if torch.is_tensor(w) else _i32(w + c))
+
+
+def threefry2x32_tensor(key, x0: torch.Tensor,
                         x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`threefry2x32` elementwise over the count words ``x0``, ``x1``:
     int32 tensors holding the u32 words' bits (adds wrap as u32 adds do;
-    a right shift is masked to make it logical), on their device."""
+    a right shift is masked to make it logical), on their device.  The
+    key's words are ints, or int32 tensors that broadcast with the counts
+    (a key per element, :data:`Keys`)."""
     ks = (key[0], key[1], key[0] ^ key[1] ^ _PARITY)
-    x0 = x0 + _i32(ks[0])
-    x1 = x1 + _i32(ks[1])
+    x0 = _add(x0, ks[0])
+    x1 = _add(x1, ks[1])
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0 += x1
+            x0 = x0 + x1
             x1 = ((x1 << r) | ((x1 >> (32 - r)) & ((1 << r) - 1))) ^ x0
-        x0 += _i32(ks[(i + 1) % 3])
-        x1 += _i32(ks[(i + 2) % 3] + i + 1)
+        x0 = _add(x0, ks[(i + 1) % 3])
+        x1 = _add(x1, ks[(i + 2) % 3], i + 1)
     return x0, x1
 
 
@@ -155,6 +165,15 @@ def random_bits(k: Key, shape: Sequence[int],
     return (o0 ^ o1).reshape(tuple(shape))
 
 
+def _uniform_bits(bits: torch.Tensor, minval: float,
+                  maxval: float) -> torch.Tensor:
+    lo = np.float32(minval)
+    scale = np.float32(np.float32(maxval) - lo)
+    f = (((bits >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32) - 1.0
+    u = (f.double() * float(scale) + float(lo)).float()
+    return torch.clamp_min(u, float(lo))
+
+
 def uniform(k: Key, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0, device=None) -> torch.Tensor:
     """``jax.random.uniform(k, shape, jnp.float32, minval, maxval)``, bit
@@ -165,12 +184,23 @@ def uniform(k: Key, shape: Sequence[int], minval: float = 0.0,
     the bounds the port draws with (``f - 1`` is a multiple of 2^-23, so
     the product and the sum fit in 53 bits), and are rounded to float32
     once."""
-    lo = np.float32(minval)
-    scale = np.float32(np.float32(maxval) - lo)
-    bits = random_bits(k, shape, device)
-    f = (((bits >> 9) & 0x7FFFFF) | 0x3F800000).view(torch.float32) - 1.0
-    u = (f.double() * float(scale) + float(lo)).float()
-    return torch.clamp_min(u, float(lo))
+    return _uniform_bits(random_bits(k, shape, device), minval, maxval)
+
+
+def _randint_check(minval: int, maxval: int) -> None:
+    if not 0 <= minval < maxval < 2 ** 31:
+        raise ValueError(f"randint over [{minval}, {maxval}) is outside "
+                         f"what is drawn here")
+
+
+def _randint_bits(hi: torch.Tensor, lo: torch.Tensor, minval: int,
+                  maxval: int) -> torch.Tensor:
+    hi = hi.long() & _U32
+    lo = lo.long() & _U32
+    span = maxval - minval
+    mult = ((2 ** 16 % span) ** 2 & _U32) % span
+    off = (((hi % span) * mult & _U32) + lo % span) & _U32
+    return (minval + off % span).int()
 
 
 def randint(k: Key, shape: Sequence[int], minval: int, maxval: int,
@@ -180,13 +210,46 @@ def randint(k: Key, shape: Sequence[int], minval: int, maxval: int,
     ``split(k)``'s two keys, ``hi % span * ((2^16 % span)^2 % span) + lo %
     span`` with every product and sum wrapping as a u32, then ``% span``,
     plus ``minval``."""
-    if not 0 <= minval < maxval < 2 ** 31:
-        raise ValueError(f"randint over [{minval}, {maxval}) is outside "
-                         f"what is drawn here")
+    _randint_check(minval, maxval)
     k1, k2 = split(k, 2)
-    hi = random_bits(k1, shape, device).long() & _U32
-    lo = random_bits(k2, shape, device).long() & _U32
-    span = maxval - minval
-    mult = ((2 ** 16 % span) ** 2 & _U32) % span
-    off = (((hi % span) * mult & _U32) + lo % span) & _U32
-    return (minval + off % span).int()
+    return _randint_bits(random_bits(k1, shape, device),
+                         random_bits(k2, shape, device), minval, maxval)
+
+
+# ---------------------------------------------------------------------------
+# a key per row: [K] keys, n draws each, in one pass
+# ---------------------------------------------------------------------------
+def fold_in_keys(k: Key, xs: torch.Tensor) -> Keys:
+    """``fold_in(k, x)`` for every x of the int32 tensor ``xs``."""
+    return threefry2x32_tensor(k, torch.zeros_like(xs), xs)
+
+
+def split_keys(keys: Keys, num: int = 2) -> List[Keys]:
+    """``split`` of each key: ``num`` :data:`Keys` of the keys' shape."""
+    i = torch.arange(num, dtype=torch.int32, device=keys[0].device)
+    o0, o1 = threefry2x32_tensor((keys[0][..., None], keys[1][..., None]),
+                                 torch.zeros_like(i), i)
+    return [(o0[..., j], o1[..., j]) for j in range(num)]
+
+
+def random_bits_keys(keys: Keys, n: int) -> torch.Tensor:
+    """``random_bits(key, (n,))`` of each key, stacked: [*keys' shape, n]."""
+    i = torch.arange(n, dtype=torch.int32, device=keys[0].device)
+    o0, o1 = threefry2x32_tensor((keys[0][..., None], keys[1][..., None]),
+                                 torch.zeros_like(i), i)
+    return o0 ^ o1
+
+
+def randint_keys(keys: Keys, n: int, minval: int,
+                 maxval: int) -> torch.Tensor:
+    """``randint(key, (n,), minval, maxval)`` of each key, stacked."""
+    _randint_check(minval, maxval)
+    k1, k2 = split_keys(keys, 2)
+    return _randint_bits(random_bits_keys(k1, n), random_bits_keys(k2, n),
+                         minval, maxval)
+
+
+def uniform_keys(keys: Keys, n: int, minval: float = 0.0,
+                 maxval: float = 1.0) -> torch.Tensor:
+    """``uniform(key, (n,), minval, maxval)`` of each key, stacked."""
+    return _uniform_bits(random_bits_keys(keys, n), minval, maxval)

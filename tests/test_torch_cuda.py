@@ -1935,3 +1935,60 @@ def test_lm_bf16_card_matches_cpu(dev, arch, monkeypatch):
     monkeypatch.undo()
     assert float((attn_c == want_attn).float().mean()) < 0.99
     assert _lm_rms(got_c, want) > 0.65 * dist
+
+
+def lm_train_step(cfg, params, batch, steps=2):
+    """``steps`` train steps (Adam, lr 3e-4) from ``params``, in place:
+    each step's loss and gradient norm, then the leaves and moments."""
+    from repro_torch.models.transformer import model as M
+    from repro_torch.train import lm_trainer as L
+    from repro_torch.train import optimizer as O
+    opt = O.adam_init(M.tree_leaves(params))
+    step = L.make_train_step(cfg, O.AdamConfig(lr=3e-4))
+    metrics = []
+    for _ in range(steps):
+        _, _, m = step(params, opt, batch)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, M.tree_leaves(params) + opt.mu + opt.nu
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ["minitron-4b", "mixtral-8x7b"])
+def test_lm_train_step_card_matches_cpu(dev, arch, remat):
+    """The reduced train step (float32, two steps) on the card against the
+    CPU from the same weights: loss and gradient norm within 1e-4 *
+    max(1, |x|), every parameter and moment likewise (Adam's lr 3e-4
+    bounds what a gradient near its eps moves a parameter by); with remat
+    the card's own step without remat bit for bit."""
+    import dataclasses as dc
+    from repro_torch.models.transformer import model as M
+    cfg, params = lm_setup(arch, dev)
+    cfg = dc.replace(cfg, remat=remat)
+    batch = lm_batch(cfg, 2, 16, dev)
+    batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+    host = {k: v.cpu() for k, v in batch.items()}
+    card = M.tree_map(lambda a: a.to(dev), params)
+    got_m, got = lm_train_step(cfg, card, batch)
+    want_m, want = lm_train_step(cfg, params, host)
+    for (gl, gn), (wl, wn) in zip(got_m, want_m):
+        assert abs(gl - wl) <= 1e-4 * max(1, abs(wl))
+        assert abs(gn - wn) <= 1e-4 * max(1, abs(wn))
+    assert max(lm_err(a, b) for a, b in zip(got, want)) <= 1e-4
+    if remat:
+        plain = M.tree_map(lambda a: a.to(dev), lm_setup(arch, dev)[1])
+        plain_m, plain_leaves = lm_train_step(dc.replace(cfg, remat=False),
+                                              plain, batch)
+        assert plain_m == got_m
+        assert all(torch.equal(a, b) for a, b in zip(got, plain_leaves))
+
+
+def test_lm_train_entry_points_raise_without_card(monkeypatch):
+    """Without a card, the train step's entry points refuse the default
+    device rather than fall back to the CPU."""
+    from repro_torch.launch import train
+    from repro_torch.train.data import TokenStream
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["lm", "--arch", "minitron-4b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TokenStream(vocab_size=10, batch=1, seq=4)

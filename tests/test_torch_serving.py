@@ -399,7 +399,7 @@ def forbidden(name: str) -> bool:
 
 
 EXAMPLES = ("quickstart", "distributed_gat", "serve_gnn", "serve_gnn_dist",
-            "serve_lm", "batch_serve")
+            "serve_lm", "batch_serve", "train_lm")
 
 
 def test_port_never_imports_jax_or_repro_ast():
